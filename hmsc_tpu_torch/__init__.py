@@ -1,0 +1,23 @@
+"""hmsc_tpu_torch — the PyTorch/CUDA port of ``hmsc_tpu`` for NVIDIA Hopper
+(H100, sm_90a).
+
+Requires PyTorch (``torch`` is not a dependency of the ``hmsc-tpu``
+distribution: install it for your CUDA toolkit) and, to build the
+hand-written kernels under ``csrc/``, the CUDA toolkit's ``nvcc``.  The port
+imports neither JAX nor the ``hmsc_tpu`` package; the numpy host modules it
+needs (model specification, formulas, random levels, initial values,
+posterior container) are copied into it.
+
+This slice samples probit and normal JSDMs with a design matrix, optional
+traits and unstructured random levels (``sample_mcmc``).  Entry points run
+on the CUDA card unless the caller passes ``device="cpu"``; features of
+later slices raise ``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from .model import Hmsc
+from .random_level import HmscRandomLevel, set_priors_random_level
+from .mcmc.sampler import sample_mcmc
+from .post import Posterior
+
+__all__ = ["Hmsc", "HmscRandomLevel", "set_priors_random_level",
+           "sample_mcmc", "Posterior"]

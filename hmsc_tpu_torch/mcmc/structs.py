@@ -1,0 +1,374 @@
+"""Core structures of the Gibbs engine (port of ``hmsc_tpu/mcmc/structs.py``).
+
+- ``ModelSpec`` / ``LevelSpec``: static, hashable metadata (shapes, flags),
+  copied from the JAX package.
+- ``ModelData`` / ``LevelData``: constant tensors on the device (data and
+  priors), shared by every chain.
+- ``GibbsState`` / ``LevelState``: the Markov-chain state, one tensor per
+  field with a LEADING CHAIN AXIS (the JAX package vmaps a chainless state
+  instead).  Factor blocks are allocated at the static ``nf_max`` with an
+  active-factor mask, exactly as in the JAX package.
+
+``data_from_numpy`` / ``state_from_numpy`` take the JAX package's
+``ModelData`` / ``GibbsState`` flattened to numpy arrays (keyed by field
+name, per-level fields as ``levels.<r>.<field>``), so the tests can start
+both engines from byte-identical inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..model import FIXED_SIGMA2, Hmsc
+from ..precompute import DataParams, compute_initial_parameters
+
+__all__ = ["LevelSpec", "ModelSpec", "LevelData", "ModelData", "LevelState",
+           "GibbsState", "build_spec", "build_model_data", "build_state",
+           "stack_states", "data_from_numpy", "state_from_numpy",
+           "check_supported", "DEFAULT_NF_CAP"]
+
+# static cap on latent factors per level (reference grows nf up to ns,
+# updateNf.R:26; the preallocated factor blocks need a concrete bound)
+DEFAULT_NF_CAP = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelSpec:
+    name: str
+    n_units: int
+    nf_max: int
+    nf_min: int
+    ncr: int                      # max(x_dim, 1)
+    x_dim: int
+    spatial: str | None           # None | 'Full' | 'NNGP' | 'GPP'
+    n_alpha: int                  # alpha-grid size (0 if non-spatial)
+    n_neighbours: int = 0
+    n_knots: int = 0
+    # True when nf_max was cut below the user's prior bound min(rL.nf_max,
+    # ns) by the static nf_cap — only then is blocked factor growth a cap
+    # artifact worth warning about (a deliberate nf_min=nf_max freeze is not)
+    nf_capped: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    ny: int
+    ns: int
+    nc: int
+    nt: int
+    nr: int
+    n_rho: int
+    has_phylo: bool
+    has_na: bool
+    x_is_list: bool
+    any_normal: bool
+    any_probit: bool
+    any_poisson: bool
+    any_estimated_sigma: bool
+    homoskedastic_fixed: bool
+    f0: float
+    ncsel: int
+    nc_rrr: int
+    nc_orrr: int
+    nc_nrrr: int
+    levels: tuple[LevelSpec, ...]
+
+    @property
+    def nf_total(self) -> int:
+        """Total stacked factor columns across levels: sum nf_max * ncr."""
+        return sum(l.nf_max * l.ncr for l in self.levels)
+
+
+class _Replace:
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass
+class LevelData(_Replace):
+    pi_row: Any                  # (ny,) int64 unit index per row
+    unit_count: Any              # (np,) rows per unit
+    x_row: Any                   # (ny, ncr) ones (x_dim = 0)
+    x_unit: Any                  # (np, ncr)
+    nu: Any                      # (ncr,) shrinkage hyperparams
+    a1: Any
+    b1: Any
+    a2: Any
+    b2: Any
+
+
+@dataclasses.dataclass
+class ModelData(_Replace):
+    Y: Any                       # (ny, ns)
+    Ymask: Any                   # (ny, ns) 1.0 observed
+    X: Any                       # (ny, nc)
+    Tr: Any                      # (ns, nt)
+    distr_family: Any            # (ns,) int32
+    distr_estsig: Any            # (ns,) 1.0 where dispersion estimated
+    sigma_fixed: Any             # (ns,) fixed sigma^2 values for the rest
+    mGamma: Any                  # (nc*nt,)
+    iUGamma: Any                 # (nc*nt, nc*nt)
+    UGamma: Any                  # (nc*nt, nc*nt)
+    V0: Any                      # (nc, nc)
+    aSigma: Any                  # (ns,)
+    bSigma: Any                  # (ns,)
+    levels: tuple = ()
+    x_scale_par: Any = None      # (2, nc)
+    tr_scale_par: Any = None     # (2, nt)
+    y_scale_par: Any = None      # (2, ns)
+    x_intercept_ind: int | None = None
+    tr_intercept_ind: int | None = None
+    # first all-ones column of the scaled design (the named intercept when
+    # present, else detected by value): the column the location interweave
+    # shifts.  Without the by-value detection the move silently turns off
+    # for raw-matrix designs whose first column is ones.
+    x_ones_ind: int | None = None
+
+
+@dataclasses.dataclass
+class LevelState(_Replace):
+    Eta: Any                     # (C, np, nf_max)
+    Lambda: Any                  # (C, nf_max, ns, ncr)
+    Psi: Any                     # (C, nf_max, ns, ncr)
+    Delta: Any                   # (C, nf_max, ncr); 1.0 on inactive slots
+    alpha_idx: Any               # (C, nf_max) int32
+    nf_mask: Any                 # (C, nf_max) 1.0 active
+    nf_sat: Any                  # (C,) int32 blocked factor-growth attempts
+
+
+@dataclasses.dataclass
+class GibbsState(_Replace):
+    Z: Any                       # (C, ny, ns) latent response
+    Beta: Any                    # (C, nc, ns)
+    Gamma: Any                   # (C, nc, nt)
+    iV: Any                      # (C, nc, nc)
+    rho_idx: Any                 # (C,) int32
+    iSigma: Any                  # (C, ns) residual precisions
+    levels: tuple                # tuple[LevelState]
+    it: Any                      # (C,) int32 sweep counter (1-based)
+
+    @property
+    def n_chains(self) -> int:
+        return int(self.Z.shape[0])
+
+    def float_tensors(self):
+        """Every floating-point field (the divergence tracker's scope)."""
+        out = [self.Z, self.Beta, self.Gamma, self.iV, self.iSigma]
+        for lv in self.levels:
+            out += [lv.Eta, lv.Lambda, lv.Psi, lv.Delta, lv.nf_mask]
+        return out
+
+
+# ---------------------------------------------------------------------------
+
+def check_supported(hM: Hmsc, spec: ModelSpec) -> None:
+    """Raise NotImplementedError for a model feature this slice of the port
+    does not sample, naming the ROADMAP item that brings it.  Nothing falls
+    back to another path."""
+    checks = (
+        (spec.any_poisson, "Poisson observation models (ROADMAP A4)"),
+        (spec.has_na, "missing values in Y (ROADMAP A4)"),
+        (spec.has_phylo, "phylogeny (ROADMAP A5)"),
+        (spec.x_is_list, "per-species X lists (ROADMAP A5)"),
+        (any(ls.x_dim > 0 for ls in spec.levels),
+         "covariate-dependent random levels, x_dim > 0 (ROADMAP A5)"),
+        (any(ls.spatial is not None for ls in spec.levels),
+         "spatial random levels (ROADMAP A6)"),
+        (spec.ncsel > 0, "variable selection (ROADMAP A7)"),
+        (spec.nc_rrr > 0, "reduced-rank regression (ROADMAP A7)"),
+    )
+    for bad, what in checks:
+        if bad:
+            raise NotImplementedError(f"{what} is not ported yet")
+
+
+def build_spec(hM: Hmsc, nf_cap: int = DEFAULT_NF_CAP) -> ModelSpec:
+    level_specs = []
+    for r in range(hM.nr):
+        rL = hM.ranLevels[r]
+        nf_max = int(min(rL.nf_max, hM.ns, nf_cap))
+        nf_min = int(min(rL.nf_min, nf_max))
+        spatial = rL.spatial_method if rL.s_dim != 0 else None
+        level_specs.append(LevelSpec(
+            name=hM.rl_names[r], n_units=int(hM.np_[r]), nf_max=nf_max,
+            nf_min=nf_min, ncr=max(rL.x_dim, 1), x_dim=rL.x_dim,
+            nf_capped=nf_max < min(rL.nf_max, hM.ns),
+            spatial=spatial,
+            n_alpha=0 if spatial is None else rL.alphapw.shape[0],
+            n_neighbours=int(rL.n_neighbours or 10) if spatial == "NNGP" else 0,
+            n_knots=0 if rL.s_knot is None else int(np.asarray(rL.s_knot).shape[0]),
+        ))
+    est = hM.distr[:, 1] == 1
+    fixed_vals = np.array([FIXED_SIGMA2[int(f)] for f in hM.distr[:, 0]])
+    homo = (not est.any()) and bool(np.all(fixed_vals == fixed_vals[0]))
+    return ModelSpec(
+        ny=hM.ny, ns=hM.ns, nc=hM.nc, nt=hM.nt, nr=hM.nr,
+        n_rho=0 if hM.C is None else hM.rhopw.shape[0],
+        has_phylo=hM.C is not None,
+        has_na=bool(np.isnan(hM.Y).any()),
+        x_is_list=hM.x_is_list,
+        any_normal=bool((hM.distr[:, 0] == 1).any()),
+        any_probit=bool((hM.distr[:, 0] == 2).any()),
+        any_poisson=bool((hM.distr[:, 0] == 3).any()),
+        any_estimated_sigma=bool(est.any()),
+        homoskedastic_fixed=homo,
+        f0=float(hM.f0),
+        ncsel=hM.ncsel, nc_rrr=hM.nc_rrr, nc_orrr=hM.nc_orrr,
+        nc_nrrr=hM.nc_nrrr,
+        levels=tuple(level_specs),
+    )
+
+
+def _find_ones_column(hM) -> int | None:
+    """First all-ones column of the scaled design the sampler runs on (the
+    shiftable direction the interweaving moves need).  Prefers the named
+    intercept; otherwise detects by value.  None for per-species X lists."""
+    if hM.x_intercept_ind is not None:
+        return int(hM.x_intercept_ind)
+    Xs = np.asarray(hM.XScaled)
+    if Xs.ndim != 2:
+        return None
+    ones = np.nonzero(np.all(Xs == 1.0, axis=0))[0]
+    return int(ones[0]) if ones.size else None
+
+
+def build_model_data(hM: Hmsc, data_par: DataParams, spec: ModelSpec,
+                     device, dtype=torch.float32) -> ModelData:
+    """Assemble the constant tensors from the host spec, on ``device``."""
+    d = {}
+    Y = np.asarray(hM.YScaled, dtype=float)
+    d["Y"] = np.nan_to_num(Y, nan=0.0)
+    d["Ymask"] = (~np.isnan(Y)).astype(float)
+    d["X"], d["Tr"] = hM.XScaled, hM.TrScaled
+    d["distr_family"] = np.asarray(hM.distr[:, 0], dtype=np.int32)
+    d["distr_estsig"] = (hM.distr[:, 1] == 1).astype(float)
+    d["sigma_fixed"] = np.array([FIXED_SIGMA2[int(f)] for f in hM.distr[:, 0]])
+    d["mGamma"], d["UGamma"] = hM.mGamma, hM.UGamma
+    d["iUGamma"] = np.linalg.inv(hM.UGamma)
+    d["V0"], d["aSigma"], d["bSigma"] = hM.V0, hM.aSigma, hM.bSigma
+    d["x_scale_par"], d["tr_scale_par"] = hM.x_scale_par, hM.tr_scale_par
+    d["y_scale_par"] = hM.y_scale_par
+    d["x_intercept_ind"] = hM.x_intercept_ind
+    d["tr_intercept_ind"] = hM.tr_intercept_ind
+    d["x_ones_ind"] = _find_ones_column(hM)
+    for r in range(hM.nr):
+        rL, ls = hM.ranLevels[r], spec.levels[r]
+        pi = hM.Pi[:, r]
+        pre = f"levels.{r}."
+        d[pre + "pi_row"] = pi
+        d[pre + "unit_count"] = np.bincount(pi, minlength=ls.n_units)
+        d[pre + "x_row"] = np.ones((hM.ny, 1))
+        d[pre + "x_unit"] = np.ones((ls.n_units, 1))
+        for k in ("nu", "a1", "b1", "a2", "b2"):
+            d[pre + k] = getattr(rL, k)
+    return data_from_numpy(d, device, dtype)
+
+
+def build_state(hM: Hmsc, spec: ModelSpec, seed: int, device,
+                dtype=torch.float32) -> GibbsState:
+    """One chain's initial state (a chain axis of length 1), drawn from the
+    same numpy stream as the JAX package's ``build_state`` — Z starts at
+    the linear predictor; the sampler runs update_z once before sweeping."""
+    rng = np.random.default_rng(seed)
+    nf_max = [ls.nf_max for ls in spec.levels]
+    p = compute_initial_parameters(hM, nf_max, rng)
+
+    Beta = np.asarray(p["Beta"], dtype=float)
+    L = np.asarray(hM.XScaled) @ Beta
+    s = {}
+    for r in range(spec.nr):
+        lv = p["levels"][r]
+        lam = lv["Lambda"] * lv["nf_mask"][:, None, None]
+        eta_rows = lv["Eta"][hM.Pi[:, r]]
+        L = L + np.einsum("yf,yk,fjk->yj", eta_rows, np.ones((hM.ny, 1)), lam)
+        for k in ("Eta", "Lambda", "Psi", "Delta", "alpha_idx", "nf_mask"):
+            s[f"levels.{r}.{k}"] = np.asarray(lv[k])[None]
+        s[f"levels.{r}.nf_sat"] = np.zeros(1, dtype=np.int32)
+    s.update(Z=L[None], Beta=Beta[None], Gamma=np.asarray(p["Gamma"])[None],
+             iV=np.linalg.inv(p["V"])[None],
+             rho_idx=np.asarray([p["rho_idx"]], dtype=np.int32),
+             iSigma=(1.0 / np.asarray(p["sigma"], dtype=float))[None],
+             it=np.zeros(1, dtype=np.int32))
+    return state_from_numpy(s, device, dtype)
+
+
+def stack_states(states) -> GibbsState:
+    """Concatenate single- or multi-chain states along the chain axis."""
+    def cat(getter):
+        return torch.cat([getter(s) for s in states], dim=0)
+
+    first = states[0]
+    levels = tuple(
+        LevelState(**{f.name: cat(lambda s, r=r, n=f.name:
+                                  getattr(s.levels[r], n))
+                      for f in dataclasses.fields(LevelState)})
+        for r in range(len(first.levels)))
+    return GibbsState(**{f.name: (levels if f.name == "levels" else
+                                  cat(lambda s, n=f.name: getattr(s, n)))
+                         for f in dataclasses.fields(GibbsState)})
+
+
+# ---------------------------------------------------------------------------
+# numpy <-> tensors
+# ---------------------------------------------------------------------------
+
+_INT_FIELDS = {"pi_row": torch.int64, "distr_family": torch.int32,
+               "alpha_idx": torch.int32, "nf_sat": torch.int32,
+               "rho_idx": torch.int32, "it": torch.int32}
+_INDEX_FIELDS = {"x_intercept_ind", "tr_intercept_ind", "x_ones_ind"}
+
+
+def _tensor(name, a, device, dtype):
+    # a copy: the port's tensors never alias the caller's arrays
+    return torch.tensor(np.asarray(a), dtype=_INT_FIELDS.get(name, dtype),
+                        device=device)
+
+
+def _split_levels(d: dict):
+    top, levels = {}, {}
+    for k, v in d.items():
+        if k.startswith("levels."):
+            _, r, field = k.split(".", 2)
+            levels.setdefault(int(r), {})[field] = v
+        else:
+            top[k] = v
+    return top, [levels[r] for r in sorted(levels)]
+
+
+def data_from_numpy(d: dict, device, dtype=torch.float32) -> ModelData:
+    """``ModelData`` from numpy arrays keyed by field name (per-level fields
+    as ``levels.<r>.<field>``).  Fields the port does not use are ignored;
+    intercept indices may be None or integer scalars."""
+    top, lvls = _split_levels(d)
+    names = {f.name for f in dataclasses.fields(LevelData)}
+    levels = tuple(LevelData(**{k: _tensor(k, v, device, dtype)
+                                for k, v in lv.items() if k in names})
+                   for lv in lvls)
+    kw = {}
+    for f in dataclasses.fields(ModelData):
+        if f.name == "levels" or f.name not in top:
+            continue
+        v = top[f.name]
+        if f.name in _INDEX_FIELDS:
+            kw[f.name] = None if v is None else int(np.asarray(v))
+        else:
+            kw[f.name] = None if v is None else _tensor(f.name, v, device,
+                                                        dtype)
+    return ModelData(levels=levels, **kw)
+
+
+def state_from_numpy(s: dict, device, dtype=torch.float32) -> GibbsState:
+    """``GibbsState`` from numpy arrays with a leading chain axis, keyed by
+    field name (per-level fields as ``levels.<r>.<field>``)."""
+    top, lvls = _split_levels(s)
+    lnames = {f.name for f in dataclasses.fields(LevelState)}
+    levels = tuple(LevelState(**{k: _tensor(k, v, device, dtype)
+                                 for k, v in lv.items() if k in lnames})
+                   for lv in lvls)
+    names = {f.name for f in dataclasses.fields(GibbsState)} - {"levels"}
+    return GibbsState(levels=levels,
+                      **{k: _tensor(k, top[k], device, dtype) for k in names})

@@ -1,0 +1,211 @@
+"""One Gibbs sweep in the reference's fixed update order (port of the
+main-path part of ``hmsc_tpu/mcmc/sweep.py``).
+
+The sweep is a list of named blocks run in order, each ``block(data, carry,
+rng, noise) -> carry`` with the carry ``(state, E_shared)``: ``E_shared`` is
+the linear predictor computed at the end of the Eta block and read by
+InvSigma and Z (the interweaving moves leave the product Eta Lambda + X
+Beta invariant, so it is not recomputed).  Updaters can be disabled with
+the ``updater`` toggle dict, as in the JAX package
+(``updater={"Interweave": False}``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import updaters as U
+from .structs import GibbsState, ModelData, ModelSpec
+
+__all__ = ["make_sweep_schedule", "make_sweep", "sweep_prologue",
+           "record_sample"]
+
+# opt-in updaters of the JAX package that this slice does not port
+_NOT_PORTED = {"Gamma2": "A7", "GammaEta": "A7", "InterweaveDA": "A7"}
+
+
+def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
+                        adapt_nf: tuple | None = None):
+    """The ordered ``(name, block)`` list one sweep comprises."""
+    updater = updater or {}
+    on = lambda name: updater.get(name, True) is not False
+    for name, item in _NOT_PORTED.items():
+        if updater.get(name) is True:
+            raise NotImplementedError(
+                f"updater {name!r} is not ported yet (ROADMAP {item})")
+    adapt_nf = adapt_nf or tuple(0 for _ in range(spec.nr))
+    steps = []
+
+    if on("BetaLambda"):
+        def _beta_lambda(data, carry, rng, noise):
+            state, E = carry
+            return U.update_beta_lambda(spec, data, state, rng, noise), E
+        steps.append(("BetaLambda", _beta_lambda))
+
+    if on("GammaV"):
+        def _gamma_v(data, carry, rng, noise):
+            state, E = carry
+            return U.update_gamma_v(spec, data, state, rng, noise), E
+        steps.append(("GammaV", _gamma_v))
+
+    if on("LambdaPriors"):
+        def _lambda_priors(data, carry, rng, noise):
+            state, E = carry
+            return U.update_lambda_priors(spec, data, state, rng, noise), E
+        steps.append(("LambdaPriors", _lambda_priors))
+
+    if on("Eta") and spec.nr > 0:
+        def _eta(data, carry, rng, noise):
+            state, _ = carry
+            LFix = U.linear_fixed(spec, data, state.Beta)
+            LRan = [U.level_loading(data.levels[r], state.levels[r])
+                    if spec.nr > 1 else None for r in range(spec.nr)]
+            for r in range(spec.nr):
+                S = state.Z - LFix
+                for q in range(spec.nr):
+                    if q != r:
+                        S = S - LRan[q]
+                lv = U.update_eta_nonspatial(
+                    spec, data, state, r, rng, S,
+                    None if noise is None else noise[r])
+                levels = list(state.levels)
+                levels[r] = lv
+                state = state.replace(levels=tuple(levels))
+                LRan[r] = U.level_loading(data.levels[r], state.levels[r])
+            E = LFix
+            for r in range(spec.nr):
+                E = E + LRan[r]
+            return state, E
+        steps.append(("Eta", _eta))
+
+    # per-factor (Eta, Lambda) scale and (Eta, Beta_intercept) location
+    # interweaving: both leave the linear predictor invariant, so E_shared
+    # stays valid; gated on the updaters they perturb
+    iw_ok = spec.nr > 0 and on("Eta") and on("BetaLambda")
+    if iw_ok and (on("Interweave") or on("InterweaveLocation")):
+        def _interweave(data, carry, rng, noise):
+            state, E = carry
+            if on("Interweave"):
+                state = U.interweave_scale(
+                    spec, data, state, rng,
+                    None if noise is None else noise["scale"])
+            if on("InterweaveLocation"):
+                state = U.interweave_location(
+                    spec, data, state, rng,
+                    None if noise is None else noise["location"])
+            return state, E
+        steps.append(("Interweave", _interweave))
+
+    if on("InvSigma"):
+        def _inv_sigma(data, carry, rng, noise):
+            state, E = carry
+            return U.update_inv_sigma(spec, data, state, rng, E, noise), E
+        steps.append(("InvSigma", _inv_sigma))
+
+    if on("Z"):
+        def _z(data, carry, rng, noise):
+            state, E = carry
+            return U.update_z(spec, data, state, rng, E, noise), E
+        steps.append(("Z", _z))
+
+    # factor-count adaptation during burn-in (it <= adapt_nf[r])
+    if any(adapt_nf[r] > 0 and on("Nf") for r in range(spec.nr)):
+        def _nf(data, carry, rng, noise, it=None):
+            state, E = carry
+            for r in range(spec.nr):
+                if adapt_nf[r] <= 0 or (it is not None and it > adapt_nf[r]):
+                    continue      # the gate below is false for every chain
+                lv_new = U.update_nf(spec, data, state, r, rng,
+                                     None if noise is None else noise[r])
+                gate = state.it <= adapt_nf[r]            # (C,)
+                lv_old = state.levels[r]
+                lv = lv_old.replace(**{
+                    k: torch.where(
+                        gate.reshape((-1,) + (1,) * (getattr(lv_new, k).dim()
+                                                     - 1)),
+                        getattr(lv_new, k), getattr(lv_old, k))
+                    for k in ("Eta", "Lambda", "Psi", "Delta", "alpha_idx",
+                              "nf_mask", "nf_sat")})
+                levels = list(state.levels)
+                levels[r] = lv
+                state = state.replace(levels=tuple(levels))
+            return state, E
+        steps.append(("Nf", _nf))
+
+    return steps
+
+
+def sweep_prologue(state: GibbsState) -> GibbsState:
+    """The iteration bump every sweep begins with."""
+    return state.replace(it=state.it + 1)
+
+
+def make_sweep(spec: ModelSpec, updater: dict | None = None,
+               adapt_nf: tuple | None = None):
+    """``sweep(data, state, rng, it=None, noise=None) -> state``.
+
+    ``it`` is the sweep's 1-based index known on the host (the value
+    ``state.it`` takes after the prologue); with it the Nf block skips the
+    factor adaptation outright once every level's window has closed,
+    instead of computing a move whose gate is false on every chain.
+    ``noise`` maps block names to that block's injected draws (tests)."""
+    steps = make_sweep_schedule(spec, updater, adapt_nf)
+
+    def sweep(data: ModelData, state: GibbsState, rng, it=None,
+              noise=None) -> GibbsState:
+        state = sweep_prologue(state)
+        carry = (state, None)
+        for name, block in steps:
+            nz = None if noise is None else noise[name]
+            if name == "Nf":
+                carry = block(data, carry, rng, nz, it)
+            else:
+                carry = block(data, carry, rng, nz)
+        return carry[0]
+
+    return sweep
+
+
+# ---------------------------------------------------------------------------
+# combineParameters at record time (reference R/combineParameters.R:1-58)
+# ---------------------------------------------------------------------------
+
+def record_sample(spec: ModelSpec, data: ModelData, state: GibbsState) -> dict:
+    """Back-transform the current state to the original X/Tr scale and return
+    the posterior-sample dict (each entry with the leading chain axis)."""
+    Beta, Gamma, iV = state.Beta, state.Gamma, state.iV
+
+    # traits: Gamma columns back to raw-trait scale
+    tm, ts = data.tr_scale_par[0], data.tr_scale_par[1]
+    Gamma = Gamma / ts
+    ti = data.tr_intercept_ind
+    if ti is not None:
+        corr = (tm * Gamma).sum(dim=2) - tm[ti] * Gamma[:, :, ti]
+        Gamma = Gamma.clone()
+        Gamma[:, :, ti] = Gamma[:, :, ti] + (-corr)
+
+    # covariates: Beta/Gamma rows and iV rows+cols
+    xmean, xs = data.x_scale_par[0], data.x_scale_par[1]
+    Beta = Beta / xs[:, None]
+    Gamma = Gamma / xs[:, None]
+    ii = data.x_intercept_ind
+    if ii is not None:
+        corrB = (xmean[:, None] * Beta).sum(dim=1) - xmean[ii] * Beta[:, ii]
+        corrG = (xmean[:, None] * Gamma).sum(dim=1) - xmean[ii] * Gamma[:, ii]
+        Beta, Gamma = Beta.clone(), Gamma.clone()
+        Beta[:, ii] = Beta[:, ii] + (-corrB)
+        Gamma[:, ii] = Gamma[:, ii] + (-corrG)
+    iV_t = iV * xs[:, None] * xs[None, :]
+    V, _ = torch.linalg.inv_ex(iV_t)      # no host sync on singular input
+
+    rec = {"Beta": Beta, "Gamma": Gamma, "V": V, "sigma": 1.0 / state.iSigma,
+           "rho": Beta.new_zeros((Beta.shape[0],))}
+    for r in range(spec.nr):
+        lv = state.levels[r]
+        rec[f"Eta_{r}"] = lv.Eta
+        rec[f"Lambda_{r}"] = U.lambda_effective(lv)
+        rec[f"Psi_{r}"] = lv.Psi
+        rec[f"Delta_{r}"] = lv.Delta
+        rec[f"Alpha_{r}"] = lv.alpha_idx
+        rec[f"nfMask_{r}"] = lv.nf_mask
+    return rec

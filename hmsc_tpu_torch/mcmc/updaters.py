@@ -1,0 +1,472 @@
+"""Full-conditional Gibbs updaters (port of the main-path subset of
+``hmsc_tpu/mcmc/updaters.py``).
+
+Each function maps (spec, data, state, rng) -> new state fields, batched
+over a leading chain axis C on every state tensor (the JAX package vmaps a
+chainless state).  Shapes are static and factor blocks are masked at
+``nf_max``, as in the JAX package.  ``noise=`` injects an updater's random
+draws (each documents its keys); only the tests use it, to hand the port
+the very numbers the JAX updater drew.
+
+Plain GEMMs (``X'X``, ``XE'Z``, ``S Lambda'``) are ``torch.matmul``, as the
+JAX package left them to XLA; the tiny nc x nc / nf x nf Cholesky
+factorisations are ``chol_spd``.  The hot per-cell and per-system work
+goes through the hand-written kernels B1-B3 (:mod:`..ops`).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..ops.linalg import chol_spd, sample_mvn_prec, sample_mvn_prec_batched
+from ..ops.rand import standard_gamma, truncated_normal_onesided, wishart
+from .structs import GibbsState, LevelState, ModelData, ModelSpec
+
+__all__ = ["lambda_effective", "linear_fixed", "level_loading",
+           "total_loading", "eta_star", "update_z", "update_beta_lambda",
+           "update_gamma_v", "gamma_given_beta", "update_lambda_priors",
+           "update_eta_nonspatial", "interweave_scale", "location_gate",
+           "interweave_location", "update_inv_sigma", "update_nf"]
+
+
+def _noise(noise, key, draw):
+    """``noise[key]`` when injected, else a fresh draw."""
+    return noise[key] if noise is not None else draw()
+
+
+# ---------------------------------------------------------------------------
+# linear predictors
+# ---------------------------------------------------------------------------
+
+def lambda_effective(lv: LevelState):
+    """(C, nf, ns, ncr) loadings with inactive factor rows zeroed."""
+    return lv.Lambda * lv.nf_mask[:, :, None, None]
+
+
+def linear_fixed(spec: ModelSpec, data: ModelData, Beta):
+    """LFix = X @ Beta, (C, ny, ns)."""
+    return data.X @ Beta
+
+
+def level_loading(data_lv, lv: LevelState):
+    """LRan_r = Eta[pi, :] @ Lambda (x_dim = 0, so x_row is all ones)."""
+    return lv.Eta[:, data_lv.pi_row] @ lambda_effective(lv)[..., 0]
+
+
+def total_loading(spec: ModelSpec, data: ModelData, state: GibbsState):
+    E = linear_fixed(spec, data, state.Beta)
+    for r in range(spec.nr):
+        E = E + level_loading(data.levels[r], state.levels[r])
+    return E
+
+
+def eta_star(spec: ModelSpec, data: ModelData, state: GibbsState):
+    """Stacked factor design (C, ny, K), K = sum_r nf_max_r * ncr_r; columns
+    of inactive factors are zeroed (covariate-major ordering per level)."""
+    cols = [state.levels[r].Eta[:, data.levels[r].pi_row]
+            * state.levels[r].nf_mask[:, None, :] for r in range(spec.nr)]
+    if not cols:
+        return state.Z.new_zeros((state.n_chains, spec.ny, 0))
+    return torch.cat(cols, dim=2)
+
+
+def _stacked_lambda_prior(spec: ModelSpec, state: GibbsState):
+    """(C, K, ns) prior precisions psi_hj * tau_h, stacked like eta_star."""
+    rows = []
+    for r in range(spec.nr):
+        lv = state.levels[r]
+        delta = torch.where(lv.nf_mask[:, :, None] > 0, lv.Delta, 1.0)
+        tau = torch.cumprod(delta, dim=1)
+        pr = lv.Psi * tau[:, :, None, :]                 # (C, nf, ns, ncr)
+        rows.append(pr.permute(0, 3, 1, 2).reshape(pr.shape[0], -1, spec.ns))
+    if not rows:
+        return state.Z.new_zeros((state.n_chains, 0, spec.ns))
+    return torch.cat(rows, dim=1)
+
+
+def _unstack_lambda(spec: ModelSpec, BL, state: GibbsState):
+    """Split the (C, nc+K, ns) joint draw back into Beta and per-level
+    Lambda."""
+    C = BL.shape[0]
+    Beta = BL[:, :spec.nc]
+    new_levels = []
+    off = spec.nc
+    for r in range(spec.nr):
+        ls, lv = spec.levels[r], state.levels[r]
+        k = ls.nf_max * ls.ncr
+        blk = BL[:, off:off + k]                         # covariate-major
+        lam = blk.reshape(C, ls.ncr, ls.nf_max, spec.ns).permute(0, 2, 3, 1)
+        new_levels.append(lv.replace(
+            Lambda=lam * lv.nf_mask[:, :, None, None]))
+        off += k
+    return Beta, tuple(new_levels)
+
+
+# ---------------------------------------------------------------------------
+# updateZ (reference R/updateZ.R)
+# ---------------------------------------------------------------------------
+
+def update_z(spec: ModelSpec, data: ModelData, state: GibbsState, rng=None,
+             E=None, noise=None) -> GibbsState:
+    """Latent-response data augmentation: normal columns copy Y, probit
+    columns draw one-sided truncated normals (kernel B1).  ``E`` may pass
+    in the current linear predictor.  ``noise``: ``{"u": (C, ny, ns)}``."""
+    if E is None:
+        E = total_loading(spec, data, state)
+    Z = state.Z
+    fam = data.distr_family
+    if spec.any_normal:
+        Z = torch.where(fam == 1, data.Y, Z)
+    if spec.any_probit:
+        std = state.iSigma ** -0.5
+        z_tn = truncated_normal_onesided(
+            E, std, data.Y, rng, u=None if noise is None else noise["u"])
+        Z = torch.where(fam == 2, z_tn, Z) if spec.any_normal else z_tn
+    return state.replace(Z=Z)
+
+
+# ---------------------------------------------------------------------------
+# updateBetaLambda, joint (reference R/updateBetaLambda.R)
+# ---------------------------------------------------------------------------
+
+def update_beta_lambda(spec: ModelSpec, data: ModelData, state: GibbsState,
+                       rng=None, noise=None) -> GibbsState:
+    """Joint (Beta, Lambda) draw: one (nc+K)^2 system per species, all of
+    them in one batched draw (kernel B2).  ``noise``: ``{"eps": (C, ns,
+    nc+K)}``."""
+    C = state.n_chains
+    P = spec.nc + spec.nf_total
+    XE = torch.cat([data.X.expand(C, -1, -1), eta_star(spec, data, state)],
+                   dim=2)                                # (C, ny, P)
+    prior_lam = _stacked_lambda_prior(spec, state)       # (C, K, ns)
+    Mu_beta = state.Gamma @ data.Tr.T                    # (C, nc, ns)
+    XEt = XE.transpose(1, 2)
+    G = XEt @ XE                                         # (C, P, P)
+    rhs_lik = (XEt @ state.Z).transpose(1, 2)            # (C, ns, P)
+
+    # per-species posterior precision = blkdiag(iV, diag(psi*tau)) + iSigma_j*G
+    eyeP = torch.eye(P, dtype=G.dtype, device=G.device)
+    prior_diag = torch.cat([G.new_zeros((C, spec.nc, spec.ns)), prior_lam],
+                           dim=1)                        # (C, P, ns)
+    P0 = G.new_zeros((C, spec.ns, P, P))
+    P0[:, :, :spec.nc, :spec.nc] = state.iV[:, None]
+    P0 = P0 + eyeP * prior_diag.transpose(1, 2)[..., None]
+    prec = P0 + state.iSigma[:, :, None, None] * G[:, None]
+
+    mu0 = torch.cat([Mu_beta, G.new_zeros((C, spec.nf_total, spec.ns))],
+                    dim=1)                               # (C, P, ns)
+    rhs = torch.einsum("cjpq,cqj->cjp", P0, mu0) \
+        + state.iSigma[:, :, None] * rhs_lik
+    eps = _noise(noise, "eps", lambda: rng.normal((C, spec.ns, P), G.dtype))
+    BL = sample_mvn_prec_batched(prec, rhs, eps)         # (C, ns, P)
+    Beta, levels = _unstack_lambda(spec, BL.transpose(1, 2), state)
+    return state.replace(Beta=Beta, levels=levels)
+
+
+# ---------------------------------------------------------------------------
+# updateGammaV (reference R/updateGammaV.R), no phylogeny
+# ---------------------------------------------------------------------------
+
+def gamma_given_beta(spec: ModelSpec, data: ModelData, state: GibbsState,
+                     rng=None, noise=None) -> GibbsState:
+    """Gamma | Beta, iV: Gaussian full conditional with precision
+    iUGamma + kron(Tr'Tr, iV).  ``noise``: ``{"eps": (C, nc*nt)}``."""
+    C, nc, nt = state.n_chains, spec.nc, spec.nt
+    TtT = data.Tr.T @ data.Tr                            # (nt, nt)
+    kron = (TtT[None, :, None, :, None] * state.iV[:, None, :, None, :]
+            ).reshape(C, nt * nc, nt * nc)
+    prec = data.iUGamma + kron
+    rhs0 = data.iUGamma @ data.mGamma
+    t2 = (state.iV @ state.Beta) @ data.Tr               # (C, nc, nt)
+    rhs = rhs0 + t2.transpose(1, 2).reshape(C, -1)
+    L = chol_spd(prec)
+    eps = _noise(noise, "eps", lambda: rng.normal(rhs.shape, rhs.dtype))
+    gvec = sample_mvn_prec(L, rhs, eps)
+    return state.replace(Gamma=gvec.reshape(C, nt, nc).transpose(1, 2))
+
+
+def update_gamma_v(spec: ModelSpec, data: ModelData, state: GibbsState,
+                   rng=None, noise=None) -> GibbsState:
+    """Conjugate draws: iV ~ Wishart(f0+ns, (E E' + V0)^{-1}) with the
+    Bartlett diagonal from kernel B3, then Gamma | Beta, iV.  ``noise``:
+    ``{"wishart": {"normal", "gamma"}, "gamma": {"eps"}}``."""
+    E = state.Beta - state.Gamma @ data.Tr.T
+    A = E @ E.transpose(1, 2)
+    Lw = chol_spd(A + data.V0)
+    eye = torch.eye(spec.nc, dtype=A.dtype, device=A.device)
+    T = torch.linalg.solve_triangular(Lw.transpose(1, 2), eye.expand_as(Lw),
+                                      upper=True)        # T T' = (A+V0)^-1
+    iV = wishart(spec.f0 + spec.ns, T, rng,
+                 None if noise is None else noise["wishart"])
+    return gamma_given_beta(spec, data, state.replace(iV=iV), rng,
+                            None if noise is None else noise["gamma"])
+
+
+# ---------------------------------------------------------------------------
+# updateLambdaPriors (reference R/updateLambdaPriors.R)
+# ---------------------------------------------------------------------------
+
+def update_lambda_priors(spec: ModelSpec, data: ModelData, state: GibbsState,
+                         rng=None, noise=None) -> GibbsState:
+    """Multiplicative-gamma shrinkage: psi elementwise conjugate gamma, delta
+    sequential over factor index with tau recomputed per step; inactive
+    slots stay neutral (delta = 1).  Every gamma draw is kernel B3.
+    ``noise``: per level ``{"psi": (C, nf, ns, ncr), "delta": (C, nf,
+    ncr)}`` unit-rate gamma draws."""
+    ns = spec.ns
+    new_levels = []
+    for r in range(spec.nr):
+        lvd, lv, ls = data.levels[r], state.levels[r], spec.levels[r]
+        nz = None if noise is None else noise[r]
+        mask = lv.nf_mask                                # (C, nf)
+        lam2 = (lv.Lambda * mask[:, :, None, None]) ** 2
+        delta = torch.where(mask[:, :, None] > 0, lv.Delta, 1.0)
+        tau = torch.cumprod(delta, dim=1)                # (C, nf, ncr)
+
+        a_psi = lvd.nu / 2 + 0.5
+        b_psi = lvd.nu / 2 + 0.5 * lam2 * tau[:, :, None, :]
+        g = _noise(nz, "psi", lambda: standard_gamma(
+            a_psi.expand(lam2.shape).contiguous(), rng))
+        psi = g / b_psi
+
+        Msum = (psi * lam2).sum(dim=2)                   # (C, nf, ncr)
+        nf_act = mask.sum(dim=1)                         # (C,)
+        n_geq = torch.flip(torch.cumsum(torch.flip(mask, [1]), dim=1), [1])
+        for h in range(ls.nf_max):
+            tau = torch.cumprod(delta, dim=1)
+            if h == 0:
+                ad = lvd.a1 + 0.5 * ns * nf_act[:, None]
+                b0 = lvd.b1
+            else:
+                ad = lvd.a2 + 0.5 * ns * n_geq[:, h, None]
+                b0 = lvd.b2
+            tail = (tau[:, h:] * Msum[:, h:] * mask[:, h:, None]).sum(dim=1)
+            bd = b0 + 0.5 * tail / delta[:, h]
+            gd = (nz["delta"][:, h] if nz is not None
+                  else standard_gamma(ad.contiguous(), rng))
+            draw = gd / bd
+            delta = delta.clone()
+            delta[:, h] = torch.where(mask[:, h, None] > 0, draw, 1.0)
+        new_levels.append(lv.replace(Psi=psi, Delta=delta))
+    return state.replace(levels=tuple(new_levels))
+
+
+# ---------------------------------------------------------------------------
+# updateEta, non-spatial (reference R/updateEta.R)
+# ---------------------------------------------------------------------------
+
+def _level_gram(spec, lvd, ls, lv, iSigma, S):
+    """Per-unit factor precision contributions and RHS (x_dim = 0, no NA):
+    (LiSL (C, np, nf, nf), F (C, np, nf)); the unit sums are index_add_."""
+    lam = lambda_effective(lv)[..., 0]                   # (C, nf, ns)
+    lamT = lam.transpose(1, 2)
+    shared = (lam * iSigma[:, None, :]) @ lamT           # (C, nf, nf)
+    LiSL = lvd.unit_count[:, None, None] * shared[:, None]
+    Fr = (S * iSigma[:, None, :]) @ lamT                 # (C, ny, nf)
+    F = Fr.new_zeros((Fr.shape[0], ls.n_units, ls.nf_max))
+    F.index_add_(1, lvd.pi_row, Fr)
+    return LiSL, F
+
+
+def update_eta_nonspatial(spec, data, state, r: int, rng=None, S=None,
+                          noise=None) -> LevelState:
+    """Eta_r | rest for one unstructured level: one nf x nf system per unit,
+    all in one batched draw (kernel B2); inactive factors fall back to
+    their N(0,1) prior.  ``noise``: ``{"eps": (C, np, nf)}``."""
+    lvd, lv, ls = data.levels[r], state.levels[r], spec.levels[r]
+    LiSL, F = _level_gram(spec, lvd, ls, lv, state.iSigma, S)
+    prec = LiSL + torch.eye(ls.nf_max, dtype=F.dtype, device=F.device)
+    eps = _noise(noise, "eps", lambda: rng.normal(F.shape, F.dtype))
+    return lv.replace(Eta=sample_mvn_prec_batched(prec, F, eps))
+
+
+# ---------------------------------------------------------------------------
+# interweaving moves (JAX package updaters.py:693-854)
+# ---------------------------------------------------------------------------
+
+def interweave_scale(spec: ModelSpec, data: ModelData, state: GibbsState,
+                     rng=None, noise=None) -> GibbsState:
+    """Per-factor scale move (Eta_h, Lambda_h) -> (c Eta_h, Lambda_h / c), a
+    Metropolis step along the likelihood-invariant scale orbit (see the
+    JAX package's docstring).  ``noise``: per level ``{"u": (C, nf)
+    normals, "acc": (C, nf) uniforms}``."""
+    new_levels = []
+    for r in range(spec.nr):
+        lv, ls = state.levels[r], spec.levels[r]
+        nz = None if noise is None else noise[r]
+        C = lv.Eta.shape[0]
+        mask = lv.nf_mask
+        A = (lv.Eta ** 2).sum(dim=1)                     # (C, nf)
+        delta = torch.where(mask[:, :, None] > 0, lv.Delta, 1.0)
+        tau = torch.cumprod(delta, dim=1)
+        B = (lv.Psi * tau[:, :, None, :] * lv.Lambda ** 2).sum(dim=(2, 3))
+        k_exp = ls.n_units - spec.ns * ls.ncr
+        sigma = float(2.38 / math.sqrt(2.0 * (ls.n_units + spec.ns * ls.ncr)))
+        u = sigma * _noise(nz, "u", lambda: rng.normal((C, ls.nf_max),
+                                                       A.dtype))
+        c = torch.exp(u)
+        log_acc = (-0.5 * A * (c ** 2 - 1.0)
+                   - 0.5 * B * (c ** -2 - 1.0) + k_exp * u)
+        acc = _noise(nz, "acc", lambda: rng.uniform((C, ls.nf_max), A.dtype))
+        ok = torch.log(acc) < log_acc
+        c = torch.where(ok & (mask > 0), c, 1.0)
+        new_levels.append(lv.replace(Eta=lv.Eta * c[:, None, :],
+                                     Lambda=lv.Lambda / c[:, :, None, None]))
+    return state.replace(levels=tuple(new_levels))
+
+
+def location_gate(spec: ModelSpec, has_intercept: bool) -> str | None:
+    """Why :func:`interweave_location` cannot run on this model, or None."""
+    if not has_intercept:
+        return "the design has no intercept column to shift"
+    if spec.x_is_list:
+        return "per-species design matrices"
+    if spec.ncsel > 0:
+        return ("variable selection's effective-Beta zeroing breaks the "
+                "move's likelihood invariance")
+    return None
+
+
+def interweave_location(spec: ModelSpec, data: ModelData, state: GibbsState,
+                        rng=None, noise=None) -> GibbsState:
+    """Per-factor location move (Eta_h, Beta_int) -> (Eta_h + c_h 1,
+    Beta_int,j - c_h Lambda_hj): exact Gibbs along the likelihood-invariant
+    translation orbit (see the JAX package's docstring).  ``noise``: per
+    level a (C, nf) normal."""
+    if location_gate(spec, has_intercept=data.x_ones_ind is not None):
+        return state
+    ii = data.x_ones_ind
+    Beta = state.Beta
+    Mu = state.Gamma @ data.Tr.T                         # (C, nc, ns)
+    iV = state.iV
+    v00 = iV[:, ii, ii]                                  # (C,)
+    new_levels = []
+    for r in range(spec.nr):
+        lv, ls = state.levels[r], spec.levels[r]
+        lam = lambda_effective(lv)[..., 0]               # (C, nf, ns)
+        mask = lv.nf_mask
+        u = (iV[:, ii, None, :] @ (Beta - Mu))[:, 0]     # (C, ns)
+        q1 = torch.full_like(mask, float(ls.n_units))
+        s = lv.Eta.sum(dim=1)                            # 1' eta_h
+        G = lam @ lam.transpose(1, 2)
+        bB = (lam @ u[:, :, None])[..., 0]
+        P = v00[:, None, None] * G + torch.diag_embed(
+            torch.where(mask > 0, q1, 1.0))
+        b = torch.where(mask > 0, bB - s, 0.0)
+        L = chol_spd(P)
+        z = (noise[r] if noise is not None
+             else rng.normal(b.shape, b.dtype))
+        c = sample_mvn_prec(L, b, z) * mask
+        Beta = Beta.clone()
+        Beta[:, ii] = Beta[:, ii] + (-(c[:, None, :] @ lam)[:, 0])
+        new_levels.append(lv.replace(Eta=lv.Eta + c[:, None, :]))
+    return state.replace(levels=tuple(new_levels), Beta=Beta)
+
+
+# ---------------------------------------------------------------------------
+# updateInvSigma (reference R/updateInvSigma.R)
+# ---------------------------------------------------------------------------
+
+def update_inv_sigma(spec: ModelSpec, data: ModelData, state: GibbsState,
+                     rng=None, E=None, noise=None) -> GibbsState:
+    """Conjugate residual precisions for the species whose dispersion is
+    estimated (kernel B3); a no-op when none is (probit, fixed sigma).
+    ``noise``: ``{"gamma": (C, ns)}`` unit-rate gamma draws."""
+    if not spec.any_estimated_sigma:
+        return state
+    Eps = state.Z - (total_loading(spec, data, state) if E is None else E)
+    n_obs = data.Ymask.sum(dim=0)
+    shape = data.aSigma + 0.5 * n_obs
+    sq = ((Eps * data.Ymask) ** 2).sum(dim=1)            # (C, ns)
+    rate = data.bSigma + 0.5 * sq
+    g = _noise(noise, "gamma", lambda: standard_gamma(
+        shape.expand(state.n_chains, -1).contiguous(), rng))
+    iSigma = torch.where(data.distr_estsig > 0, g / rate,
+                         1.0 / data.sigma_fixed)
+    return state.replace(iSigma=iSigma)
+
+
+# ---------------------------------------------------------------------------
+# updateNf: masked factor-count adaptation (reference R/updateNf.R)
+# ---------------------------------------------------------------------------
+
+def update_nf(spec: ModelSpec, data: ModelData, state: GibbsState, r: int,
+              rng=None, noise=None) -> LevelState:
+    """Burn-in factor adaptation as mask arithmetic: with probability
+    1/exp(1 + 5e-4 it) either append one factor (fresh prior draws in the
+    next inactive slot) or drop all-shrunk factors (a STABLE compaction
+    permute, so the active block stays a prefix).  ``noise``: ``{"u": (C,)
+    uniforms, "eta": (C, np) normals, "psi": (C, ns, ncr) and "delta": (C,
+    ncr) unit-rate gamma draws}``."""
+    lvd, lv, ls = data.levels[r], state.levels[r], spec.levels[r]
+    C = lv.Eta.shape[0]
+    dtype = lv.Eta.dtype
+    it = state.it.to(dtype)
+    u = _noise(noise, "u", lambda: torch.rand(
+        (C,), generator=rng.gen, device=rng.device, dtype=dtype))
+    adapt = u < 1.0 / torch.exp(1.0 + 5e-4 * it)
+
+    mask = lv.nf_mask
+    nf = mask.sum(dim=1)
+    small_prop = (lv.Lambda.abs() < 1e-3).to(dtype).mean(dim=(2, 3))
+    redundant = (mask > 0) & (small_prop >= 1.0)
+    num_red = redundant.sum(dim=1)
+    grow_wanted = (it > 20) & (num_red == 0) & torch.where(
+        mask > 0, small_prop < 0.995, True).all(dim=1)
+    add_ok = (nf < ls.nf_max) & grow_wanted
+    drop_ok = (num_red > 0) & (nf > ls.nf_min)
+    nf_sat = lv.nf_sat
+    if ls.nf_capped:
+        nf_sat = nf_sat + (adapt & grow_wanted
+                           & (nf >= ls.nf_max)).to(torch.int32)
+
+    # --- append one factor in slot `nf` -----------------------------------
+    slot = torch.clamp_max(nf.to(torch.int64), ls.nf_max - 1)
+    onehot = torch.nn.functional.one_hot(slot, ls.nf_max).to(dtype)
+    do_add = adapt & add_ok
+    sel = torch.where(do_add[:, None], onehot, 0.0)      # (C, nf)
+    new_eta = _noise(noise, "eta", lambda: rng.normal((C, ls.n_units),
+                                                      dtype))
+    Eta = lv.Eta * (1 - sel)[:, None, :] + new_eta[:, :, None] * sel[:, None, :]
+    half_nu = lvd.nu / 2
+    g_psi = _noise(noise, "psi", lambda: standard_gamma(
+        half_nu.expand(C, spec.ns, ls.ncr).contiguous(), rng))
+    new_psi = g_psi / half_nu
+    Psi = lv.Psi * (1 - sel)[:, :, None, None] \
+        + new_psi[:, None] * sel[:, :, None, None]
+    g_del = _noise(noise, "delta", lambda: standard_gamma(
+        lvd.a2.expand(C, ls.ncr).contiguous(), rng))
+    new_del = g_del / lvd.b2
+    Delta = lv.Delta * (1 - sel)[:, :, None] + new_del[:, None, :] * sel[:, :, None]
+    Lambda = lv.Lambda * (1 - sel)[:, :, None, None]
+    alpha_idx = (lv.alpha_idx * (1 - sel.to(torch.int32))).to(torch.int32)
+    mask_add = torch.clamp(mask + sel, 0.0, 1.0)
+
+    # --- drop redundant factors (stable compaction) -----------------------
+    keep = (mask > 0) & ~redundant
+    do_drop = adapt & drop_ok & ~do_add
+    order = torch.argsort(torch.where(keep, 0, 1), dim=1, stable=True)
+    mask_drop = torch.gather(torch.where(keep, 1.0, 0.0).to(dtype), 1, order)
+
+    def take(a, dim):
+        idx = order.reshape(order.shape + (1,) * (a.dim() - 2))
+        if dim == 2:
+            idx = order[:, None, :]
+        return torch.gather(a, dim, idx.expand_as(a))
+
+    Eta_d = take(lv.Eta, 2)
+    Lambda_d = take(lv.Lambda, 1) * mask_drop[:, :, None, None]
+    Psi_d = take(lv.Psi, 1)
+    Delta_d = torch.where(mask_drop[:, :, None] > 0, take(lv.Delta, 1), 1.0)
+    alpha_d = take(lv.alpha_idx, 1) * mask_drop.to(torch.int32)
+
+    def pick(dropped, added):
+        w = do_drop.reshape((C,) + (1,) * (added.dim() - 1))
+        return torch.where(w, dropped, added)
+
+    return lv.replace(Eta=pick(Eta_d, Eta), Lambda=pick(Lambda_d, Lambda),
+                      Psi=pick(Psi_d, Psi), Delta=pick(Delta_d, Delta),
+                      alpha_idx=pick(alpha_d, alpha_idx),
+                      nf_mask=pick(mask_drop, mask_add), nf_sat=nf_sat)

@@ -1,0 +1,204 @@
+"""Random-draw primitives (port of ``hmsc_tpu/ops/rand.py``).
+
+Two of them are kernels written by hand for Hopper (``csrc/``):
+
+- B1 :func:`truncated_normal_onesided` — the probit Z draw, one thread per
+  four cells (``csrc/probit_z.cu``);
+- B3 :func:`standard_gamma` — per-element Marsaglia-Tsang rejection
+  (``csrc/standard_gamma.cu``).
+
+Each wrapper launches its kernel for a CUDA tensor (or raises) and runs the
+plain PyTorch version beside it only for a tensor on the CPU.  The plain
+versions follow the JAX ops step by step; the tests hold them against the
+JAX package and ``chip_smoke.py`` holds each kernel against its plain
+version on the card.
+
+:class:`Rng` carries a run's random streams: a ``torch.Generator`` on the
+tensors' device for the draws made in PyTorch, and a host generator for the
+(seed, offset) pairs that key the kernels' in-kernel Philox streams — a host
+draw, so seeding a launch never waits for the device.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import kernels as K
+
+__all__ = ["Rng", "truncated_normal_onesided", "standard_gamma", "wishart"]
+
+_TINY = 1e-38  # smallest safe f32 normal-ish (JAX package rand.py:18)
+# f32 ndtri overflows to -inf below ~1e-33; quantile-space probabilities are
+# floored here and the final clip bounds the draw
+_P_FLOOR = 1e-30
+# 1 - epsneg of f32: the largest float below 1 (ndtri(1) = inf)
+_S_CEIL = 1.0 - 2.0 ** -24
+# Marsaglia-Tsang candidate rounds of the plain gamma version (JAX default)
+_GAMMA_ROUNDS = 8
+
+
+class Rng:
+    """A run's random streams on ``device`` (see the module docstring)."""
+
+    def __init__(self, seed: int, device):
+        self.device = torch.device(device)
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(int(seed))
+        self.host = torch.Generator()
+        self.host.manual_seed(int(seed) ^ 0x5DEECE66D)
+
+    def normal(self, shape, dtype=torch.float32):
+        return torch.randn(shape, generator=self.gen, device=self.device,
+                           dtype=dtype)
+
+    def uniform(self, shape, dtype=torch.float32):
+        """Uniforms on [1e-38, 1): never 0, so log(u) stays finite."""
+        u = torch.rand(shape, generator=self.gen, device=self.device,
+                       dtype=dtype)
+        return u.clamp_min_(_TINY)
+
+    def philox(self):
+        """(seed, offset) for one kernel launch's Philox counters."""
+        s = torch.randint(0, 2 ** 62, (2,), generator=self.host).tolist()
+        return s[0], s[1] & 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# B1: one-sided truncated normal (the probit Z draw)
+# ---------------------------------------------------------------------------
+
+def truncated_normal_onesided(E, std, Y, rng: Rng | None = None, u=None):
+    """Z ~ N(E, std^2) truncated to Z > 0 where Y > 0.5 and Z < 0 elsewhere.
+
+    ``E`` (C, ny, ns) linear predictors, ``std`` (C, ns) residual standard
+    deviations per chain and species, ``Y`` (ny, ns) shared by the chains.
+    This is the JAX op ``truncated_normal_onesided`` at bound 0, the only
+    bound the sampler uses.  ``u`` (C, ny, ns) injects the uniforms (the
+    JAX op's ``_u`` hook); otherwise the kernel draws them from Philox
+    keyed by ``rng.philox()``, and the plain version from ``rng.uniform``.
+    """
+    C, ny, ns = E.shape
+    if std.shape != (C, ns) or Y.shape != (ny, ns):
+        raise ValueError(f"truncated_normal_onesided: E {tuple(E.shape)}, "
+                         f"std {tuple(std.shape)}, Y {tuple(Y.shape)}")
+    if u is not None and u.shape != E.shape:
+        raise ValueError("truncated_normal_onesided: u must match E")
+    if not E.is_cuda:
+        if u is None:
+            u = rng.uniform(E.shape, dtype=E.dtype)
+        return _truncated_normal_onesided_plain(E, std, Y, u)
+    for name, t in (("E", E), ("std", std), ("Y", Y)) + (
+            (("u", u),) if u is not None else ()):
+        if t.device != E.device or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"truncated_normal_onesided: {name} must be a "
+                             "contiguous float32 tensor on E's device")
+    Z = torch.empty_like(E)
+    if E.numel() == 0:
+        return Z
+    seed, offset = (0, 0) if u is not None else rng.philox()
+    with torch.cuda.device(E.device):
+        code = K.library().hmsc_probit_z(
+            E.data_ptr(), std.data_ptr(), Y.data_ptr(),
+            None if u is None else u.data_ptr(), Z.data_ptr(), E.numel(),
+            ny * ns, ns, seed, offset, K.stream_of(E))
+    K.check(code, "probit_z")
+    K.launches["probit_z"] += 1
+    return Z
+
+
+def _truncated_normal_onesided_plain(E, std, Y, u):
+    """The JAX op (``hmsc_tpu/ops/rand.py:84-121``) step by step."""
+    is_lower = Y > 0.5
+    sd = std[:, None, :]
+    t = (0.0 - E) / sd
+    t = torch.where(is_lower, t, -t)
+    sa = _ndtr(-t)                                    # P(W > t)
+    s = u * sa
+    x_r = -torch.special.ndtri(torch.clamp(s, _P_FLOOR, _S_CEIL))
+    lam = torch.clamp_min(t, 1.0)
+    x_far = t - torch.log1p(-u) / lam                 # Robert (1995) tail
+    x = torch.where(t > 9.0, x_far, x_r)
+    x = torch.maximum(x, t)                           # clipped-quantile edge
+    x = torch.where(is_lower, x, -x)
+    return E + sd * x
+
+
+def _ndtr(x):
+    """Phi(x) as ``jax.scipy.special.ndtr`` computes it: erfc in the tails,
+    so the lower tail keeps its relative accuracy in float32
+    (``torch.special.ndtr`` loses it below about -5).  The kernel's
+    ``normcdff`` is accurate there too."""
+    half_sqrt_2 = 0.5 * math.sqrt(2.0)
+    w = x * half_sqrt_2
+    z = w.abs()
+    y = torch.where(z < half_sqrt_2, 1.0 + torch.erf(w),
+                    torch.where(w > 0, 2.0 - torch.erfc(z), torch.erfc(z)))
+    return 0.5 * y
+
+
+# ---------------------------------------------------------------------------
+# B3: standard gamma
+# ---------------------------------------------------------------------------
+
+def standard_gamma(a, rng: Rng):
+    """Gamma(a, 1) draws, elementwise over ``a`` (float32, any shape)."""
+    if not a.is_cuda:
+        return _standard_gamma_plain(a, rng)
+    if a.dtype != torch.float32:
+        raise ValueError("standard_gamma: a must be float32")
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    if a.numel() == 0:
+        return out
+    seed, offset = rng.philox()
+    with torch.cuda.device(a.device):
+        code = K.library().hmsc_standard_gamma(
+            a.data_ptr(), out.data_ptr(), a.numel(), seed, offset,
+            K.stream_of(a))
+    K.check(code, "standard_gamma")
+    K.launches["standard_gamma"] += 1
+    return out
+
+
+def _standard_gamma_plain(a, rng: Rng):
+    """The JAX op (``hmsc_tpu/ops/rand.py:124-169``): Marsaglia-Tsang with
+    ``_GAMMA_ROUNDS`` candidate batches drawn up front, the first accepted
+    candidate selected per element, the mode where none accepts, and the
+    U^(1/a) boost for a < 1."""
+    boost = a < 1.0
+    a_eff = torch.where(boost, a + 1.0, torch.maximum(a, torch.ones_like(a)))
+    d = a_eff - 1.0 / 3.0
+    c = 1.0 / torch.sqrt(9.0 * d)
+    cand = (_GAMMA_ROUNDS,) + tuple(a.shape)
+    x = rng.normal(cand, dtype=a.dtype)
+    v = (1.0 + c[None] * x) ** 3
+    u = rng.uniform(cand, dtype=a.dtype)
+    vsafe = torch.where(v > 0, v, torch.ones_like(v))
+    ok = (v > 0) & (torch.log(u) < 0.5 * x * x
+                    + d[None] * (1.0 - v + torch.log(vsafe)))
+    idx = torch.argmax(ok.to(torch.uint8), dim=0)      # first accepting round
+    vsel = torch.gather(vsafe, 0, idx[None])[0]
+    draw = d * torch.where(ok.any(dim=0), vsel, torch.ones_like(vsel))
+    ub = rng.uniform(a.shape, dtype=a.dtype)
+    pow_ = ub ** (1.0 / torch.where(boost, a, torch.ones_like(a)))
+    return torch.where(boost, draw * pow_, draw)
+
+
+def wishart(df, scale_factor, rng: Rng | None = None, noise=None):
+    """W ~ Wishart(df, S) per chain via the Bartlett decomposition, where
+    ``scale_factor`` (C, p, p) is any T with T T' = S (JAX package
+    ``rand.py:217-229``).  Plain PyTorch on B3.  ``noise`` injects the
+    ``normal`` (C, p, p) and unit ``gamma`` (C, p) draws."""
+    C, p = scale_factor.shape[0], scale_factor.shape[-1]
+    dtype = scale_factor.dtype
+    # chi^2_{df-i} = 2 * Gamma((df-i)/2)
+    dfs = (df - torch.arange(p, dtype=dtype, device=scale_factor.device)) / 2.0
+    g = (noise["gamma"] if noise is not None
+         else standard_gamma(dfs.expand(C, p).contiguous(), rng))
+    z = noise["normal"] if noise is not None else rng.normal((C, p, p), dtype)
+    A = torch.tril(z, -1) + torch.diag_embed(torch.sqrt(2.0 * g))
+    TA = scale_factor @ A
+    return TA @ TA.transpose(-1, -2)

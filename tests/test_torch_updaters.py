@@ -1,0 +1,325 @@
+"""Each ported updater, and one whole sweep, against the JAX package's from
+one identical state.  The port receives the very draws the JAX updater
+makes: the test repeats the JAX updater's key splits and hands the
+resulting normals, uniforms and (unit-rate) gamma draws to the port's
+``noise=`` hook.  Agreement is to rtol 1e-4 / atol 1e-5 (float32 sums taken
+in another order by XLA and by PyTorch, compounded over a few blocks)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from hmsc_tpu.mcmc import sweep as jsweep
+from hmsc_tpu.mcmc import updaters as JU
+from hmsc_tpu.ops.rand import _TINY, standard_gamma as jgamma
+
+from hmsc_tpu_torch.mcmc import sweep as tsweep
+from hmsc_tpu_torch.mcmc import updaters as TU
+from hmsc_tpu_torch.mcmc.structs import build_spec
+
+from test_torch_model import flatten, jax_triple, make_models, to_torch
+
+pytestmark = pytest.mark.torch
+torch.set_num_threads(1)
+
+RTOL, ATOL = 1e-4, 1e-5
+SEEDS = (3, 4)                       # two chains, distinct initial states
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a))
+
+
+def _stack(per_chain):
+    """Stack per-chain noise structures (dicts / lists of arrays) along a
+    new leading chain axis."""
+    first = per_chain[0]
+    if isinstance(first, dict):
+        return {k: _stack([p[k] for p in per_chain]) for k in first}
+    if isinstance(first, list):
+        return [_stack([p[i] for p in per_chain]) for i in range(len(first))]
+    return torch.stack([_t(p) for p in per_chain])
+
+
+def _setup(kind="probit", it=None, **kw):
+    mj, mt = make_models(kind, **kw)
+    spec_j, data_j, states_j = jax_triple(mj, seeds=SEEDS)
+    if it is not None:
+        states_j = [s.replace(it=jnp.asarray(it, jnp.int32))
+                    for s in states_j]
+    data_t, state_t = to_torch(spec_j, data_j, states_j)
+    spec_t = build_spec(mt)
+    keys = [jax.random.key(100 + c) for c in range(len(SEEDS))]
+    return spec_j, data_j, states_j, spec_t, data_t, state_t, keys
+
+
+def _compare(port_state, jax_states, fields=None):
+    """Every (or the named) field of the port's batched state against the
+    per-chain JAX states."""
+    ref = {}
+    for c, s in enumerate(jax_states):
+        for k, v in flatten(s).items():
+            ref.setdefault(k, []).append(v)
+    for k, vals in ref.items():
+        if k in ("BetaSel", "wRRR", "PsiRRR", "DeltaRRR"):
+            continue
+        if fields is not None and k.rpartition(".")[2] not in fields:
+            continue
+        head, _, field = k.rpartition(".")
+        obj = port_state.levels[int(head.split(".")[1])] if head \
+            else port_state
+        np.testing.assert_allclose(getattr(obj, field).numpy(),
+                                   np.stack(vals), rtol=RTOL, atol=ATOL,
+                                   err_msg=k)
+
+
+# --- the JAX updaters' draws, by repeating their key splits ---------------
+
+def z_noise(spec, key):
+    k_tn = jax.random.split(key, 4)[0]
+    return {"u": jax.random.uniform(k_tn, (spec.ny, spec.ns), minval=_TINY,
+                                    maxval=1.0)}
+
+
+def beta_lambda_noise(spec, key):
+    return {"eps": jax.random.normal(key, (spec.ns, spec.nc + spec.nf_total))}
+
+
+def gamma_v_noise(spec, key):
+    kv, kg = jax.random.split(key)
+    kn, kc = jax.random.split(kv)
+    p = spec.nc
+    dfs = (spec.f0 + spec.ns - jnp.arange(p, dtype=jnp.float32)) / 2.0
+    return {"wishart": {"normal": jax.random.normal(kn, (p, p)),
+                        "gamma": jgamma(kc, dfs)},
+            "gamma": {"eps": jax.random.normal(kg, (spec.nc * spec.nt,))}}
+
+
+def lambda_priors_noise(spec, data, state, key):
+    out = []
+    for r in range(spec.nr):
+        lvd, lv, ls = data.levels[r], state.levels[r], spec.levels[r]
+        kpsi, kdel = jax.random.split(jax.random.fold_in(key, r))
+        a_psi = lvd.nu[None, None, :] / 2 + 0.5
+        psi = jgamma(kpsi, jnp.broadcast_to(a_psi, lv.Lambda.shape))
+        mask = lv.nf_mask
+        nf_act = mask.sum()
+        n_geq = jnp.cumsum(mask[::-1])[::-1]
+        keys = jax.random.split(kdel, ls.nf_max)
+        delta = []
+        for h in range(ls.nf_max):
+            ad = (lvd.a1 + 0.5 * spec.ns * nf_act if h == 0
+                  else lvd.a2 + 0.5 * spec.ns * n_geq[h])
+            delta.append(jgamma(keys[h], jnp.broadcast_to(ad, (ls.ncr,))))
+        out.append({"psi": psi, "delta": jnp.stack(delta)})
+    return out
+
+
+def eta_noise(spec, key, r):
+    ls = spec.levels[r]
+    return {"eps": jax.random.normal(key, (ls.n_units, ls.nf_max))}
+
+
+def scale_noise(spec, key):
+    out = []
+    for r in range(spec.nr):
+        kr1, kr2 = jax.random.split(jax.random.fold_in(key, r))
+        nf = spec.levels[r].nf_max
+        out.append({"u": jax.random.normal(kr1, (nf,)),
+                    "acc": jax.random.uniform(kr2, (nf,), minval=1e-38)})
+    return out
+
+
+def location_noise(spec, key):
+    return [jax.random.normal(jax.random.fold_in(key, r),
+                              (spec.levels[r].nf_max,))
+            for r in range(spec.nr)]
+
+
+def inv_sigma_noise(spec, data, key):
+    shape = data.aSigma + 0.5 * data.Ymask.sum(axis=0)
+    return {"gamma": jgamma(key, shape)}
+
+
+def nf_noise(spec, data, key, r):
+    lvd, ls = data.levels[r], spec.levels[r]
+    ku, kadd = jax.random.split(jax.random.fold_in(key, r))
+    k_eta, k_psi, k_del = jax.random.split(kadd, 3)
+    return {"u": jax.random.uniform(ku),
+            "eta": jax.random.normal(k_eta, (ls.n_units,)),
+            "psi": jgamma(k_psi, jnp.broadcast_to(lvd.nu[None, :] / 2,
+                                                  (spec.ns, ls.ncr))),
+            "delta": jgamma(k_del, lvd.a2)}
+
+
+def sweep_noise(spec, data, state, key):
+    """Every draw of one JAX sweep (``sweep.py:76-345``), by block."""
+    ks = jax.random.split(key, 13)
+    kI1, kI2 = jax.random.split(ks[12])
+    return {
+        "BetaLambda": beta_lambda_noise(spec, ks[0]),
+        "GammaV": gamma_v_noise(spec, ks[1]),
+        "LambdaPriors": lambda_priors_noise(spec, data, state, ks[3]),
+        "Eta": [eta_noise(spec, jax.random.fold_in(ks[4], r), r)
+                for r in range(spec.nr)],
+        "Interweave": {"scale": scale_noise(spec, kI1),
+                       "location": location_noise(spec, kI2)},
+        "InvSigma": (inv_sigma_noise(spec, data, ks[6])
+                     if spec.any_estimated_sigma else None),
+        "Z": z_noise(spec, ks[7]),
+        "Nf": [nf_noise(spec, data, jax.random.fold_in(ks[5], 1000 + r), r)
+               for r in range(spec.nr)],
+    }
+
+
+def _sweep_noise_stacked(spec, data, states, keys):
+    per = [sweep_noise(spec, data, s, k) for s, k in zip(states, keys)]
+    out = {}
+    for name in per[0]:
+        out[name] = None if per[0][name] is None else _stack(
+            [p[name] for p in per])
+    return out
+
+
+# --- the updaters --------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["probit", "normal"])
+def test_update_z(kind):
+    spec_j, data_j, states_j, spec_t, data_t, state_t, keys = _setup(kind)
+    ref = [JU.update_z(spec_j, data_j, s, k) for s, k in zip(states_j, keys)]
+    noise = _stack([z_noise(spec_j, k) for k in keys])
+    out = TU.update_z(spec_t, data_t, state_t, noise=noise)
+    _compare(out, ref, fields={"Z"})
+
+
+@pytest.mark.parametrize("kind", ["probit", "normal"])
+def test_update_beta_lambda(kind):
+    spec_j, data_j, states_j, spec_t, data_t, state_t, keys = _setup(kind)
+    ref = [JU.update_beta_lambda(spec_j, data_j, s, k)
+           for s, k in zip(states_j, keys)]
+    noise = _stack([beta_lambda_noise(spec_j, k) for k in keys])
+    out = TU.update_beta_lambda(spec_t, data_t, state_t, noise=noise)
+    _compare(out, ref, fields={"Beta", "Lambda"})
+
+
+@pytest.mark.parametrize("kind", ["probit", "normal"])
+def test_update_gamma_v(kind):
+    spec_j, data_j, states_j, spec_t, data_t, state_t, keys = _setup(kind)
+    ref = [JU.update_gamma_v(spec_j, data_j, s, k)
+           for s, k in zip(states_j, keys)]
+    noise = _stack([gamma_v_noise(spec_j, k) for k in keys])
+    out = TU.update_gamma_v(spec_t, data_t, state_t, noise=noise)
+    _compare(out, ref, fields={"iV", "Gamma"})
+
+
+def test_update_lambda_priors():
+    spec_j, data_j, states_j, spec_t, data_t, state_t, keys = _setup()
+    ref = [JU.update_lambda_priors(spec_j, data_j, s, k)
+           for s, k in zip(states_j, keys)]
+    noise = _stack([lambda_priors_noise(spec_j, data_j, s, k)
+                    for s, k in zip(states_j, keys)])
+    out = TU.update_lambda_priors(spec_t, data_t, state_t, noise=noise)
+    _compare(out, ref, fields={"Psi", "Delta"})
+
+
+@pytest.mark.parametrize("n_units", [None, 10])
+def test_update_eta_nonspatial(n_units):
+    spec_j, data_j, states_j, spec_t, data_t, state_t, keys = _setup(
+        n_units=n_units)
+    ref = []
+    for s, k in zip(states_j, keys):
+        S = s.Z - JU.linear_fixed(spec_j, data_j, s.Beta)
+        ref.append(s.replace(levels=(JU.update_eta_nonspatial(
+            spec_j, data_j, s, 0, k, S),)))
+    noise = _stack([eta_noise(spec_j, k, 0) for k in keys])
+    S = state_t.Z - TU.linear_fixed(spec_t, data_t, state_t.Beta)
+    lv = TU.update_eta_nonspatial(spec_t, data_t, state_t, 0, S=S,
+                                  noise=noise)
+    _compare(state_t.replace(levels=(lv,)), ref, fields={"Eta"})
+
+
+def test_interweave_scale_and_location():
+    spec_j, data_j, states_j, spec_t, data_t, state_t, keys = _setup()
+    ref = [JU.interweave_location(spec_j, data_j,
+                                  JU.interweave_scale(spec_j, data_j, s, k),
+                                  jax.random.fold_in(k, 9))
+           for s, k in zip(states_j, keys)]
+    sc = _stack([scale_noise(spec_j, k) for k in keys])
+    loc = _stack([location_noise(spec_j, jax.random.fold_in(k, 9))
+                  for k in keys])
+    out = TU.interweave_location(
+        spec_t, data_t, TU.interweave_scale(spec_t, data_t, state_t,
+                                            noise=sc), noise=loc)
+    _compare(out, ref, fields={"Eta", "Lambda", "Beta"})
+    # the scale move must have been accepted somewhere for this to test it
+    assert not np.allclose(out.levels[0].Eta.numpy(),
+                           state_t.levels[0].Eta.numpy())
+
+
+def test_update_inv_sigma():
+    spec_j, data_j, states_j, spec_t, data_t, state_t, keys = _setup(
+        "normal")
+    ref = [JU.update_inv_sigma(spec_j, data_j, s, k)
+           for s, k in zip(states_j, keys)]
+    noise = _stack([inv_sigma_noise(spec_j, data_j, k) for k in keys])
+    out = TU.update_inv_sigma(spec_t, data_t, state_t, noise=noise)
+    _compare(out, ref, fields={"iSigma"})
+
+
+def _nf_case(case):
+    """A state where the Nf move adapts: 'grow' past sweep 20, or 'drop' a
+    factor whose loadings all shrank below the threshold."""
+    setup = _setup(it=30 if case == "grow" else 5, nf=4)
+    spec_j, data_j, states_j, spec_t, data_t, state_t, keys = setup
+    if case == "drop":
+        # three active factors (above nf_min = 2), the first one shrunk
+        states_j = [s.replace(levels=(s.levels[0].replace(
+            Lambda=s.levels[0].Lambda.at[0].multiply(1e-5),
+            nf_mask=s.levels[0].nf_mask.at[2].set(1.0)),))
+            for s in states_j]
+        data_t, state_t = to_torch(spec_j, data_j, states_j)
+    # keys whose adaptation draw fires (u < 1/exp(1 + 5e-4 it) ~ 0.36)
+    keys, i = [], 0
+    while len(keys) < len(states_j):
+        k = jax.random.key(500 + i)
+        i += 1
+        if float(nf_noise(spec_j, data_j, k, 0)["u"]) < 0.3:
+            keys.append(k)
+    return spec_j, data_j, states_j, spec_t, data_t, state_t, keys
+
+
+@pytest.mark.parametrize("case", ["grow", "drop"])
+def test_update_nf(case):
+    spec_j, data_j, states_j, spec_t, data_t, state_t, keys = _nf_case(case)
+    ref = [s.replace(levels=(JU.update_nf(spec_j, data_j, s, 0, k),))
+           for s, k in zip(states_j, keys)]
+    noise = _stack([nf_noise(spec_j, data_j, k, 0) for k in keys])
+    lv = TU.update_nf(spec_t, data_t, state_t, 0, noise=noise)
+    out = state_t.replace(levels=(lv,))
+    _compare(out, ref)
+    before = state_t.levels[0].nf_mask.sum(1)
+    after = lv.nf_mask.sum(1)
+    assert ((after > before) if case == "grow" else (after < before)).all()
+
+
+@pytest.mark.parametrize("kind,levels", [("probit", 1), ("normal", 1),
+                                         ("probit", 2)])
+def test_full_sweep_and_record(kind, levels):
+    spec_j, data_j, states_j, spec_t, data_t, state_t, keys = _setup(
+        kind, it=4, levels=levels)
+    adapt = (10,) * levels
+    jsw = jsweep.make_sweep(spec_j, adapt_nf=adapt)
+    ref = [jsw(data_j, s, k) for s, k in zip(states_j, keys)]
+    noise = _sweep_noise_stacked(spec_j, data_j, states_j, keys)
+    out = tsweep.make_sweep(spec_t, adapt_nf=adapt)(data_t, state_t, None,
+                                                    it=5, noise=noise)
+    _compare(out, ref)
+    rec_t = tsweep.record_sample(spec_t, data_t, out)
+    rec_j = [jsweep.record_sample(spec_j, data_j, s) for s in ref]
+    assert set(rec_t) == set(rec_j[0])
+    for k, v in rec_t.items():
+        np.testing.assert_allclose(
+            v.numpy(), np.stack([np.asarray(r[k]) for r in rec_j]),
+            rtol=RTOL, atol=ATOL, err_msg=k)
