@@ -6,22 +6,33 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Device: the card's name and power limit (nvidia-smi), then the build of
-   every hand-written kernel from ``hmsc_tpu_torch/csrc`` with nvcc.
+   every hand-written kernel from ``hmsc_tpu_torch/csrc`` with nvcc (one
+   nvcc per source, all started together).
 2. Each kernel against its plain PyTorch version on the card, at the shapes
-   the headline model gives it (tolerances stated at each check).
+   the main paths give it (tolerances stated at each check).
 3. Times: each kernel's device time per launch (torch.profiler, after
    warm-up) beside its plain version's device time per call, the one-call
    PyTorch yardstick where there is one, and the least time the card could
    take for the same work (bytes over 3.35 TB/s or float32 operations over
    67 TFLOP/s, the larger).  Beside them, the CUDA-event time of a batch of
-   calls per call, which includes the host's enqueue where that is slower.
+   calls per call, which includes the host's enqueue where that is slower,
+   and the same with the stream held until the batch is enqueued (the
+   stand-in where the profiler keeps no record of a kernel).
 4. Recovery: a 200 x 30 probit model; posterior-mean slopes must correlate
    > 0.9 with the simulated ones.
-5. Headline: ``sample_mcmc`` on the 1000-site x 1000-species probit JSDM,
-   nf_max = 8, 4 chains, with every kernel's launch counter set to 0 just
-   before and read just after; each count must equal the one the sweep
-   schedule implies.  Then a short torch.profiler window over ten
-   headline sweeps: device time by kernel against the run's wall time.
+5. The main paths through ``sample_mcmc``, each with every kernel's launch
+   counter set to 0 just before and read just after; each count must equal
+   the one the sweep schedule implies (0 for a kernel the path does not
+   run), the draws must be finite, no chain may diverge and the simulated
+   slopes must be recovered:
+   a. the headline: the 1000-site x 1000-species probit JSDM, nf_max = 8,
+      4 chains (B1-B3);
+   b. config 5 of BASELINE.md at its published size: 300 x 90, normal /
+      probit / lognormal-Poisson columns, nf 2, 4 chains, 125 + 250 sweeps
+      (B1-B3, B5);
+   c. the headline with 10% of Y missing, 10 + 50 sweeps (B1-B3, B6).
+   Then a short torch.profiler window over ten sweeps of each: device time
+   by kernel against the run's wall time.
 6. One JSON line with every kernel's numbers, then the result line.
 
 It needs the repository (it imports ``hmsc_tpu_torch`` from beside itself)
@@ -44,6 +55,15 @@ FP32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 
 HEADLINE = dict(ny=1000, ns=1000, nf=8, n_chains=4, transient=10,
                 samples=200)
+# benchmarks/run_benchmarks.py · config5_mixed_distr, SAMPLES, TRANSIENT,
+# CHAINS and run_one's seeds
+CONFIG5 = dict(ny=300, ns=90, nf=2, n_chains=4, transient=125, samples=250,
+               data_seed=42, seed=1)
+NA_HEADLINE = dict(HEADLINE, transient=10, samples=50, na_share=0.1)
+# the JAX package's own slope correlations on config 5 (CPU, the same data
+# and seed; scripts/config5_jax_recovery.py): normal, probit, lognormal
+# Poisson.  A block passes above min(0.9, the JAX value - 0.05).
+CONFIG5_JAX_SLOPE_CORR = (0.9929, 0.9810, 0.9754)
 
 
 def card_line() -> str:
@@ -78,30 +98,69 @@ def event_ms(torch, fn, batch=20, trials=7, warm=3):
     return statistics.median(out)
 
 
-def device_ms(torch, fn, match=None, calls=50, warm=3):
+def device_ms(torch, fn, match=None, calls=50, warm=3, windows=3):
     """Device time per call of ``fn`` from torch.profiler: the time of the
-    kernels whose name contains ``match`` (all of the call's device work
-    when None), summed over ``calls`` calls and divided by ``calls``.  The
-    host's enqueue cost is not in it."""
+    kernels whose name contains ``match`` per launch the profiler recorded
+    (on the card's machine it drops records of some launches, so the mean
+    is over those it kept), or all of the call's device work per call when
+    ``match`` is None.  The host's enqueue cost is not in it.  A window in
+    which the profiler kept no record at all is tried again, up to
+    ``windows`` times; after that the time comes from CUDA events
+    (``held_event_ms``), and a line says so."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us, n = 0.0, 0
-    for e, t in _device_rows(torch, prof):
-        if match is None or match in e.key:
-            us += t
-            n += e.count
-    assert us > 0, f"profiler saw no device time for {match or 'the call'}"
-    if match is not None:
-        assert n == calls, f"{match}: {n} kernels profiled for {calls} calls"
-    return us / 1e3 / calls
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us, n = 0.0, 0
+        for e, t in _device_rows(torch, prof):
+            if match is None or match in e.key:
+                us += t
+                n += e.count
+        if us > 0:
+            if match is None:
+                return us / 1e3 / calls
+            # more records than calls would mean the name matched others
+            assert n <= calls, f"{match}: {n} kernels profiled for {calls} " \
+                               f"calls"
+            return us / 1e3 / n
+    ms = held_event_ms(torch, fn, calls)
+    print(f"device_ms: the profiler kept no record of "
+          f"{match or 'the call'} in {windows} windows; {ms:.5f} ms a call "
+          f"from CUDA events with the stream held while the host enqueued")
+    return ms
+
+
+def held_event_ms(torch, fn, calls=50):
+    """CUDA-event time of ``calls`` calls per call, with the stream held by
+    a spin kernel until the host has enqueued them all, so that the host's
+    enqueue is not in it (the short gaps between kernels are)."""
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    torch.cuda._sleep(10_000_000)
+    e.record()
+    e.synchronize()
+    cycles_per_ms = 1e7 / s.elapsed_time(e)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int((2.0 * host_ms + 5.0) * cycles_per_ms))
+    s.record()
+    for _ in range(calls):
+        fn()
+    e.record()
+    e.synchronize()
+    return s.elapsed_time(e) / calls
 
 
 def _device_rows(torch, prof):
@@ -134,6 +193,45 @@ def probit_model(ht, X, Y, nf):
                    ran_levels={"sample": rl}, distr="probit", x_scale=False)
 
 
+def config5_data():
+    """BASELINE.md config 5, as ``benchmarks/run_benchmarks.py ·
+    config5_mixed_distr`` draws it from ``default_rng(42)``: X, Y, the
+    families and the simulated coefficients."""
+    c = CONFIG5
+    ny, ns = c["ny"], c["ns"]
+    rng = np.random.default_rng(c["data_seed"])
+    X = np.column_stack([np.ones(ny), rng.standard_normal(ny)])
+    Beta = rng.standard_normal((2, ns)) * 0.5
+    Z = X @ Beta + rng.standard_normal((ny, ns))
+    Y = np.empty((ny, ns))
+    distr = ["normal"] * 30 + ["probit"] * 30 + ["lognormal poisson"] * 30
+    Y[:, :30] = Z[:, :30]
+    Y[:, 30:60] = (Z[:, 30:60] > 0).astype(float)
+    Y[:, 60:] = rng.poisson(np.exp(np.clip(Z[:, 60:], -8, 4)))
+    return X, Y, distr, Beta
+
+
+def config5_model(pkg):
+    """Config 5 as an ``Hmsc`` of ``pkg`` (this port, or any package with
+    the same constructors): one site-level level with nf_max = nf_min = 2."""
+    X, Y, distr, _ = config5_data()
+    units = [f"s{i:05d}" for i in range(Y.shape[0])]
+    rl = pkg.HmscRandomLevel(units=units)
+    pkg.set_priors_random_level(rl, nf_max=CONFIG5["nf"],
+                                nf_min=CONFIG5["nf"])
+    return pkg.Hmsc(Y=Y, X=X, distr=distr,
+                    study_design=np.array(units)[:, None],
+                    ran_levels={"sample": rl}, x_scale=False)
+
+
+def block_slope_corr(post, Beta):
+    """Per family block of config 5 (30 columns each): correlation of the
+    posterior-mean slopes with the simulated ones."""
+    slope = post["Beta"][:, :, 1, :].mean(axis=(0, 1))
+    return [float(np.corrcoef(slope[b:b + 30], Beta[1, b:b + 30])[0, 1])
+            for b in (0, 30, 60)]
+
+
 def check_b1(torch, trand, dev, card):
     C, ny, ns = HEADLINE["n_chains"], HEADLINE["ny"], HEADLINE["ns"]
     g = torch.Generator(device=dev).manual_seed(0)
@@ -160,19 +258,8 @@ def check_b1(torch, trand, dev, card):
         E, std, Y, rng.uniform(E.shape)) - E) / std[:, None]
     for cls in (1.0, 0.0):
         m = (Y == cls).expand_as(E)
-        a, b = wk[m].double(), wp[m].double()
-        n = a.numel()
-        se_m = math.sqrt((a.var() + b.var()).item() / n)
-        dm = abs((a.mean() - b.mean()).item())
-        va, vb = a.var().item(), b.var().item()
-        se_v = math.sqrt((((a - a.mean()) ** 4).mean().item() - va * va
-                          + ((b - b.mean()) ** 4).mean().item() - vb * vb)
-                         / n)
-        assert dm < 4 * se_m, f"B1 Philox class {cls}: mean {dm} > 4 SE"
-        assert abs(va - vb) < 4 * se_v, f"B1 Philox class {cls}: variance"
-        print(f"B1 check: in-kernel Philox, Y={int(cls)}: |mean diff| "
-              f"{dm:.3g} (4 SE {4 * se_m:.3g}), |var diff| "
-              f"{abs(va - vb):.3g} (4 SE {4 * se_v:.3g})")
+        print(f"B1 check: in-kernel Philox, Y={int(cls)}: "
+              + _moments_agree(f"B1 Philox class {cls}", wk[m], wp[m]))
 
     def kern():
         trand.truncated_normal_onesided(E, std, Y, rng)
@@ -184,17 +271,19 @@ def check_b1(torch, trand, dev, card):
     ms = device_ms(torch, kern, "probit_z_kernel")
     plain_ms = device_ms(torch, plain, calls=10)
     ev, plain_ev = event_ms(torch, kern), event_ms(torch, plain, batch=5)
+    held = held_event_ms(torch, kern)
     cells = C * ny * ns
     # bytes: E and Z per cell, Y per site x species, std per chain x species;
     # operations: ~120 per cell (a quarter Philox call, the uniform, the
     # standardisation, normcdff, normcdfinvf, log1pf, clamps and selects)
     b, by = bound_ms(4.0 * (2 * cells + ny * ns + C * ns), 120.0 * cells)
     print(f"B1 probit_z device time: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-          f"bound {b:.4f} ms by {by}; with enqueue {ev:.4f} ms, plain "
-          f"{plain_ev:.4f} ms) at E {C}x{ny}x{ns} [{card}]")
+          f"bound {b:.4f} ms by {by}; held stream {held:.5f} ms, with "
+          f"enqueue {ev:.4f} ms, plain {plain_ev:.4f} ms) at E {C}x{ny}x{ns} "
+          f"[{card}]")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by, library_ms=None, event_ms=ev,
-                plain_event_ms=plain_ev)
+                plain_event_ms=plain_ev, held_ms=held)
 
 
 def check_b2(torch, tlinalg, dev, card):
@@ -230,6 +319,7 @@ def check_b2(torch, tlinalg, dev, card):
         ms = device_ms(torch, kern, "mvn_prec_small_kernel")
         plain_ms = device_ms(torch, plain, calls=10)
         ev, plain_ev = event_ms(torch, kern), event_ms(torch, plain, batch=5)
+        held = held_event_ms(torch, kern)
         # bytes: prec, rhs, eps in and the draw out; operations: P^3/3
         # (factor) + 2 P^2 (two solves) + 2 P (sqrt, reciprocal) per system
         b, by = bound_ms(4.0 * B * (P * P + 3 * P),
@@ -238,12 +328,12 @@ def check_b2(torch, tlinalg, dev, card):
               f"{abs_err:.3g}, max rel diff {rel:.3g} (tolerance 1e-4); "
               f"planted indefinite rows NaN on both sides")
         print(f"B2 mvn_prec_small device time P={P}: {ms:.5f} ms (plain "
-              f"{plain_ms:.4f} ms, bound {b:.5f} ms by {by}; with enqueue "
-              f"{ev:.4f} ms, plain {plain_ev:.4f} ms) at {B} systems "
-              f"[{card}]")
+              f"{plain_ms:.4f} ms, bound {b:.5f} ms by {by}; held stream "
+              f"{held:.5f} ms, with enqueue {ev:.4f} ms, plain "
+              f"{plain_ev:.4f} ms) at {B} systems [{card}]")
         res[P] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                       bound_ms=b, bound_by=by, library_ms=None, event_ms=ev,
-                      plain_event_ms=plain_ev)
+                      plain_event_ms=plain_ev, held_ms=held)
     # the line reports the BetaLambda shape, the larger of the two per sweep
     return res[2 + nf]
 
@@ -291,41 +381,251 @@ def check_b3(torch, trand, dev, card):
     plain_ms = device_ms(torch, plain, calls=10)
     lib_ms = device_ms(torch, lambda: torch._standard_gamma(a_psi))
     ev, plain_ev = event_ms(torch, kern), event_ms(torch, plain, batch=5)
+    held = held_event_ms(torch, kern)
     # bytes: shape in, draw out; operations: ~180 per element for the one
     # Marsaglia-Tsang round a shape of 2 needs in ~98% of draws (a Philox
     # call, Box-Muller, the cube and two logs)
     b, by = bound_ms(8.0 * m, 180.0 * m)
     print(f"B3 standard_gamma device time: {ms:.5f} ms (plain "
           f"{plain_ms:.4f} ms, torch._standard_gamma {lib_ms:.5f} ms, bound "
-          f"{b:.5f} ms by {by}; with enqueue {ev:.4f} ms, plain "
-          f"{plain_ev:.4f} ms) at {m} shapes [{card}]")
+          f"{b:.5f} ms by {by}; held stream {held:.5f} ms, with enqueue "
+          f"{ev:.4f} ms, plain {plain_ev:.4f} ms) at {m} shapes [{card}]")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by, library_ms=lib_ms, event_ms=ev,
-                plain_event_ms=plain_ev)
+                plain_event_ms=plain_ev, held_ms=held)
+
+
+def time_b4(torch, trand, dev, card):
+    """B4, the Wishart draw: plain PyTorch on B3 (no kernel of its own),
+    timed at the headline's GammaV draw (4 chains, nc 2, df f0 + ns)."""
+    C, nc = HEADLINE["n_chains"], 2
+    rng = trand.Rng(17, dev)
+    T = torch.eye(nc, device=dev).expand(C, nc, nc).contiguous() * 0.05
+    df = nc + 1.0 + HEADLINE["ns"]
+
+    def call():
+        trand.wishart(df, T, rng)
+
+    W = trand.wishart(df, T, rng)
+    assert torch.isfinite(W).all(), "B4: non-finite Wishart draw"
+    ms, ev = device_ms(torch, call), event_ms(torch, call)
+    # bytes: the factor in, the draw out, the nc gamma and nc^2 normal draws
+    # between; operations: two nc x nc products per chain
+    b, by = bound_ms(4.0 * C * (3 * nc * nc + nc), 4.0 * C * nc ** 3)
+    print(f"B4 wishart (plain PyTorch on B3) device time: {ms:.5f} ms a call "
+          f"(bound {b:.7f} ms by {by}; with enqueue {ev:.4f} ms) at {C} "
+          f"chains x nc {nc} [{card}]")
+
+
+def _moments_agree(label, a, b):
+    """Mean and variance of two samples of one distribution within 4 SE."""
+    a, b = a.double(), b.double()
+    n = a.numel()
+    se_m = math.sqrt((a.var() + b.var()).item() / n)
+    dm = abs((a.mean() - b.mean()).item())
+    va, vb = a.var().item(), b.var().item()
+    se_v = math.sqrt((((a - a.mean()) ** 4).mean().item() - va * va
+                      + ((b - b.mean()) ** 4).mean().item() - vb * vb) / n)
+    assert dm < 4 * se_m, f"{label}: mean {dm} > 4 SE {4 * se_m}"
+    assert abs(va - vb) < 4 * se_v, f"{label}: variance"
+    return (f"|mean diff| {dm:.3g} (4 SE {4 * se_m:.3g}), |var diff| "
+            f"{abs(va - vb):.3g} (4 SE {4 * se_v:.3g})")
+
+
+def poisson_inputs(torch, dev, C, ny, ns, seed):
+    """Counts 0 to ~1e3 and previous Z in every branch of the PG moments:
+    |Z - log r| / 2 at 0, below 1e-3 (the mean's series), just past it (the
+    variance's series) and far out; every seventh column probit."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    logr = math.log(1000.0)
+    Y = torch.poisson(torch.exp(torch.rand((ny, ns), generator=g,
+                                           device=dev) * 7.0 - 2.0),
+                      generator=g)
+    Y[0], Y[1] = 0.0, 1000.0
+    Zprev = torch.log(Y + 0.5) + 0.5 * torch.randn((C, ny, ns), generator=g,
+                                                   device=dev)
+    Zprev[:, 1] = logr
+    Zprev[:, 2] = logr + (torch.rand((C, ns), generator=g, device=dev)
+                          - 0.5) * 3.8e-3
+    Zprev[:, 3] = logr + 2.5e-3
+    Zprev[:, 4] = logr - 30.0
+    E = Zprev + 0.3 * torch.randn((C, ny, ns), generator=g, device=dev)
+    iSigma = torch.rand((C, ns), generator=g, device=dev) * 99.5 + 0.5
+    fam = torch.full((ns,), 3, dtype=torch.int32, device=dev)
+    fam[::7] = 2
+    eps = torch.randn((2, C, ny, ns), generator=g, device=dev)
+    return Y, Zprev, E, iSigma, fam, eps[0], eps[1]
+
+
+def check_b5(torch, trand, dev, card):
+    C, ny, ns = HEADLINE["n_chains"], HEADLINE["ny"], HEADLINE["ns"]
+    worst = 0.0
+    for shape in ((C, CONFIG5["ny"], CONFIG5["ns"]), (C, ny, ns)):
+        Y, Zprev, E, iSigma, fam, e1, e2 = poisson_inputs(torch, dev, *shape,
+                                                          seed=5)
+        zk = trand.poisson_z(Y, Zprev, E, iSigma, fam, eps_pg=e1, eps_z=e2)
+        zp = trand._poisson_z_plain(Y, Zprev, E, iSigma, fam, e1, e2)
+        assert torch.isfinite(zk).all(), "B5: non-finite draws"
+        assert torch.equal(zk[..., fam != 3], Zprev[..., fam != 3]), \
+            "B5: a non-Poisson column changed"
+        err = ((zk - zp).abs() / zp.abs().clamp_min(1.0)).max().item()
+        assert err <= 1e-4, f"B5 injected normals: rel diff {err} > 1e-4"
+        worst = max(worst, (zk - zp).abs().max().item())
+        print(f"B5 check: injected normals at {shape}, max |kernel - plain| "
+              f"/ max(|plain|, 1) = {err:.3g} (tolerance 1e-4)")
+    rng = trand.Rng(13, dev)
+    zk = trand.poisson_z(Y, Zprev, E, iSigma, fam, rng)
+    zp = trand._poisson_z_plain(Y, Zprev, E, iSigma, fam,
+                                rng.normal(E.shape), rng.normal(E.shape))
+    pois = (fam == 3).expand_as(E)
+    for label, cls in (("Y=0", Y == 0), ("Y>0", Y > 0)):
+        m = cls.expand_as(E) & pois
+        print(f"B5 check: in-kernel Philox, {label}: "
+              + _moments_agree(f"B5 Philox {label}", zk[m], zp[m]))
+
+    fam3 = torch.full_like(fam, 3)            # timed with every column Poisson
+
+    def kern():
+        trand.poisson_z(Y, Zprev, E, iSigma, fam3, rng)
+
+    def plain():
+        trand._poisson_z_plain(Y, Zprev, E, iSigma, fam3,
+                               rng.normal(E.shape), rng.normal(E.shape))
+
+    ms = device_ms(torch, kern, "poisson_z_kernel")
+    plain_ms = device_ms(torch, plain, calls=10)
+    ev, plain_ev = event_ms(torch, kern), event_ms(torch, plain, batch=5)
+    held = held_event_ms(torch, kern)
+    cells = C * ny * ns
+    # bytes: Zprev, E and Z per cell, Y per site x species, iSigma per chain
+    # x species, fam per species; operations: ~150 per cell (a Philox call,
+    # two Box-Muller normals, tanhf, the PG moments and the Gaussian draw)
+    b, by = bound_ms(4.0 * (3 * cells + ny * ns + C * ns + ns), 150.0 * cells)
+    print(f"B5 poisson_z device time: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+          f"bound {b:.4f} ms by {by}; held stream {held:.5f} ms, with "
+          f"enqueue {ev:.4f} ms, plain {plain_ev:.4f} ms) at {C}x{ny}x{ns}, "
+          f"every column Poisson [{card}]")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=None, event_ms=ev,
+                plain_event_ms=plain_ev, held_ms=held, shape=[C, ny, ns])
+
+
+def gram_inputs(torch, dev, C, ny, ns, P, seed):
+    """A 10%-missing mask with one all-missing species and one all-missing
+    row, and the per-species (XE, Z) and per-row (Lambda, S, iSigma)
+    operands."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mask = (torch.rand((ny, ns), generator=g, device=dev) > 0.1).float()
+    mask[:, 3] = 0.0
+    mask[5, :] = 0.0
+    XE = torch.randn((C, ny, P), generator=g, device=dev)
+    Z = torch.randn((C, ny, ns), generator=g, device=dev)
+    lam = torch.randn((C, P, ns), generator=g, device=dev)
+    iSigma = torch.rand((C, ns), generator=g, device=dev) + 0.5
+    return mask, XE, Z, lam, iSigma
+
+
+def check_b6(torch, tgram, dev, card):
+    C, ny, ns, nf = (HEADLINE["n_chains"], HEADLINE["ny"], HEADLINE["ns"],
+                     HEADLINE["nf"])
+    worst = 0.0
+    forms = {}
+    # P = 4 (config 5's nc + nf), 10 and 8 (the NA headline's BetaLambda
+    # and Eta), 18 (nc + the default nf_cap 16)
+    for P in (4, 8, 10, 18):
+        mask, XE, Z, lam, iSigma = gram_inputs(torch, dev, C, ny, ns, P,
+                                               seed=P)
+        args = {"species": (XE, mask.T, Z.transpose(1, 2), None),
+                "row": (lam.transpose(1, 2), mask, Z, iSigma)}
+        for form, (v, w, s_, a) in args.items():
+            Gk, Rk = tgram.masked_gram(v, w, s_, a)
+            Gp, Rp = tgram._masked_gram_plain(v, w, s_, a)
+            empty = (Gk[:, 3], Rk[:, 3]) if form == "species" else (
+                Gk[:, 5], Rk[:, 5])
+            assert not any(t.any() for t in empty), \
+                f"B6 {form} P={P}: the all-missing output is not zero"
+            rels = []
+            for name, k, p in (("G", Gk, Gp), ("R", Rk, Rp)):
+                assert torch.isfinite(k).all(), f"B6 {form} {name} P={P}"
+                diff = (k - p).abs().max().item()
+                rels.append(diff / p.abs().max().item())
+                assert rels[-1] <= 1e-4, \
+                    f"B6 {form} {name} P={P}: rel diff {rels[-1]} > 1e-4"
+                worst = max(worst, diff)
+            print(f"B6 check: {form} form, P={P}: max |kernel - plain| / "
+                  f"max |plain| = {rels[0]:.3g} (G), {rels[1]:.3g} (R) "
+                  f"(tolerance 1e-4); the all-missing {form} is zero")
+            forms[(form, P)] = (v, w, s_, a)
+
+    res = {}
+    for form, P in (("species", 2 + nf), ("row", nf)):
+        v, w, s_, a = forms[(form, P)]
+        Cv, Kd, _ = v.shape
+        O = w.shape[0]
+        wa = w[None] if a is None else w[None] * a[:, None, :]
+        wa = wa.expand(Cv, -1, -1)
+
+        def kern():
+            tgram.masked_gram(v, w, s_, a)
+
+        def plain():
+            tgram._masked_gram_plain(v, w, s_, a)
+
+        def library():
+            torch.einsum("cok,ckp,ckq->copq", wa, v, v)
+
+        ms = device_ms(torch, kern, "masked_gram_kernel")
+        plain_ms = device_ms(torch, plain, calls=10)
+        lib_ms = device_ms(torch, library, calls=10)
+        ev, plain_ev = event_ms(torch, kern), event_ms(torch, plain, batch=5)
+        held = held_event_ms(torch, kern)
+        # bytes: v, w, s (and a) read once, G and R written once;
+        # operations: a multiply-add per (chain, output, k) for each of the
+        # P(P+1)/2 gram entries and P right-hand-side entries
+        nbytes = 4.0 * (Cv * Kd * P + O * Kd + Cv * O * Kd + Cv * O * P * P
+                        + Cv * O * P + (0 if a is None else Cv * Kd))
+        b, by = bound_ms(nbytes, 2.0 * Cv * O * Kd * (P * (P + 1) / 2 + P))
+        print(f"B6 masked_gram device time, {form} form (C={Cv}, O={O}, "
+              f"K={Kd}, P={P}): {ms:.4f} ms (plain {plain_ms:.4f} ms, one "
+              f"torch.einsum for G {lib_ms:.4f} ms, bound {b:.5f} ms by "
+              f"{by}; held stream {held:.5f} ms, with enqueue {ev:.4f} ms, "
+              f"plain {plain_ev:.4f} ms) [{card}]")
+        res[form] = dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b, bound_by=by, library_ms=lib_ms,
+                         event_ms=ev, plain_event_ms=plain_ev, held_ms=held,
+                         shape=[Cv, O, Kd, P])
+    # the line reports the per-species form, the larger of the two per sweep
+    return res["species"]
 
 
 def expected_launches(spec, transient, samples, thin, adapt_nf):
-    """Kernel launches the sweep schedule implies for a probit model with
-    fixed sigma: Z once at start and once a sweep (B1); BetaLambda and Eta
-    systems (B2) each sweep; psi, nf_max deltas and the Wishart diagonal
-    each sweep, plus the Nf move's psi and delta draws while it <=
-    adapt_nf (B3)."""
+    """Kernel launches the sweep schedule implies: Z once at start and once
+    a sweep, for probit columns (B1) and for Poisson columns (B5);
+    BetaLambda and each level's Eta systems (B2, where P <= 16) each sweep;
+    psi, nf_max deltas, the Wishart diagonal and, where a dispersion is
+    estimated, the residual precisions each sweep, plus the Nf move's psi
+    and delta draws while it <= adapt_nf (B3); with missing values the
+    BetaLambda and each level's masked grams each sweep (B6)."""
     sweeps = transient + samples * thin
     nf_sweeps = sum(min(a, sweeps) for a in adapt_nf)
-    per_sweep_gamma = 1 + sum(1 + ls.nf_max for ls in spec.levels)
-    return {"probit_z": 1 + sweeps,
-            "mvn_prec_small": sweeps * (1 + spec.nr),
-            "standard_gamma": sweeps * per_sweep_gamma + 2 * nf_sweeps}
+    per_sweep_gamma = (1 + sum(1 + ls.nf_max for ls in spec.levels)
+                       + int(spec.any_estimated_sigma))
+    systems = int(spec.nc + spec.nf_total <= 16) + sum(
+        int(ls.nf_max <= 16) for ls in spec.levels)
+    return {"probit_z": (1 + sweeps) * spec.any_probit,
+            "mvn_prec_small": sweeps * systems,
+            "standard_gamma": sweeps * per_sweep_gamma + 2 * nf_sweeps,
+            "poisson_z": (1 + sweeps) * spec.any_poisson,
+            "masked_gram": sweeps * (1 + spec.nr) * spec.has_na}
 
 
-def profile_sweeps(torch, ht, hM, card, sweeps=10):
-    """Where a headline sweep's time goes: device time by kernel name over a
+def profile_sweeps(torch, ht, hM, card, label, n_chains, nf, sweeps=10):
+    """Where a path's sweep time goes: device time by kernel name over a
     short profiled run (torch.profiler), against the run's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    h = HEADLINE
-    kw = dict(samples=sweeps, transient=0, n_chains=h["n_chains"], seed=2,
-              nf_cap=h["nf"], align_post=False)
+    kw = dict(samples=sweeps, transient=0, n_chains=n_chains, seed=2,
+              nf_cap=nf, align_post=False)
     ht.sample_mcmc(hM, **kw)                      # warm the same shapes
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -334,12 +634,44 @@ def profile_sweeps(torch, ht, hM, card, sweeps=10):
     wall_ms = post.timing["run_s"] * 1e3          # profiler overhead included
     rows = [(us / 1e3, e.count, e.key) for e, us in _device_rows(torch, prof)]
     busy_ms = sum(r[0] for r in rows)
-    print(f"profile: {sweeps} headline sweeps + record: run {wall_ms:.1f} ms"
+    print(f"profile {label}: {sweeps} sweeps + record: run {wall_ms:.1f} ms"
           f", device kernel time {busy_ms:.1f} ms (busy share "
           f"{busy_ms / wall_ms:.3f}), {sum(r[1] for r in rows)} kernel "
           f"launches [{card}]")
-    for ms, n, key in sorted(rows, reverse=True)[:12]:
-        print(f"profile:   {ms:9.3f} ms  {n:6d} x  {key[:90]}")
+    for ms, n, key in sorted(rows, reverse=True)[:8]:
+        print(f"profile {label}:   {ms:9.3f} ms  {n:6d} x  {key[:80]}")
+
+
+def run_path(torch, ht, K, card, label, hM, n_chains, nf, transient,
+             samples, seed):
+    """One main path through ``sample_mcmc`` with every launch counter set
+    to 0 just before and read just after; each count must equal the one
+    the schedule implies.  Returns the posterior and the counts."""
+    from hmsc_tpu_torch.mcmc.structs import build_spec
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    post = ht.sample_mcmc(hM, samples=samples, transient=transient,
+                          n_chains=n_chains, seed=seed, nf_cap=nf)
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    spec = build_spec(hM, nf)
+    want = expected_launches(spec, transient, samples, 1,
+                             (transient,) * spec.nr)
+    beta = post["Beta"]
+    assert beta.shape == (n_chains, samples, spec.nc, spec.ns), label
+    assert np.isfinite(beta).all(), f"{label}: non-finite Beta"
+    assert post.chain_health["good_chains"].all(), f"{label}: divergence"
+    assert launches == want, (f"{label}: launches {launches}, the schedule "
+                              f"implies {want}")
+    run_s = post.timing["run_s"]
+    print(f"{label}: {spec.ny} x {spec.ns}, nf_max {nf}, {n_chains} chains, "
+          f"transient {transient}, samples {samples}: run {run_s:.3f} s "
+          f"(setup {post.timing['setup_s']:.3f} s), "
+          f"{n_chains * samples / run_s:.2f} samples/s, "
+          f"{n_chains * (transient + samples) / run_s:.2f} chain-sweeps/s; "
+          f"launches {launches} [{card}]")
+    return post, launches
 
 
 def main() -> int:
@@ -350,7 +682,7 @@ def main() -> int:
         return 2
     import hmsc_tpu_torch as ht
     from hmsc_tpu_torch import kernels as K
-    from hmsc_tpu_torch.mcmc.structs import build_spec
+    from hmsc_tpu_torch.ops import gram as tgram
     from hmsc_tpu_torch.ops import linalg as tlinalg
     from hmsc_tpu_torch.ops import rand as trand
 
@@ -366,7 +698,10 @@ def main() -> int:
 
     results = {"probit_z": check_b1(torch, trand, dev, card),
                "mvn_prec_small": check_b2(torch, tlinalg, dev, card),
-               "standard_gamma": check_b3(torch, trand, dev, card)}
+               "standard_gamma": check_b3(torch, trand, dev, card),
+               "poisson_z": check_b5(torch, trand, dev, card),
+               "masked_gram": check_b6(torch, tgram, dev, card)}
+    time_b4(torch, trand, dev, card)
 
     # recovery: posterior-mean slopes against the simulated ones
     X, Y, Beta = simulate_probit(200, 30, seed=3)
@@ -379,62 +714,78 @@ def main() -> int:
     print(f"recovery: 200 x 30 probit, 2 chains, 200 + 200 sweeps: "
           f"corr(posterior-mean slopes, simulated) = {corr:.4f} (> 0.9)")
 
-    # headline: the main path through the user's entry point
+    # (a) the headline: the probit path through the user's entry point
     h = HEADLINE
-    X, Y, _ = simulate_probit(h["ny"], h["ns"], seed=66)
+    X, Y, Beta_h = simulate_probit(h["ny"], h["ns"], seed=66)
     hM = probit_model(ht, X, Y, nf=h["nf"])
-    torch.cuda.synchronize()
-    K.reset_launches()
-    post = ht.sample_mcmc(hM, samples=h["samples"], transient=h["transient"],
-                          n_chains=h["n_chains"], seed=1, nf_cap=h["nf"])
-    torch.cuda.synchronize()
-    launches = dict(K.launches)
-    spec = build_spec(hM, h["nf"])
-    want = expected_launches(spec, h["transient"], h["samples"], 1,
-                             (h["transient"],) * spec.nr)
-    beta = post["Beta"]
-    assert beta.shape == (h["n_chains"], h["samples"], 2, h["ns"])
-    assert np.isfinite(beta).all(), "headline: non-finite Beta"
-    assert post.chain_health["good_chains"].all(), "headline: divergence"
-    for name in K.KERNELS:
-        assert launches[name] > 0, f"headline: {name} never launched"
-        assert launches[name] == want[name], (
-            f"headline: {name} launched {launches[name]} times, the "
-            f"schedule implies {want[name]}")
-    run_s = post.timing["run_s"]
-    sweeps = h["transient"] + h["samples"]
-    print(f"headline: {h['ny']} x {h['ns']} probit, nf_max {h['nf']}, "
-          f"{h['n_chains']} chains, transient {h['transient']}, samples "
-          f"{h['samples']}: run {run_s:.3f} s (setup "
-          f"{post.timing['setup_s']:.3f} s), "
-          f"{h['n_chains'] * h['samples'] / run_s:.2f} samples/s, "
-          f"{h['n_chains'] * sweeps / run_s:.2f} chain-sweeps/s; "
-          f"launches {launches} [{card}]")
+    _, launches = run_path(torch, ht, K, card, "headline", hM, h["n_chains"],
+                           h["nf"], h["transient"], h["samples"], seed=1)
+    by_path = {"headline": launches}
 
-    profile_sweeps(torch, ht, hM, card)
+    # (b) config 5: normal / probit / lognormal-Poisson columns
+    c5 = CONFIG5
+    hM5 = config5_model(ht)
+    post5, by_path["config5"] = run_path(
+        torch, ht, K, card, "config5", hM5, c5["n_chains"], c5["nf"],
+        c5["transient"], c5["samples"], c5["seed"])
+    corr5 = block_slope_corr(post5, config5_data()[3])
+    for name, corr, ref in zip(("normal", "probit", "lognormal poisson"),
+                               corr5, CONFIG5_JAX_SLOPE_CORR):
+        floor = min(0.9, ref - 0.05)
+        assert corr > floor, f"config5 {name}: slope corr {corr} <= {floor}"
+        print(f"config5 recovery, {name} columns: corr(posterior-mean "
+              f"slopes, simulated) = {corr:.4f} (> {floor:.4f}; the JAX "
+              f"package on the CPU: {ref:.4f})")
 
+    # (c) the headline with missing values
+    na = NA_HEADLINE
+    Y_na = Y.copy()
+    Y_na[np.random.default_rng(7).uniform(size=Y.shape) < na["na_share"]] \
+        = np.nan
+    hM_na = probit_model(ht, X, Y_na, nf=na["nf"])
+    post_na, by_path["na_headline"] = run_path(
+        torch, ht, K, card, "na_headline", hM_na, na["n_chains"], na["nf"],
+        na["transient"], na["samples"], seed=1)
+    slope = post_na["Beta"][:, :, 1, :].mean(axis=(0, 1))
+    corr = float(np.corrcoef(slope, Beta_h[1])[0, 1])
+    assert corr > 0.9, f"na_headline: slope correlation {corr} <= 0.9"
+    print(f"na_headline recovery: {np.isnan(Y_na).mean():.4f} of Y missing;"
+          f" corr(posterior-mean slopes, simulated) = {corr:.4f} (> 0.9)")
+
+    for label, m, n_chains, nf in (("headline", hM, h["n_chains"], h["nf"]),
+                                   ("config5", hM5, c5["n_chains"], c5["nf"]),
+                                   ("na_headline", hM_na, na["n_chains"],
+                                    na["nf"])):
+        profile_sweeps(torch, ht, m, card, label, n_chains, nf)
+
+    # kernel -> (label, source, the TPU op it replaces, the path whose
+    # launches the line reports: the first that runs it)
     meta = {
         "probit_z": ("B1 probit_z", "hmsc_tpu_torch/csrc/probit_z.cu",
-                     "hmsc_tpu/ops/rand.py:84"),
+                     "hmsc_tpu/ops/rand.py:84", "headline"),
         "mvn_prec_small": ("B2 mvn_prec_small",
                            "hmsc_tpu_torch/csrc/mvn_prec_small.cu",
-                           "hmsc_tpu/ops/linalg.py:63"),
+                           "hmsc_tpu/ops/linalg.py:63", "headline"),
         "standard_gamma": ("B3 standard_gamma",
                            "hmsc_tpu_torch/csrc/standard_gamma.cu",
-                           "hmsc_tpu/ops/rand.py:124"),
+                           "hmsc_tpu/ops/rand.py:124", "headline"),
+        "poisson_z": ("B5 poisson_z", "hmsc_tpu_torch/csrc/poisson_z.cu",
+                      "hmsc_tpu/ops/rand.py:172", "config5"),
+        "masked_gram": ("B6 masked_gram",
+                        "hmsc_tpu_torch/csrc/masked_gram.cu",
+                        "hmsc_tpu/mcmc/updaters.py:246", "na_headline"),
     }
+    assert set(meta) == set(K.KERNELS) == set(results)
     kernels = []
-    for name, (label, src, replaces) in meta.items():
+    for name, (label, src, replaces, path) in meta.items():
         r = results[name]
+        assert by_path[path][name] > 0, f"{path}: {name} never launched"
         kernels.append({"name": label, "ok": True, "route": "cuda",
                         "source": src, "replaces": replaces,
-                        "launches": launches[name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"],
-                        "event_ms": r["event_ms"],
-                        "plain_event_ms": r["plain_event_ms"]})
+                        "launches": by_path[path][name], "path": path,
+                        "launches_by_path": {p: n[name]
+                                             for p, n in by_path.items()},
+                        **r})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

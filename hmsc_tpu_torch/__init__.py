@@ -8,8 +8,9 @@ imports neither JAX nor the ``hmsc_tpu`` package; the numpy host modules it
 needs (model specification, formulas, random levels, initial values,
 posterior container) are copied into it.
 
-This slice samples probit and normal JSDMs with a design matrix, optional
-traits and unstructured random levels (``sample_mcmc``).  Entry points run
+This slice samples normal, probit, Poisson and lognormal-Poisson JSDMs
+(any mix of them across species), with missing values in Y, a design
+matrix, optional traits and unstructured random levels (``sample_mcmc``).  Entry points run
 on the CUDA card unless the caller passes ``device="cpu"``; features of
 later slices raise ``NotImplementedError`` naming their ROADMAP item.
 """

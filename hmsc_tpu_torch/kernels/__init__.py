@@ -32,7 +32,9 @@ __all__ = ["launches", "reset_launches", "library", "check", "stream_of",
 # kernel name -> its source file under csrc/
 KERNELS = {"probit_z": "probit_z.cu",
            "mvn_prec_small": "mvn_prec_small.cu",
-           "standard_gamma": "standard_gamma.cu"}
+           "standard_gamma": "standard_gamma.cu",
+           "poisson_z": "poisson_z.cu",
+           "masked_gram": "masked_gram.cu"}
 
 launches = {name: 0 for name in KERNELS}
 
@@ -118,8 +120,14 @@ def library():
                                           p]
             lib.hmsc_mvn_prec_small.argtypes = [p, p, p, p, ll, i, p]
             lib.hmsc_standard_gamma.argtypes = [p, p, ll, u64, u32, p]
+            lib.hmsc_poisson_z.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
+                                           u64, u32, p]
+            lib.hmsc_masked_gram.argtypes = [p, ll, ll, ll, p, ll, ll, p, ll,
+                                             ll, p, ll, ll, ll, p, p, i, i, i,
+                                             i, p]
             for fn in (lib.hmsc_probit_z, lib.hmsc_mvn_prec_small,
-                       lib.hmsc_standard_gamma):
+                       lib.hmsc_standard_gamma, lib.hmsc_poisson_z,
+                       lib.hmsc_masked_gram):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -170,8 +170,6 @@ def check_supported(hM: Hmsc, spec: ModelSpec) -> None:
     does not sample, naming the ROADMAP item that brings it.  Nothing falls
     back to another path."""
     checks = (
-        (spec.any_poisson, "Poisson observation models (ROADMAP A4)"),
-        (spec.has_na, "missing values in Y (ROADMAP A4)"),
         (spec.has_phylo, "phylogeny (ROADMAP A5)"),
         (spec.x_is_list, "per-species X lists (ROADMAP A5)"),
         (any(ls.x_dim > 0 for ls in spec.levels),

@@ -11,7 +11,9 @@ the very numbers the JAX updater drew.
 Plain GEMMs (``X'X``, ``XE'Z``, ``S Lambda'``) are ``torch.matmul``, as the
 JAX package left them to XLA; the tiny nc x nc / nf x nf Cholesky
 factorisations are ``chol_spd``.  The hot per-cell and per-system work
-goes through the hand-written kernels B1-B3 (:mod:`..ops`).
+goes through the hand-written kernels B1-B3 and B5 (:mod:`..ops`), and
+with missing values in Y the per-species and per-row masked grams through
+B6 (:mod:`..ops.gram`).
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ import math
 
 import torch
 
+from ..ops.gram import masked_gram
 from ..ops.linalg import chol_spd, sample_mvn_prec, sample_mvn_prec_batched
-from ..ops.rand import standard_gamma, truncated_normal_onesided, wishart
+from ..ops.rand import (poisson_z, standard_gamma, truncated_normal_onesided,
+                        wishart)
 from .structs import GibbsState, LevelState, ModelData, ModelSpec
 
 __all__ = ["lambda_effective", "linear_fixed", "level_loading",
@@ -111,19 +115,32 @@ def _unstack_lambda(spec: ModelSpec, BL, state: GibbsState):
 def update_z(spec: ModelSpec, data: ModelData, state: GibbsState, rng=None,
              E=None, noise=None) -> GibbsState:
     """Latent-response data augmentation: normal columns copy Y, probit
-    columns draw one-sided truncated normals (kernel B1).  ``E`` may pass
-    in the current linear predictor.  ``noise``: ``{"u": (C, ny, ns)}``."""
+    columns draw one-sided truncated normals (kernel B1), (lognormal-)
+    Poisson columns the Polya-Gamma augmented normal of the NB(r = 1000)
+    limit, drawn at the previous Z (kernel B5); last, missing cells of
+    every family are imputed as E + sigma eps.  ``E`` may pass in the
+    current linear predictor.  ``noise``, per active branch: ``{"u",
+    "eps_pg", "eps_z", "eps_na"}``, each (C, ny, ns) (the JAX updater's
+    ``k_tn, k_pg, k_pg2, k_na`` draws)."""
     if E is None:
         E = total_loading(spec, data, state)
+    nz = noise if noise is not None else {}
     Z = state.Z
     fam = data.distr_family
+    one_family = spec.any_normal + spec.any_probit + spec.any_poisson == 1
     if spec.any_normal:
         Z = torch.where(fam == 1, data.Y, Z)
+    std = state.iSigma ** -0.5
     if spec.any_probit:
-        std = state.iSigma ** -0.5
-        z_tn = truncated_normal_onesided(
-            E, std, data.Y, rng, u=None if noise is None else noise["u"])
-        Z = torch.where(fam == 2, z_tn, Z) if spec.any_normal else z_tn
+        z_tn = truncated_normal_onesided(E, std, data.Y, rng, u=nz.get("u"))
+        Z = z_tn if one_family else torch.where(fam == 2, z_tn, Z)
+    if spec.any_poisson:
+        z_p = poisson_z(data.Y, state.Z, E, state.iSigma, fam, rng,
+                        nz.get("eps_pg"), nz.get("eps_z"))
+        Z = z_p if one_family else torch.where(fam == 3, z_p, Z)
+    if spec.has_na:
+        eps = _noise(noise, "eps_na", lambda: rng.normal(E.shape, E.dtype))
+        Z = torch.where(data.Ymask > 0, Z, E + std[:, None, :] * eps)
     return state.replace(Z=Z)
 
 
@@ -134,17 +151,23 @@ def update_z(spec: ModelSpec, data: ModelData, state: GibbsState, rng=None,
 def update_beta_lambda(spec: ModelSpec, data: ModelData, state: GibbsState,
                        rng=None, noise=None) -> GibbsState:
     """Joint (Beta, Lambda) draw: one (nc+K)^2 system per species, all of
-    them in one batched draw (kernel B2).  ``noise``: ``{"eps": (C, ns,
-    nc+K)}``."""
+    them in one batched draw (kernel B2).  Without missing values the
+    species share one gram ``XE'XE``; with them each species has its own
+    masked gram and right-hand side (kernel B6).  ``noise``: ``{"eps": (C,
+    ns, nc+K)}``."""
     C = state.n_chains
     P = spec.nc + spec.nf_total
     XE = torch.cat([data.X.expand(C, -1, -1), eta_star(spec, data, state)],
                    dim=2)                                # (C, ny, P)
     prior_lam = _stacked_lambda_prior(spec, state)       # (C, K, ns)
     Mu_beta = state.Gamma @ data.Tr.T                    # (C, nc, ns)
-    XEt = XE.transpose(1, 2)
-    G = XEt @ XE                                         # (C, P, P)
-    rhs_lik = (XEt @ state.Z).transpose(1, 2)            # (C, ns, P)
+    if spec.has_na:
+        # (C, ns, P, P) and (C, ns, P): o = species, k = row
+        G, rhs_lik = masked_gram(XE, data.Ymask.T, state.Z.transpose(1, 2))
+    else:
+        XEt = XE.transpose(1, 2)
+        G = (XEt @ XE)[:, None]                          # (C, 1, P, P)
+        rhs_lik = (XEt @ state.Z).transpose(1, 2)        # (C, ns, P)
 
     # per-species posterior precision = blkdiag(iV, diag(psi*tau)) + iSigma_j*G
     eyeP = torch.eye(P, dtype=G.dtype, device=G.device)
@@ -153,7 +176,7 @@ def update_beta_lambda(spec: ModelSpec, data: ModelData, state: GibbsState,
     P0 = G.new_zeros((C, spec.ns, P, P))
     P0[:, :, :spec.nc, :spec.nc] = state.iV[:, None]
     P0 = P0 + eyeP * prior_diag.transpose(1, 2)[..., None]
-    prec = P0 + state.iSigma[:, :, None, None] * G[:, None]
+    prec = P0 + state.iSigma[:, :, None, None] * G
 
     mu0 = torch.cat([Mu_beta, G.new_zeros((C, spec.nf_total, spec.ns))],
                     dim=1)                               # (C, P, ns)
@@ -257,15 +280,25 @@ def update_lambda_priors(spec: ModelSpec, data: ModelData, state: GibbsState,
 # updateEta, non-spatial (reference R/updateEta.R)
 # ---------------------------------------------------------------------------
 
-def _level_gram(spec, lvd, ls, lv, iSigma, S):
-    """Per-unit factor precision contributions and RHS (x_dim = 0, no NA):
-    (LiSL (C, np, nf, nf), F (C, np, nf)); the unit sums are index_add_."""
+def _level_gram(spec, data, lvd, ls, lv, iSigma, S):
+    """Per-unit factor precision contributions and RHS (x_dim = 0):
+    (LiSL (C, np, nf, nf), F (C, np, nf)).  Without missing values every
+    row shares one gram, scaled by its unit's row count; with them each row
+    has its own masked gram and right-hand side (kernel B6).  The unit sums
+    are ``index_add_`` over ``pi_row``."""
     lam = lambda_effective(lv)[..., 0]                   # (C, nf, ns)
     lamT = lam.transpose(1, 2)
-    shared = (lam * iSigma[:, None, :]) @ lamT           # (C, nf, nf)
-    LiSL = lvd.unit_count[:, None, None] * shared[:, None]
-    Fr = (S * iSigma[:, None, :]) @ lamT                 # (C, ny, nf)
-    F = Fr.new_zeros((Fr.shape[0], ls.n_units, ls.nf_max))
+    C = lam.shape[0]
+    if spec.has_na:
+        # (C, ny, nf, nf) and (C, ny, nf): o = row, k = species
+        rows, Fr = masked_gram(lamT, data.Ymask, S, iSigma)
+        LiSL = rows.new_zeros((C, ls.n_units, ls.nf_max, ls.nf_max))
+        LiSL.index_add_(1, lvd.pi_row, rows)
+    else:
+        shared = (lam * iSigma[:, None, :]) @ lamT       # (C, nf, nf)
+        LiSL = lvd.unit_count[:, None, None] * shared[:, None]
+        Fr = (S * iSigma[:, None, :]) @ lamT             # (C, ny, nf)
+    F = Fr.new_zeros((C, ls.n_units, ls.nf_max))
     F.index_add_(1, lvd.pi_row, Fr)
     return LiSL, F
 
@@ -276,7 +309,7 @@ def update_eta_nonspatial(spec, data, state, r: int, rng=None, S=None,
     all in one batched draw (kernel B2); inactive factors fall back to
     their N(0,1) prior.  ``noise``: ``{"eps": (C, np, nf)}``."""
     lvd, lv, ls = data.levels[r], state.levels[r], spec.levels[r]
-    LiSL, F = _level_gram(spec, lvd, ls, lv, state.iSigma, S)
+    LiSL, F = _level_gram(spec, data, lvd, ls, lv, state.iSigma, S)
     prec = LiSL + torch.eye(ls.nf_max, dtype=F.dtype, device=F.device)
     eps = _noise(noise, "eps", lambda: rng.normal(F.shape, F.dtype))
     return lv.replace(Eta=sample_mvn_prec_batched(prec, F, eps))

@@ -5,7 +5,9 @@ Two of them are kernels written by hand for Hopper (``csrc/``):
 - B1 :func:`truncated_normal_onesided` — the probit Z draw, one thread per
   four cells (``csrc/probit_z.cu``);
 - B3 :func:`standard_gamma` — per-element Marsaglia-Tsang rejection
-  (``csrc/standard_gamma.cu``).
+  (``csrc/standard_gamma.cu``);
+- B5 :func:`poisson_z` — the Polya-Gamma Poisson Z draw, one thread per
+  cell (``csrc/poisson_z.cu``).
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and runs the
 plain PyTorch version beside it only for a tensor on the CPU.  The plain
@@ -27,7 +29,8 @@ import torch
 
 from .. import kernels as K
 
-__all__ = ["Rng", "truncated_normal_onesided", "standard_gamma", "wishart"]
+__all__ = ["Rng", "truncated_normal_onesided", "standard_gamma", "wishart",
+           "polya_gamma", "poisson_z"]
 
 _TINY = 1e-38  # smallest safe f32 normal-ish (JAX package rand.py:18)
 # f32 ndtri overflows to -inf below ~1e-33; quantile-space probabilities are
@@ -37,6 +40,10 @@ _P_FLOOR = 1e-30
 _S_CEIL = 1.0 - 2.0 ** -24
 # Marsaglia-Tsang candidate rounds of the plain gamma version (JAX default)
 _GAMMA_ROUNDS = 8
+# Poisson as the r -> inf limit of NB(r) (reference updateZ.R:68);
+# csrc/poisson_z.cu hard-codes both
+_NB_R = 1e3
+_LOG_NB_R = math.log(_NB_R)
 
 
 class Rng:
@@ -185,6 +192,116 @@ def _standard_gamma_plain(a, rng: Rng):
     ub = rng.uniform(a.shape, dtype=a.dtype)
     pow_ = ub ** (1.0 / torch.where(boost, a, torch.ones_like(a)))
     return torch.where(boost, draw * pow_, draw)
+
+
+# ---------------------------------------------------------------------------
+# B5: the Polya-Gamma Poisson Z draw
+# ---------------------------------------------------------------------------
+
+# Taylor coefficients in u^2 of (tanh u - u sech^2 u) / (16 u^3), the PG
+# variance per unit h, and the |z|/2 below which they replace the closed
+# form; csrc/poisson_z.cu carries the same numbers
+_PG_VAR_SERIES = (1 / 24, -1 / 30, 17 / 840, -31 / 2835, 691 / 124740,
+                  -5461 / 2027025, 929569 / 729729000)
+_PG_VAR_SERIES_MAX = 0.5
+
+
+def _pg_moments(h, z):
+    """Mean and variance of PG(h, z) from its cumulant generating function
+    (JAX package ``rand.py:172-182``).  The mean is the JAX op's, series
+    branch for |z|/2 < 1e-3 included.  The variance's closed form
+    subtracts two nearly equal numbers for small u = |z|/2 (relative error
+    ~1.5e-7 / u^2 in float32, 10% at u = 1e-3 where the JAX op leaves its
+    series), so below u = 0.5 it is the Taylor series instead (error below
+    1e-7 there)."""
+    u = 0.5 * z.abs()
+    small = u < 1e-3
+    us = torch.where(small, 1.0, u)                   # safe denominator
+    t = torch.tanh(us)
+    sech2 = 1.0 - t * t
+    mean = torch.where(small, h / 4.0 * (1.0 - u * u / 3.0),
+                       h * t / (4.0 * us))
+    x = u * u
+    series = torch.full_like(x, _PG_VAR_SERIES[-1])
+    for coef in reversed(_PG_VAR_SERIES[:-1]):
+        series = series * x + coef
+    var = torch.where(u < _PG_VAR_SERIES_MAX, h * series,
+                      h * (t - us * sech2) / (16.0 * (us * us * us)))
+    return mean, var
+
+
+def polya_gamma(h, z, eps):
+    """PG(h, z) for h >= 1000 as its moment-matched normal floored at
+    1e-38, given standard normals ``eps`` (the JAX op ``polya_gamma`` on its
+    default ``n_terms=0`` path, ``rand.py:185-214``)."""
+    mean, var = _pg_moments(h, z)
+    return torch.clamp_min(mean + torch.sqrt(var) * eps, _TINY)
+
+
+def poisson_z(Y, Zprev, E, iSigma, fam, rng: Rng | None = None,
+              eps_pg=None, eps_z=None):
+    """The (lognormal-)Poisson latent draw of ``update_z`` (JAX package
+    ``updaters.py:175-197``): in the columns with ``fam == 3``, w ~ PG(Y +
+    r, Zprev - log r) with r = 1000, then Z ~ N(s2 ((Y - r)/2 + iSigma (E -
+    log r)) + log r, s2) with s2 = 1/(iSigma + w), keeping Zprev where the
+    draw is not finite; ``Zprev`` in the other columns.
+
+    ``Y`` (ny, ns), ``Zprev`` and ``E`` (C, ny, ns), ``iSigma`` (C, ns),
+    ``fam`` (ns,) int32.  ``eps_pg`` and ``eps_z`` (C, ny, ns) inject the
+    two standard normals per cell (both or neither); otherwise the kernel
+    draws them from Philox keyed by ``rng.philox()``, and the plain
+    version from ``rng.normal``."""
+    C, ny, ns = Zprev.shape
+    if (E.shape != Zprev.shape or iSigma.shape != (C, ns)
+            or Y.shape != (ny, ns) or fam.shape != (ns,)):
+        raise ValueError(f"poisson_z: Y {tuple(Y.shape)}, Zprev "
+                         f"{tuple(Zprev.shape)}, E {tuple(E.shape)}, iSigma "
+                         f"{tuple(iSigma.shape)}, fam {tuple(fam.shape)}")
+    if (eps_pg is None) != (eps_z is None):
+        raise ValueError("poisson_z: inject both eps_pg and eps_z or neither")
+    if eps_pg is not None and (eps_pg.shape != Zprev.shape
+                               or eps_z.shape != Zprev.shape):
+        raise ValueError("poisson_z: eps_pg and eps_z must match Zprev")
+    if not Zprev.is_cuda:
+        if eps_pg is None:
+            eps_pg = rng.normal(Zprev.shape, Zprev.dtype)
+            eps_z = rng.normal(Zprev.shape, Zprev.dtype)
+        return _poisson_z_plain(Y, Zprev, E, iSigma, fam, eps_pg, eps_z)
+    floats = (("Y", Y), ("Zprev", Zprev), ("E", E), ("iSigma", iSigma)) + (
+        (("eps_pg", eps_pg), ("eps_z", eps_z)) if eps_pg is not None else ())
+    for name, t in floats:
+        if t.device != Zprev.device or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"poisson_z: {name} must be a contiguous "
+                             "float32 tensor on Zprev's device")
+    if fam.device != Zprev.device or fam.dtype != torch.int32 \
+            or not fam.is_contiguous():
+        raise ValueError("poisson_z: fam must be a contiguous int32 tensor "
+                         "on Zprev's device")
+    Z = torch.empty_like(Zprev)
+    if Zprev.numel() == 0:
+        return Z
+    seed, offset = (0, 0) if eps_pg is not None else rng.philox()
+    with torch.cuda.device(Zprev.device):
+        code = K.library().hmsc_poisson_z(
+            Y.data_ptr(), Zprev.data_ptr(), E.data_ptr(), iSigma.data_ptr(),
+            fam.data_ptr(), None if eps_pg is None else eps_pg.data_ptr(),
+            None if eps_z is None else eps_z.data_ptr(), Z.data_ptr(), C, ny,
+            ns, seed, offset, K.stream_of(Zprev))
+    K.check(code, "poisson_z")
+    K.launches["poisson_z"] += 1
+    return Z
+
+
+def _poisson_z_plain(Y, Zprev, E, iSigma, fam, eps_pg, eps_z):
+    """The JAX op and update_z branch step by step."""
+    w = polya_gamma(Y + _NB_R, Zprev - _LOG_NB_R, eps_pg)
+    prec = iSigma[:, None, :]
+    s2 = 1.0 / (prec + w)
+    mu = s2 * ((Y - _NB_R) / 2.0 + prec * (E - _LOG_NB_R)) + _LOG_NB_R
+    z = mu + torch.sqrt(s2) * eps_z
+    z = torch.where(torch.isfinite(z), z, Zprev)      # reference NaN guard
+    return torch.where(fam == 3, z, Zprev)
 
 
 def wishart(df, scale_factor, rng: Rng | None = None, noise=None):

@@ -25,13 +25,19 @@ pytestmark = pytest.mark.torch
 torch.set_num_threads(1)
 
 
+# the column families of the "mixed" and "na" kinds, cycled over species
+MIXED = ("normal", "probit", "lognormal poisson", "poisson")
+
+
 def model_inputs(kind="probit", ny=30, ns=5, n_units=None, seed=0,
                  levels=1):
     """Numpy inputs for both packages' ``Hmsc``: ``kind`` is "probit" (raw
-    [1, x] design, intercept found by value) or "normal" (a pandas frame
-    and formula with a named intercept, scaled X, traits); ``n_units``
-    groups the rows into fewer units; ``levels=2`` adds a second random
-    level of 5 plots."""
+    [1, x] design, intercept found by value), "normal" (a pandas frame
+    and formula with a named intercept, scaled X, traits), "mixed" (the
+    families of ``MIXED`` cycled over the species, counts up to ~150) or
+    "na" (mixed, with 15% of Y's cells missing, at least one in each
+    column); ``n_units`` groups the rows into fewer units; ``levels=2`` adds
+    a second random level of 5 plots."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal(ny)
     X = np.column_stack([np.ones(ny), x])
@@ -46,6 +52,18 @@ def model_inputs(kind="probit", ny=30, ns=5, n_units=None, seed=0,
         kw.update(x_data=pd.DataFrame({"x": x}), x_formula="~x",
                   distr="normal",
                   Tr=np.column_stack([np.ones(ns), rng.standard_normal(ns)]))
+    elif kind in ("mixed", "na"):
+        Zl = L + rng.standard_normal((ny, ns))
+        distr = [MIXED[j % len(MIXED)] for j in range(ns)]
+        fam = np.array([{"normal": 1, "probit": 2}.get(d, 3) for d in distr])
+        Y = np.where(fam == 1, Zl, (Zl > 0).astype(float))
+        Y = np.where(fam == 3, rng.poisson(np.exp(np.clip(2 * Zl, -8, 5))),
+                     Y)
+        if kind == "na":
+            miss = rng.uniform(size=(ny, ns)) < 0.15
+            miss[rng.integers(ny, size=ns), np.arange(ns)] = True
+            Y = np.where(miss, np.nan, Y)
+        kw.update(X=X, distr=distr, x_scale=False)
     else:
         Y = (L + rng.standard_normal((ny, ns)) > 0).astype(float)
         kw.update(X=X, distr="probit", x_scale=False)
@@ -105,7 +123,8 @@ def to_torch(spec_j, data_j, states_j):
 
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("kind", ["probit", "normal", "probit_units"])
+@pytest.mark.parametrize("kind", ["probit", "normal", "probit_units",
+                                  "mixed", "na"])
 def test_spec_data_state_match_jax(kind):
     kw = {"n_units": 10} if kind == "probit_units" else {}
     mj, mt = make_models("probit" if kind == "probit_units" else kind, **kw)
@@ -155,7 +174,7 @@ def test_numpy_roundtrip_of_jax_structures():
     assert data.x_ones_ind == int(data_j.x_ones_ind)
 
 
-def _unsupported(case):
+def _model_with(case):
     Y, kw, (units,) = model_inputs("probit")
     rl = hmsc_tpu_torch.HmscRandomLevel(units=units)
     hkw = dict(Y=Y, ran_levels={"unit": rl}, **kw)
@@ -181,10 +200,9 @@ def _unsupported(case):
     return hmsc_tpu_torch.Hmsc(**hkw)
 
 
-@pytest.mark.parametrize("case", ["poisson", "na", "phylo", "spatial",
-                                  "x_dim", "x_list"])
+@pytest.mark.parametrize("case", ["phylo", "spatial", "x_dim", "x_list"])
 def test_features_outside_the_slice_raise(case):
-    hM = _unsupported(case)
+    hM = _model_with(case)
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         hmsc_tpu_torch.sample_mcmc(hM, samples=1, device="cpu")
 
@@ -197,3 +215,18 @@ def test_options_outside_the_slice_raise(arg):
     _, hM = make_models("probit")
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         hmsc_tpu_torch.sample_mcmc(hM, samples=1, device="cpu", **arg)
+
+
+@pytest.mark.parametrize("case", ["poisson", "na"])
+def test_poisson_and_na_models_sample(case):
+    """Poisson responses and missing values in Y are in the slice: the
+    sampler runs them on the CPU when asked, and without a card it refuses
+    to run them anywhere else."""
+    hM = _model_with(case)
+    post = hmsc_tpu_torch.sample_mcmc(hM, samples=2, transient=1,
+                                      n_chains=1, seed=0, device="cpu")
+    assert np.isfinite(post["Beta"]).all()
+    assert post.chain_health["good_chains"].all()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            hmsc_tpu_torch.sample_mcmc(hM, samples=1)

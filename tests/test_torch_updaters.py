@@ -78,9 +78,19 @@ def _compare(port_state, jax_states, fields=None):
 # --- the JAX updaters' draws, by repeating their key splits ---------------
 
 def z_noise(spec, key):
-    k_tn = jax.random.split(key, 4)[0]
-    return {"u": jax.random.uniform(k_tn, (spec.ny, spec.ns), minval=_TINY,
-                                    maxval=1.0)}
+    """The draws of each active branch of ``update_z`` (``k_tn, k_pg, k_pg2,
+    k_na``, updaters.py:152)."""
+    k_tn, k_pg, k_pg2, k_na = jax.random.split(key, 4)
+    shape = (spec.ny, spec.ns)
+    out = {}
+    if spec.any_probit:
+        out["u"] = jax.random.uniform(k_tn, shape, minval=_TINY, maxval=1.0)
+    if spec.any_poisson:
+        out["eps_pg"] = jax.random.normal(k_pg, shape)
+        out["eps_z"] = jax.random.normal(k_pg2, shape)
+    if spec.has_na:
+        out["eps_na"] = jax.random.normal(k_na, shape)
+    return out
 
 
 def beta_lambda_noise(spec, key):
@@ -185,7 +195,7 @@ def _sweep_noise_stacked(spec, data, states, keys):
 
 # --- the updaters --------------------------------------------------------
 
-@pytest.mark.parametrize("kind", ["probit", "normal"])
+@pytest.mark.parametrize("kind", ["probit", "normal", "mixed", "na"])
 def test_update_z(kind):
     spec_j, data_j, states_j, spec_t, data_t, state_t, keys = _setup(kind)
     ref = [JU.update_z(spec_j, data_j, s, k) for s, k in zip(states_j, keys)]
@@ -194,7 +204,7 @@ def test_update_z(kind):
     _compare(out, ref, fields={"Z"})
 
 
-@pytest.mark.parametrize("kind", ["probit", "normal"])
+@pytest.mark.parametrize("kind", ["probit", "normal", "mixed", "na"])
 def test_update_beta_lambda(kind):
     spec_j, data_j, states_j, spec_t, data_t, state_t, keys = _setup(kind)
     ref = [JU.update_beta_lambda(spec_j, data_j, s, k)
@@ -226,8 +236,18 @@ def test_update_lambda_priors():
 
 @pytest.mark.parametrize("n_units", [None, 10])
 def test_update_eta_nonspatial(n_units):
+    _check_eta_nonspatial("probit", n_units)
+
+
+@pytest.mark.parametrize("kind,n_units", [("mixed", None), ("na", None),
+                                          ("na", 10)])
+def test_update_eta_nonspatial_mixed_and_na(kind, n_units):
+    _check_eta_nonspatial(kind, n_units)
+
+
+def _check_eta_nonspatial(kind, n_units):
     spec_j, data_j, states_j, spec_t, data_t, state_t, keys = _setup(
-        n_units=n_units)
+        kind, n_units=n_units)
     ref = []
     for s, k in zip(states_j, keys):
         S = s.Z - JU.linear_fixed(spec_j, data_j, s.Beta)
@@ -259,13 +279,28 @@ def test_interweave_scale_and_location():
 
 
 def test_update_inv_sigma():
-    spec_j, data_j, states_j, spec_t, data_t, state_t, keys = _setup(
-        "normal")
+    _check_inv_sigma("normal")
+
+
+@pytest.mark.parametrize("kind", ["mixed", "na"])
+def test_update_inv_sigma_mixed_and_na(kind):
+    """Estimated dispersion for normal and lognormal-Poisson columns, the
+    fixed 1e-2 of "poisson" and 1 of probit, over the observed cells."""
+    out = _check_inv_sigma(kind)
+    fam = out[1].distr_family.numpy()
+    np.testing.assert_allclose(out[0].iSigma.numpy()[:, fam == 2], 1.0)
+    np.testing.assert_allclose(out[0].iSigma.numpy()[:, fam == 3][
+        :, out[1].distr_estsig.numpy()[fam == 3] == 0], 100.0)
+
+
+def _check_inv_sigma(kind):
+    spec_j, data_j, states_j, spec_t, data_t, state_t, keys = _setup(kind)
     ref = [JU.update_inv_sigma(spec_j, data_j, s, k)
            for s, k in zip(states_j, keys)]
     noise = _stack([inv_sigma_noise(spec_j, data_j, k) for k in keys])
     out = TU.update_inv_sigma(spec_t, data_t, state_t, noise=noise)
     _compare(out, ref, fields={"iSigma"})
+    return out, data_t
 
 
 def _nf_case(case):
@@ -305,7 +340,8 @@ def test_update_nf(case):
 
 
 @pytest.mark.parametrize("kind,levels", [("probit", 1), ("normal", 1),
-                                         ("probit", 2)])
+                                         ("probit", 2), ("mixed", 1),
+                                         ("na", 1)])
 def test_full_sweep_and_record(kind, levels):
     spec_j, data_j, states_j, spec_t, data_t, state_t, keys = _setup(
         kind, it=4, levels=levels)
