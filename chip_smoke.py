@@ -30,7 +30,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
    b. config 5 of BASELINE.md at its published size: 300 x 90, normal /
       probit / lognormal-Poisson columns, nf 2, 4 chains, 125 + 250 sweeps
       (B1-B3, B5);
-   c. the headline with 10% of Y missing, 10 + 50 sweeps (B1-B3, B6).
+   c. the headline with 10% of Y missing, 10 + 50 sweeps (B1-B3, B6);
+   d. config 3a of BASELINE.md: a Full spatial level, np 200 (200 x 2 rows
+      x 50 probit species), nf 2, 4 chains, 125 + 250 sweeps (B1-B3);
+   e. config 3b: an NNGP level with 10 neighbours, np 1000 (2000 x 50),
+      nf 2, 4 chains, 125 + 250 sweeps, the matrix-free CG Eta draw (B8a,
+      whose launches must equal what the CG iterations the port reports
+      imply, and B8b);
+   f. the 3b generator at np 100 (np nf = 200, below the dense/CG
+      crossover), 50 + 100 sweeps: the dense NNGP Eta draw (B8b, B8c).
+   The spatial paths must also recover the posterior mean of the GP range
+   (alpha) within a stated margin of the JAX package's own value.
    Then a short torch.profiler window over ten sweeps of each: device time
    by kernel against the run's wall time.
 6. One JSON line with every kernel's numbers, then the result line.
@@ -47,6 +57,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -64,6 +75,30 @@ NA_HEADLINE = dict(HEADLINE, transient=10, samples=50, na_share=0.1)
 # and seed; scripts/config5_jax_recovery.py): normal, probit, lognormal
 # Poisson.  A block passes above min(0.9, the JAX value - 0.05).
 CONFIG5_JAX_SLOPE_CORR = (0.9929, 0.9810, 0.9754)
+# benchmarks/run_benchmarks.py · _spatial, config3_spatial_full /
+# config3_spatial_nngp, SAMPLES, TRANSIENT, CHAINS and run_one's seeds; the
+# dense-NNGP path is the 3b generator at np 100 with fewer sweeps
+CONFIG3 = {
+    "config3a": dict(np=200, method="Full", n_chains=4, transient=125,
+                     samples=250),
+    "config3b": dict(np=1000, method="NNGP", n_neighbours=10, n_chains=4,
+                     transient=125, samples=250),
+    "dense_nngp": dict(np=100, method="NNGP", n_neighbours=10, n_chains=4,
+                       transient=50, samples=100),
+}
+CONFIG3_DATA_SEED, CONFIG3_SEED, CONFIG3_NF, CONFIG3_NS = 42, 1, 2, 50
+# posterior means of the GP range alpha per factor (distance units) from
+# the JAX package on the CPU, same data and seed 1
+# (scripts/config3_jax_recovery.py; its slope correlations: 0.9889,
+# 0.9978, 0.9771).  The generator's latent factors are iid over units, so
+# the posterior sits at alpha = 0 (no spatial range)
+CONFIG3_JAX_ALPHA = {"config3a": (0.0, 0.0), "config3b": (0.0, 0.0),
+                     "dense_nngp": (0.00034177, 0.0)}
+# the port's posterior-mean alpha must lie within this share of the alpha
+# grid's range (the bounding-box diagonal) of the JAX package's, per factor:
+# two of the grid's 100 steps (the JAX values of seeds 1-3 span 0.0017, an
+# eighth of one step)
+ALPHA_MARGIN = 0.02
 
 
 def card_line() -> str:
@@ -222,6 +257,58 @@ def config5_model(pkg):
     return pkg.Hmsc(Y=Y, X=X, distr=distr,
                     study_design=np.array(units)[:, None],
                     ran_levels={"sample": rl}, x_scale=False)
+
+
+class _Named:
+    """Coordinate rows with unit names, read as a pandas DataFrame would be
+    (``values``, ``index``) by both packages' ``HmscRandomLevel``, so that
+    the units keep the benchmark's names and order without pandas."""
+
+    def __init__(self, values, index):
+        self.values, self.index = values, index
+
+
+def config3_data(name):
+    """A config-3 model's inputs as ``benchmarks/run_benchmarks.py ·
+    _spatial`` draws them from ``default_rng(42)``: two rows per unit,
+    design [1, x], two iid latent factors, 50 probit species.  Returns
+    (coordinates, unit labels per row, X, Y, simulated Beta)."""
+    n = CONFIG3[name]["np"]
+    rng = np.random.default_rng(CONFIG3_DATA_SEED)
+    ny, ns = 2 * n, CONFIG3_NS
+    units = [f"u{i:04d}" for i in range(n)]
+    unit_of = np.repeat(np.arange(n), 2)
+    xy = _Named(rng.uniform(size=(n, 2)) * 10, units)
+    X = np.column_stack([np.ones(ny), rng.standard_normal(ny)])
+    eta = rng.standard_normal((n, 2))
+    lam = rng.standard_normal((2, ns))
+    Beta = rng.standard_normal((2, ns)) * 0.5
+    L = X @ Beta + eta[unit_of] @ lam
+    Y = ((L + rng.standard_normal((ny, ns))) > 0).astype(float)
+    return xy, np.array(units)[unit_of], X, Y, Beta
+
+
+def config3_model(pkg, name):
+    """A config-3 model as an ``Hmsc`` of ``pkg`` (this port or the JAX
+    package): one spatial level "plot" with nf_max = nf_min = 2."""
+    c = CONFIG3[name]
+    xy, labels, X, Y, _ = config3_data(name)
+    kw = {"n_neighbours": c["n_neighbours"]} if c["method"] == "NNGP" else {}
+    rl = pkg.HmscRandomLevel(s_data=xy, s_method=c["method"], **kw)
+    pkg.set_priors_random_level(rl, nf_max=CONFIG3_NF, nf_min=CONFIG3_NF)
+    return pkg.Hmsc(Y=Y, X=X, distr="probit", study_design=labels[:, None],
+                    ran_levels={"plot": rl}, x_scale=False)
+
+
+def alpha_mean(post, hM):
+    """Posterior mean of each factor's GP range (distance units)."""
+    grid = hM.ranLevels[0].alphapw[:, 0]
+    return grid[post["Alpha_0"]].mean(axis=(0, 1)).tolist()
+
+
+def slope_corr(post, Beta):
+    slope = post["Beta"][:, :, 1, :].mean(axis=(0, 1))
+    return float(np.corrcoef(slope, Beta[1])[0, 1])
 
 
 def block_slope_corr(post, Beta):
@@ -598,25 +685,332 @@ def check_b6(torch, tgram, dev, card):
     return res["species"]
 
 
-def expected_launches(spec, transient, samples, thin, adapt_nf):
+def nngp_level(torch, dev, n, k, side, seed):
+    """An NNGP level's tensors on the card, as ``LevelData`` holds them: the
+    port's grids for ``n`` uniform units on a ``side`` x ``side`` square
+    with ``k`` neighbours over the default 101-point alpha grid, and the
+    reverse-neighbour lists.  Returns the level and its unit count that
+    have at least one real neighbour listed."""
+    from types import SimpleNamespace
+
+    from hmsc_tpu_torch.mcmc.structs import reverse_neighbours
+    from hmsc_tpu_torch.precompute import _nngp_grids
+
+    pts = np.random.default_rng(seed).uniform(size=(n, 2)) * side
+    diag = float(np.sqrt(((pts.max(0) - pts.min(0)) ** 2).sum()))
+    lp = _nngp_grids(pts, k, diag * np.arange(101) / 100)
+    rev = reverse_neighbours(lp.nn_idx, lp.nn_n)
+
+    def t(a, dt=torch.float32):
+        return torch.tensor(np.asarray(a), dtype=dt, device=dev)
+
+    i32 = torch.int32
+    return SimpleNamespace(
+        nn_idx=t(lp.nn_idx, i32), nn_coef=t(lp.nn_coef), nn_D=t(lp.nn_D),
+        nn_n=t(lp.nn_n, i32), rev_ptr=t(rev[0], i32), rev_pos=t(rev[1], i32))
+
+
+def _rel(k, p):
+    """max |kernel - plain| / max |plain|."""
+    return ((k - p).abs().max() / p.abs().max()).item()
+
+
+def _grid_bytes(lvd, alpha):
+    """Bytes of the coefficient and variance slices at the distinct alpha
+    indices in use (what this run's data needs), and of the lists."""
+    n, k = lvd.nn_idx.shape
+    used = int(alpha.unique().numel())
+    return 4.0 * (used * n * (k + 1) + n * k)
+
+
+# config 3b's kernel shapes and the 5000-unit NNGP level of
+# benchmarks/bench_shard.py:260 (8 neighbours, 20 x 20 square)
+B8_SHAPES = ((1000, 10, 10.0), (5000, 8, 20.0))
+B8_C, B8_NF, B8_G = 4, 2, 101
+
+
+def check_b8a(torch, tsp, dev, card):
+    res = {}
+    for n, k, side in B8_SHAPES:
+        lvd = nngp_level(torch, dev, n, k, side, seed=n)
+        g = torch.Generator(device=dev).manual_seed(n + 1)
+        alpha = torch.randint(1, B8_G, (B8_C, B8_NF), generator=g,
+                              device=dev, dtype=torch.int32)
+        alpha[0, 0] = 0                    # planted: iW = I for this factor
+        x = torch.randn((B8_C, n, B8_NF), generator=g, device=dev)
+        u = torch.randn((B8_C, n, B8_NF), generator=g, device=dev)
+        M = torch.randn((B8_C, n, B8_NF, B8_NF), generator=g, device=dev)
+        LiSL = (M @ M.transpose(2, 3)).contiguous()
+        fk = tsp.vecchia_riw(lvd, alpha, x)
+        tk = tsp.vecchia_riw_t(lvd, alpha, u)
+        pk = tsp.vecchia_pmv(lvd, alpha, x, LiSL)
+        t_p = tsp._vecchia_riw_plain(lvd, alpha, x, True)
+        pairs = (("forward", fk, tsp._vecchia_riw_plain(lvd, alpha, x,
+                                                          False)),
+                 ("transpose", tk, tsp._vecchia_riw_t_plain(
+                     lvd, alpha, u, None, None, False)),
+                 ("pmv", pk, tsp._vecchia_riw_t_plain(lvd, alpha, t_p, LiSL,
+                                                      x, True)))
+        errs = []
+        for label, kk, pp in pairs:
+            assert torch.isfinite(kk).all(), f"B8a {label}: non-finite"
+            rel = _rel(kk, pp)
+            # the neighbour sums are taken in another order than the plain
+            # version's einsum and index_add_
+            assert rel <= 1e-5, f"B8a {label} np={n}: rel diff {rel} > 1e-5"
+            errs.append((kk - pp).abs().max().item())
+        lhs = (fk.double() * u.double()).sum().item()
+        rhs = (x.double() * tk.double()).sum().item()
+        scale = (fk.double() * u.double()).abs().sum().item()
+        adj = abs(lhs - rhs) / scale
+        assert adj <= 1e-5, f"B8a adjoint identity np={n}: {adj} > 1e-5"
+        assert torch.equal(fk[0, :, 0], x[0, :, 0]) and torch.equal(
+            tk[0, :, 0], u[0, :, 0]), "B8a: alpha = 0 is not the identity"
+        assert torch.equal(pk, tsp.vecchia_pmv(lvd, alpha, x, LiSL)), \
+            "B8a: two runs differ"
+        print(f"B8a check np={n} k={k}: max |kernel - plain| / max |plain| "
+              f"{_rel(fk, pairs[0][2]):.3g} (forward), "
+              f"{_rel(tk, pairs[1][2]):.3g} (transpose), "
+              f"{_rel(pk, pairs[2][2]):.3g} (pmv) (tolerance 1e-5: another "
+              f"summation order); <RiW x, u> - <x, RiW' u> relative "
+              f"{adj:.3g} (1e-5); alpha 0 exactly the identity; two runs "
+              f"bit-identical")
+
+        def kern():
+            tsp.vecchia_pmv(lvd, alpha, x, LiSL)
+
+        def plain():
+            t = tsp._vecchia_riw_plain(lvd, alpha, x, True)
+            tsp._vecchia_riw_t_plain(lvd, alpha, t, LiSL, x, True)
+
+        R, Rt, v = riw_csr(torch, lvd, alpha, x)
+        lib_err = _rel((R @ v).reshape(B8_C, B8_NF, n).transpose(1, 2), fk)
+        assert lib_err <= 1e-5, f"B8a: the CSR yardstick differs ({lib_err})"
+
+        def library():
+            Rt @ (R @ v)
+
+        ms_f = device_ms(torch, kern, "vecchia_fwd_kernel")
+        ms_a = device_ms(torch, kern, "vecchia_adj_kernel")
+        plain_ms = device_ms(torch, plain, calls=10)
+        lib_ms = device_ms(torch, library, calls=10)
+        ev, plain_ev = event_ms(torch, kern), event_ms(torch, plain, batch=5)
+        held = held_event_ms(torch, kern)
+        nnz = int(lvd.rev_pos.numel())
+        cells = B8_C * n * B8_NF
+        # bytes: x, LiSL and alpha in, P x out, the grid slices at the
+        # alphas in use, the neighbour and reverse lists; operations: the
+        # forward's 2k + 3 a cell, the transpose's 2 a real neighbour per
+        # (chain, factor) and the likelihood's 2 nf a cell
+        nbytes = (4.0 * (2 * cells + cells * B8_NF + B8_C * B8_NF)
+                  + _grid_bytes(lvd, alpha) + 4.0 * (n + 1 + 2 * nnz))
+        ops = cells * (2 * k + 3 + 2 * B8_NF + 1) + 2.0 * B8_C * B8_NF * nnz
+        b, by = bound_ms(nbytes, ops)
+        print(f"B8a vecchia_apply device time, one P x (forward + transpose) "
+              f"at C {B8_C}, np {n}, nf {B8_NF}, k {k}: {ms_f + ms_a:.5f} ms "
+              f"({ms_f:.5f} + {ms_a:.5f}; plain {plain_ms:.4f} ms, "
+              f"torch.sparse CSR RiW then RiW' {lib_ms:.5f} ms, bound "
+              f"{b:.6f} ms by {by}; held stream {held:.5f} ms, with enqueue "
+              f"{ev:.4f} ms, plain {plain_ev:.4f} ms) [{card}]")
+        res[n] = dict(max_abs_err=max(errs), ms=ms_f + ms_a,
+                      fwd_ms=ms_f, adj_ms=ms_a, plain_ms=plain_ms,
+                      bound_ms=b, bound_by=by, library_ms=lib_ms,
+                      event_ms=ev, plain_event_ms=plain_ev, held_ms=held,
+                      shape=[B8_C, n, B8_NF, k])
+    return res[B8_SHAPES[0][0]]
+
+
+def riw_csr(torch, lvd, alpha, x):
+    """The same RiW as torch.sparse CSR matrices, block-diagonal over
+    (chain, factor) (real neighbours only), its transpose, and x as the
+    matching column: the library yardstick of B8a, timed only."""
+    nn = lvd.nn_idx.long().cpu().numpy()
+    nn_n = lvd.nn_n.cpu().numpy()
+    coef, D = lvd.nn_coef.cpu().numpy(), lvd.nn_D.cpu().numpy()
+    n, k = nn.shape
+    real = np.arange(k)[None, :] < nn_n[:, None]
+    ri, rk = np.nonzero(real)
+    rows, cols, vals = [], [], []
+    C, nf = alpha.shape
+    for c in range(C):
+        for f in range(nf):
+            a = int(alpha[c, f])
+            off = (c * nf + f) * n
+            sq = np.sqrt(D[a])
+            rows += [np.arange(n) + off, ri + off]
+            cols += [np.arange(n) + off, nn[ri, rk] + off]
+            vals += [1.0 / sq, -coef[a, ri, rk] / sq[ri]]
+    idx = torch.tensor(np.stack([np.concatenate(rows), np.concatenate(cols)]))
+    val = torch.tensor(np.concatenate(vals), dtype=torch.float32)
+    N = C * nf * n
+    v = x.transpose(1, 2).reshape(N, 1).contiguous()
+    with warnings.catch_warnings():               # "CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        R, Rt = (torch.sparse_coo_tensor(i, val, (N, N), check_invariants=True)
+                 .coalesce().to_sparse_csr().to(x.device)
+                 for i in (idx, idx.flip(0)))
+    return R, Rt, v
+
+
+def check_b8b(torch, tsp, dev, card):
+    res = {}
+    for n, k, side in B8_SHAPES:
+        lvd = nngp_level(torch, dev, n, k, side, seed=n)
+        g = torch.Generator(device=dev).manual_seed(n + 2)
+        alpha = torch.randint(0, B8_G, (B8_C, B8_NF), generator=g,
+                              device=dev, dtype=torch.int32)
+        eta = torch.randn((B8_C, n, B8_NF), generator=g, device=dev)
+        vk = tsp.nngp_quad_grid(lvd, eta)
+        vp = tsp._nngp_quad_grid_plain(lvd, eta)
+        ak = tsp.nngp_quad_at(lvd, alpha, eta)
+        ap = tsp._nngp_quad_at_plain(lvd, alpha, eta)
+        assert torch.isfinite(vk).all() and torch.isfinite(ak).all(), "B8b"
+        # the order of summation differs from the plain version's: sums of
+        # n positive terms (the quadratics) are held entry by entry, the
+        # signed 1' iW eta = sum r1 re against its scale sqrt(q1 q), which
+        # bounds both it and the sum of its terms' magnitudes
+        e_grid = ((vk - vp).abs() / vp.abs()).max().item()
+        e_q = ((ak[..., :2] - ap[..., :2]).abs() / ap[..., :2].abs()).max(
+            ).item()
+        e_s = ((ak[..., 2] - ap[..., 2]).abs()
+               / (ap[..., 0] * ap[..., 1]).sqrt()).max().item()
+        for label, e in (("grid", e_grid), ("at-alpha quadratics", e_q),
+                         ("at-alpha 1' iW eta", e_s)):
+            assert e <= 1e-5, f"B8b {label} np={n}: rel diff {e} > 1e-5"
+        assert torch.equal(vk, tsp.nngp_quad_grid(lvd, eta)), \
+            "B8b: two runs differ"
+        print(f"B8b check np={n} k={k}: grid rel diff {e_grid:.3g}, at-alpha "
+              f"{e_q:.3g} (q, 1' iW 1) and {e_s:.3g} (1' iW eta) (tolerance "
+              f"1e-5: another summation order); two runs bit-identical")
+
+        def grid():
+            tsp.nngp_quad_grid(lvd, eta)
+
+        def grid_plain():
+            tsp._nngp_quad_grid_plain(lvd, eta)
+
+        def at():
+            tsp.nngp_quad_at(lvd, alpha, eta)
+
+        def at_plain():
+            tsp._nngp_quad_at_plain(lvd, alpha, eta)
+
+        ms = device_ms(torch, grid, "nngp_quad_grid_kernel")
+        plain_ms = device_ms(torch, grid_plain, calls=10)
+        at_ms = device_ms(torch, at, "nngp_quad_at_kernel")
+        at_plain_ms = device_ms(torch, at_plain, calls=10)
+        ev, plain_ev = event_ms(torch, grid), event_ms(torch, grid_plain,
+                                                       batch=5)
+        held = held_event_ms(torch, grid)
+        cells = B8_C * n * B8_NF
+        # grid mode: the whole coefficient and variance grids, the lists,
+        # eta in and C nf G out; 2k + 4 operations a cell and grid point.
+        # at-alpha mode: the slices in use; 3k + 10 operations a cell
+        b, by = bound_ms(4.0 * (B8_G * n * (k + 1) + n * k + cells
+                                + B8_C * B8_NF * B8_G),
+                         B8_G * cells * (2 * k + 4))
+        b_at, by_at = bound_ms(_grid_bytes(lvd, alpha) + 4.0 * (cells + 4
+                                                                * B8_C * B8_NF),
+                               cells * (3 * k + 10))
+        print(f"B8b nngp_quad device time at C {B8_C}, np {n}, nf {B8_NF}, "
+              f"k {k}, G {B8_G}: grid {ms:.5f} ms (plain {plain_ms:.4f} ms, "
+              f"bound {b:.5f} ms by {by}; held stream {held:.5f} ms, with "
+              f"enqueue {ev:.4f} ms, plain {plain_ev:.4f} ms); at-alpha "
+              f"{at_ms:.5f} ms (plain {at_plain_ms:.4f} ms, bound "
+              f"{b_at:.6f} ms by {by_at}) [{card}]")
+        res[n] = dict(max_abs_err=max((vk - vp).abs().max().item(),
+                                      (ak - ap).abs().max().item()),
+                      ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                      library_ms=None, event_ms=ev, plain_event_ms=plain_ev,
+                      held_ms=held, at_ms=at_ms, at_plain_ms=at_plain_ms,
+                      at_bound_ms=b_at, shape=[B8_C, n, B8_NF, k, B8_G])
+    return res[B8_SHAPES[0][0]]
+
+
+def check_b8c(torch, tsp, dev, card):
+    """At the dense-NNGP path's shape (np 100, k 10) and at the largest
+    the crossover admits for nf 2 (np 128)."""
+    res = {}
+    for n in (CONFIG3["dense_nngp"]["np"], 128):
+        lvd = nngp_level(torch, dev, n, 10, 10.0, seed=n)
+        g = torch.Generator(device=dev).manual_seed(n + 3)
+        alpha = torch.randint(0, B8_G, (B8_C, B8_NF), generator=g,
+                              device=dev, dtype=torch.int32)
+        alpha[0, 0] = 0
+        Rk = tsp.nngp_riw_dense(lvd, alpha)
+        Rp = tsp._nngp_riw_dense_plain(lvd, alpha)
+        err = (Rk - Rp).abs().max().item()
+        # the same scatter, identity and scaling in the same order
+        assert err <= 1e-6, f"B8c np={n}: max |diff| {err} > 1e-6"
+        eye = torch.eye(n, device=dev)
+        assert torch.equal(Rk[0, 0], eye), "B8c: alpha = 0 is not I"
+        print(f"B8c check np={n}: max |kernel - plain| = {err:.3g} "
+              f"(tolerance 1e-6; {'exact' if err == 0 else 'not exact'}); "
+              f"alpha 0 gives I exactly")
+
+        def kern():
+            tsp.nngp_riw_dense(lvd, alpha)
+
+        def plain():
+            tsp._nngp_riw_dense_plain(lvd, alpha)
+
+        ms = device_ms(torch, kern, "nngp_riw_kernel")
+        plain_ms = device_ms(torch, plain, calls=10)
+        ev, plain_ev = event_ms(torch, kern), event_ms(torch, plain, batch=5)
+        held = held_event_ms(torch, kern)
+        # bytes: the dense factor out, the slices in use and the lists in;
+        # operations: a division per entry and k adds per row
+        rows = B8_C * B8_NF * n
+        b, by = bound_ms(4.0 * rows * n + _grid_bytes(lvd, alpha),
+                         rows * (n + 10))
+        print(f"B8c nngp_riw device time at C {B8_C}, nf {B8_NF}, np {n}: "
+              f"{ms:.5f} ms (plain {plain_ms:.4f} ms, bound {b:.6f} ms by "
+              f"{by}; held stream {held:.5f} ms, with enqueue {ev:.4f} ms, "
+              f"plain {plain_ev:.4f} ms) [{card}]")
+        res[n] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                      bound_by=by, library_ms=None, event_ms=ev,
+                      plain_event_ms=plain_ev, held_ms=held,
+                      shape=[B8_C, B8_NF, n, n])
+    return res[CONFIG3["dense_nngp"]["np"]]
+
+
+def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
+                      cg_loop=()):
     """Kernel launches the sweep schedule implies: Z once at start and once
     a sweep, for probit columns (B1) and for Poisson columns (B5);
     BetaLambda and each level's Eta systems (B2, where P <= 16) each sweep;
     psi, nf_max deltas, the Wishart diagonal and, where a dispersion is
     estimated, the residual precisions each sweep, plus the Nf move's psi
     and delta draws while it <= adapt_nf (B3); with missing values the
-    BetaLambda and each level's masked grams each sweep (B6)."""
+    BetaLambda and each level's masked grams each sweep (B6).
+    On an NNGP level, each sweep: the alpha grid quadratics and the
+    scale interweave's quadratic, plus the location interweave's
+    ones-forms where the design has an intercept (B8b); the dense factor
+    below the dense/CG crossover (B8c); above it, for every CG draw
+    (``cg_loop``: the iterations of each, as the port reports them), one
+    transpose for the prior perturbation and two launches for each of the
+    iterations + 2 applications of P (B8a)."""
+    from hmsc_tpu_torch.mcmc import spatial as tspatial
+    from hmsc_tpu_torch.mcmc.structs import _find_ones_column
+
     sweeps = transient + samples * thin
     nf_sweeps = sum(min(a, sweeps) for a in adapt_nf)
     per_sweep_gamma = (1 + sum(1 + ls.nf_max for ls in spec.levels)
                        + int(spec.any_estimated_sigma))
     systems = int(spec.nc + spec.nf_total <= 16) + sum(
-        int(ls.nf_max <= 16) for ls in spec.levels)
+        int(ls.nf_max <= 16) for ls in spec.levels if ls.spatial is None)
+    nngp = [ls for ls in spec.levels if ls.spatial == "NNGP"]
+    dense = sum(ls.n_units * ls.nf_max <= tspatial._NNGP_DENSE_MAX
+                for ls in nngp)
+    quads = 2 + int(_find_ones_column(hM) is not None)
     return {"probit_z": (1 + sweeps) * spec.any_probit,
             "mvn_prec_small": sweeps * systems,
             "standard_gamma": sweeps * per_sweep_gamma + 2 * nf_sweeps,
             "poisson_z": (1 + sweeps) * spec.any_poisson,
-            "masked_gram": sweeps * (1 + spec.nr) * spec.has_na}
+            "masked_gram": sweeps * (1 + spec.nr) * spec.has_na,
+            "vecchia_apply": sum(1 + 2 * (n + 2) for n in cg_loop),
+            "nngp_quad": sweeps * quads * len(nngp),
+            "nngp_riw": sweeps * dense}
 
 
 def profile_sweeps(torch, ht, hM, card, label, n_chains, nf, sweeps=10):
@@ -657,7 +1051,8 @@ def run_path(torch, ht, K, card, label, hM, n_chains, nf, transient,
     launches = dict(K.launches)
     spec = build_spec(hM, nf)
     want = expected_launches(spec, transient, samples, 1,
-                             (transient,) * spec.nr)
+                             (transient,) * spec.nr, hM,
+                             post.cg_iterations["loop"])
     beta = post["Beta"]
     assert beta.shape == (n_chains, samples, spec.nc, spec.ns), label
     assert np.isfinite(beta).all(), f"{label}: non-finite Beta"
@@ -674,6 +1069,42 @@ def run_path(torch, ht, K, card, label, hM, n_chains, nf, transient,
     return post, launches
 
 
+def spatial_paths(torch, ht, K, card, by_path):
+    """(d)-(f): config 3a (Full), 3b (NNGP, CG) and the 3b generator below
+    the dense/CG crossover (NNGP, dense), each through ``run_path`` with
+    its launches recorded in ``by_path``, slope recovery above 0.9 and each
+    factor's posterior-mean alpha within ``ALPHA_MARGIN`` of the grid's
+    range of the JAX package's.  Returns the models by path."""
+    spatial = {}
+    for name, c in CONFIG3.items():
+        m = config3_model(ht, name)
+        post, by_path[name] = run_path(
+            torch, ht, K, card, name, m, c["n_chains"], CONFIG3_NF,
+            c["transient"], c["samples"], CONFIG3_SEED)
+        spatial[name] = m
+        corr = slope_corr(post, config3_data(name)[4])
+        assert corr > 0.9, f"{name}: slope correlation {corr} <= 0.9"
+        grid_max = float(m.ranLevels[0].alphapw[-1, 0])
+        got, ref = alpha_mean(post, m), CONFIG3_JAX_ALPHA[name]
+        for f, (a, r) in enumerate(zip(got, ref)):
+            assert abs(a - r) <= ALPHA_MARGIN * grid_max, (
+                f"{name}: posterior-mean alpha of factor {f} {a} is more "
+                f"than {ALPHA_MARGIN} x {grid_max:.3f} from the JAX "
+                f"package's {r}")
+        cg = post.cg_iterations
+        cg_txt = ("no CG draws" if not cg["loop"] else
+                  f"CG iterations per sweep: loop mean "
+                  f"{np.mean(cg['loop']):.2f}, max {max(cg['loop'])}; "
+                  f"per chain mean {cg['chains'].mean():.2f}, max "
+                  f"{int(cg['chains'].max())}")
+        print(f"{name} recovery: corr(posterior-mean slopes, simulated) = "
+              f"{corr:.4f} (> 0.9); posterior-mean alpha per factor "
+              f"{[round(a, 4) for a in got]} (the JAX package on the CPU: "
+              f"{ref}; margin {ALPHA_MARGIN} x the grid's {grid_max:.4f}); "
+              f"{cg_txt}")
+    return spatial
+
+
 def main() -> int:
     import torch
 
@@ -685,6 +1116,7 @@ def main() -> int:
     from hmsc_tpu_torch.ops import gram as tgram
     from hmsc_tpu_torch.ops import linalg as tlinalg
     from hmsc_tpu_torch.ops import rand as trand
+    from hmsc_tpu_torch.ops import spatial as tsp
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -700,7 +1132,10 @@ def main() -> int:
                "mvn_prec_small": check_b2(torch, tlinalg, dev, card),
                "standard_gamma": check_b3(torch, trand, dev, card),
                "poisson_z": check_b5(torch, trand, dev, card),
-               "masked_gram": check_b6(torch, tgram, dev, card)}
+               "masked_gram": check_b6(torch, tgram, dev, card),
+               "vecchia_apply": check_b8a(torch, tsp, dev, card),
+               "nngp_quad": check_b8b(torch, tsp, dev, card),
+               "nngp_riw": check_b8c(torch, tsp, dev, card)}
     time_b4(torch, trand, dev, card)
 
     # recovery: posterior-mean slopes against the simulated ones
@@ -752,10 +1187,18 @@ def main() -> int:
     print(f"na_headline recovery: {np.isnan(Y_na).mean():.4f} of Y missing;"
           f" corr(posterior-mean slopes, simulated) = {corr:.4f} (> 0.9)")
 
+    spatial = spatial_paths(torch, ht, K, card, by_path)
+
     for label, m, n_chains, nf in (("headline", hM, h["n_chains"], h["nf"]),
                                    ("config5", hM5, c5["n_chains"], c5["nf"]),
                                    ("na_headline", hM_na, na["n_chains"],
-                                    na["nf"])):
+                                    na["nf"]),
+                                   ("config3a", spatial["config3a"],
+                                    CONFIG3["config3a"]["n_chains"],
+                                    CONFIG3_NF),
+                                   ("config3b", spatial["config3b"],
+                                    CONFIG3["config3b"]["n_chains"],
+                                    CONFIG3_NF)):
         profile_sweeps(torch, ht, m, card, label, n_chains, nf)
 
     # kernel -> (label, source, the TPU op it replaces, the path whose
@@ -774,6 +1217,13 @@ def main() -> int:
         "masked_gram": ("B6 masked_gram",
                         "hmsc_tpu_torch/csrc/masked_gram.cu",
                         "hmsc_tpu/mcmc/updaters.py:246", "na_headline"),
+        "vecchia_apply": ("B8a vecchia_apply",
+                          "hmsc_tpu_torch/csrc/vecchia_apply.cu",
+                          "hmsc_tpu/mcmc/spatial.py:61", "config3b"),
+        "nngp_quad": ("B8b nngp_quad", "hmsc_tpu_torch/csrc/nngp_quad.cu",
+                      "hmsc_tpu/mcmc/spatial.py:415", "config3b"),
+        "nngp_riw": ("B8c nngp_riw", "hmsc_tpu_torch/csrc/nngp_riw.cu",
+                     "hmsc_tpu/mcmc/spatial.py:213", "dense_nngp"),
     }
     assert set(meta) == set(K.KERNELS) == set(results)
     kernels = []

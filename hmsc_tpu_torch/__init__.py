@@ -10,7 +10,8 @@ posterior container) are copied into it.
 
 This slice samples normal, probit, Poisson and lognormal-Poisson JSDMs
 (any mix of them across species), with missing values in Y, a design
-matrix, optional traits and unstructured random levels (``sample_mcmc``).  Entry points run
+matrix, optional traits, and unstructured or spatial (``Full`` and
+``NNGP``) random levels (``sample_mcmc``).  Entry points run
 on the CUDA card unless the caller passes ``device="cpu"``; features of
 later slices raise ``NotImplementedError`` naming their ROADMAP item.
 """

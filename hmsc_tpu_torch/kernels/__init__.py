@@ -34,7 +34,10 @@ KERNELS = {"probit_z": "probit_z.cu",
            "mvn_prec_small": "mvn_prec_small.cu",
            "standard_gamma": "standard_gamma.cu",
            "poisson_z": "poisson_z.cu",
-           "masked_gram": "masked_gram.cu"}
+           "masked_gram": "masked_gram.cu",
+           "vecchia_apply": "vecchia_apply.cu",
+           "nngp_quad": "nngp_quad.cu",
+           "nngp_riw": "nngp_riw.cu"}
 
 launches = {name: 0 for name in KERNELS}
 
@@ -125,9 +128,20 @@ def library():
             lib.hmsc_masked_gram.argtypes = [p, ll, ll, ll, p, ll, ll, p, ll,
                                              ll, p, ll, ll, ll, p, p, i, i, i,
                                              i, p]
+            lib.hmsc_vecchia_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                             p]
+            lib.hmsc_vecchia_adj.argtypes = [p, p, p, p, p, p, p, p, p, i, i,
+                                             i, i, i, p]
+            lib.hmsc_nngp_quad_grid.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                                p]
+            lib.hmsc_nngp_quad_at.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                              p]
+            lib.hmsc_nngp_riw.argtypes = [p, p, p, p, p, i, i, i, i, p]
             for fn in (lib.hmsc_probit_z, lib.hmsc_mvn_prec_small,
                        lib.hmsc_standard_gamma, lib.hmsc_poisson_z,
-                       lib.hmsc_masked_gram):
+                       lib.hmsc_masked_gram, lib.hmsc_vecchia_fwd,
+                       lib.hmsc_vecchia_adj, lib.hmsc_nngp_quad_grid,
+                       lib.hmsc_nngp_quad_at, lib.hmsc_nngp_riw):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -4,9 +4,11 @@
 Chains are a leading batch axis of one state, the JAX package's
 ``lax.scan`` is a Python loop, and draws are recorded into tensors
 preallocated on the device and copied to the host once, at the end.  The
-sweep loop makes no host synchronisation: the divergence tracker
-``first_bad_update`` stays on the device, factorisations report failure as
-NaN, and the kernels' Philox seeds come from a host generator.
+sweep loop makes no host synchronisation but the NNGP CG sampler's
+convergence reads (one every few CG iterations, ``mcmc/spatial.py``): the
+divergence tracker ``first_bad_update`` stays on the device,
+factorisations report failure as NaN, and the kernels' Philox seeds come
+from a host generator.
 """
 
 from __future__ import annotations
@@ -136,7 +138,9 @@ def sample_mcmc(hM, samples: int, transient: int = 0, thin: int = 1,
 
     The returned Posterior carries ``timing`` = {setup_s, run_s}: run_s is
     the sampling loop up to and including the copy of the draws to the
-    host."""
+    host; and ``cg_iterations``, one entry per NNGP CG Eta draw in sweep
+    order: the iterations the CG loop ran (``"loop"``, a list) and each
+    chain's own (``"chains"``, an (n_draws, n_chains) array)."""
     for name, val, item in (("precision_policy", precision_policy, "A9"),
                             ("mesh", mesh, "A9"),
                             ("checkpoint_every", checkpoint_every, "A9"),
@@ -163,7 +167,8 @@ def sample_mcmc(hM, samples: int, transient: int = 0, thin: int = 1,
     data = build_model_data(hM, compute_data_parameters(hM), spec, dev)
     state, rng = initial_states(hM, spec, seed, n_chains, dev)
     trng = Rng(int(rng.integers(0, 2**62)), dev)
-    sweep = make_sweep(spec, updater, adapt_nf)
+    cg_log = []                       # (loop iterations, per-chain) per draw
+    sweep = make_sweep(spec, updater, adapt_nf, cg_log)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t1 = time.perf_counter()
@@ -195,11 +200,16 @@ def sample_mcmc(hM, samples: int, transient: int = 0, thin: int = 1,
     first_bad = bad.cpu().numpy()
     nf_sat = {r: state.levels[r].nf_sat.cpu().numpy()
               for r in range(spec.nr)}
+    cg_iterations = {
+        "loop": [n for n, _ in cg_log],
+        "chains": (torch.stack([k for _, k in cg_log]).cpu().numpy()
+                   if cg_log else np.zeros((0, n_chains), np.int32))}
     t2 = time.perf_counter()
 
     post = Posterior(hM, spec, arrays, samples=samples, transient=transient,
                      thin=thin)
     post.timing = {"setup_s": t1 - t0, "run_s": t2 - t1}
+    post.cg_iterations = cg_iterations
     post.set_chain_health(first_bad)
     for c in np.nonzero(first_bad >= 0)[0]:
         warnings.warn(

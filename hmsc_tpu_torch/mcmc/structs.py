@@ -12,7 +12,9 @@
 ``data_from_numpy`` / ``state_from_numpy`` take the JAX package's
 ``ModelData`` / ``GibbsState`` flattened to numpy arrays (keyed by field
 name, per-level fields as ``levels.<r>.<field>``), so the tests can start
-both engines from byte-identical inputs.
+both engines from byte-identical inputs.  For an NNGP level they also build
+the reverse-neighbour lists of the Vecchia kernel
+(:func:`reverse_neighbours`).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from ..precompute import DataParams, compute_initial_parameters
 __all__ = ["LevelSpec", "ModelSpec", "LevelData", "ModelData", "LevelState",
            "GibbsState", "build_spec", "build_model_data", "build_state",
            "stack_states", "data_from_numpy", "state_from_numpy",
-           "check_supported", "DEFAULT_NF_CAP"]
+           "check_supported", "reverse_neighbours", "DEFAULT_NF_CAP"]
 
 # static cap on latent factors per level (reference grows nf up to ns,
 # updateNf.R:26; the preallocated factor blocks need a concrete bound)
@@ -99,6 +101,19 @@ class LevelData(_Replace):
     b1: Any
     a2: Any
     b2: Any
+    alphapw: Any = None          # (G, 2) alpha grid and prior weights
+    # spatial 'Full'
+    iWg: Any = None              # (G, np, np)
+    detWg: Any = None            # (G,) log det W
+    # spatial 'NNGP'
+    nn_idx: Any = None           # (np, k) int32, pads index 0
+    nn_coef: Any = None          # (G, np, k), pads 0
+    nn_D: Any = None             # (G, np)
+    nn_n: Any = None             # (np,) int32 real neighbours per unit
+    # reverse-neighbour CSR: unit j is neighbour slot rev_pos[e] % k of
+    # unit rev_pos[e] // k for e in rev_ptr[j]:rev_ptr[j+1]
+    rev_ptr: Any = None          # (np + 1,) int32
+    rev_pos: Any = None          # (nnz,) int32
 
 
 @dataclasses.dataclass
@@ -174,8 +189,8 @@ def check_supported(hM: Hmsc, spec: ModelSpec) -> None:
         (spec.x_is_list, "per-species X lists (ROADMAP A5)"),
         (any(ls.x_dim > 0 for ls in spec.levels),
          "covariate-dependent random levels, x_dim > 0 (ROADMAP A5)"),
-        (any(ls.spatial is not None for ls in spec.levels),
-         "spatial random levels (ROADMAP A6)"),
+        (any(ls.spatial == "GPP" for ls in spec.levels),
+         "GPP spatial random levels (ROADMAP A6b)"),
         (spec.ncsel > 0, "variable selection (ROADMAP A7)"),
         (spec.nc_rrr > 0, "reduced-rank regression (ROADMAP A7)"),
     )
@@ -263,6 +278,15 @@ def build_model_data(hM: Hmsc, data_par: DataParams, spec: ModelSpec,
         d[pre + "x_unit"] = np.ones((ls.n_units, 1))
         for k in ("nu", "a1", "b1", "a2", "b2"):
             d[pre + k] = getattr(rL, k)
+        lp = data_par.rL_par[r] if data_par.rL_par else None
+        if ls.spatial is not None:
+            d[pre + "alphapw"] = rL.alphapw
+            if ls.spatial == "Full":
+                keys = ("iWg", "detWg")
+            else:
+                keys = ("nn_idx", "nn_coef", "nn_D", "nn_n", "detWg")
+            for k in keys:
+                d[pre + k] = getattr(lp, k)
     return data_from_numpy(d, device, dtype)
 
 
@@ -316,7 +340,9 @@ def stack_states(states) -> GibbsState:
 
 _INT_FIELDS = {"pi_row": torch.int64, "distr_family": torch.int32,
                "alpha_idx": torch.int32, "nf_sat": torch.int32,
-               "rho_idx": torch.int32, "it": torch.int32}
+               "rho_idx": torch.int32, "it": torch.int32,
+               "nn_idx": torch.int32, "nn_n": torch.int32,
+               "rev_ptr": torch.int32, "rev_pos": torch.int32}
 _INDEX_FIELDS = {"x_intercept_ind", "tr_intercept_ind", "x_ones_ind"}
 
 
@@ -337,10 +363,50 @@ def _split_levels(d: dict):
     return top, [levels[r] for r in sorted(levels)]
 
 
+def _neighbour_counts(nn_idx, nn_coef):
+    """Real neighbours per unit of an NNGP level given without them (a JAX
+    ``ModelData``).  The lists are ascending and distinct, so a 0 after
+    slot 0 is a pad; a 0 in slot 0 counts when its coefficient is non-zero
+    somewhere on the grid (one that is zero everywhere adds exact zeros
+    either way)."""
+    nn_idx = np.asarray(nn_idx)
+    n = (nn_idx[:, 1:] != 0).sum(axis=1)
+    first = (nn_idx[:, 0] != 0) | (np.asarray(nn_coef)[:, :, 0] != 0).any(0)
+    return n + first
+
+
+def reverse_neighbours(nn_idx, nn_n):
+    """The reverse-neighbour CSR of an NNGP level, built on the host:
+    ``(rev_ptr, rev_pos)`` such that the entries ``e`` in
+    ``rev_ptr[j]:rev_ptr[j+1]`` are the positions ``i k + slot`` of the
+    (unit ``i``, slot) pairs that list unit ``j`` as a real neighbour, in
+    ascending order.  Pads (slots at or past ``nn_n``) are left out, so the
+    transpose of the Vecchia factor gives every output one owner and a
+    fixed order of summation, and unit 0 does not collect every pad."""
+    nn_idx = np.asarray(nn_idx, dtype=np.int64)
+    npr, k = nn_idx.shape
+    real = np.arange(k)[None, :] < np.asarray(nn_n)[:, None]
+    pos = np.nonzero(real.ravel())[0]                   # ascending i*k + kk
+    col = nn_idx.ravel()[pos]
+    order = np.argsort(col, kind="stable")
+    ptr = np.zeros(npr + 1, dtype=np.int64)
+    np.cumsum(np.bincount(col, minlength=npr), out=ptr[1:])
+    return ptr, pos[order]
+
+
 def data_from_numpy(d: dict, device, dtype=torch.float32) -> ModelData:
     """``ModelData`` from numpy arrays keyed by field name (per-level fields
     as ``levels.<r>.<field>``).  Fields the port does not use are ignored;
-    intercept indices may be None or integer scalars."""
+    intercept indices may be None or integer scalars.  An NNGP level's
+    ``nn_n`` is derived when absent, and its reverse-neighbour lists are
+    built here."""
+    d = dict(d)
+    for key in [k for k in d if k.endswith(".nn_idx")]:
+        pre = key[:-len("nn_idx")]
+        if pre + "nn_n" not in d:
+            d[pre + "nn_n"] = _neighbour_counts(d[key], d[pre + "nn_coef"])
+        d[pre + "rev_ptr"], d[pre + "rev_pos"] = reverse_neighbours(
+            d[key], d[pre + "nn_n"])
     top, lvls = _split_levels(d)
     names = {f.name for f in dataclasses.fields(LevelData)}
     levels = tuple(LevelData(**{k: _tensor(k, v, device, dtype)

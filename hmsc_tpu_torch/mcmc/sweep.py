@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from . import updaters as U
+from .spatial import update_alpha, update_eta_spatial
 from .structs import GibbsState, ModelData, ModelSpec
 
 __all__ = ["make_sweep_schedule", "make_sweep", "sweep_prologue",
@@ -25,8 +26,10 @@ _NOT_PORTED = {"Gamma2": "A7", "GammaEta": "A7", "InterweaveDA": "A7"}
 
 
 def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
-                        adapt_nf: tuple | None = None):
-    """The ordered ``(name, block)`` list one sweep comprises."""
+                        adapt_nf: tuple | None = None,
+                        cg_log: list | None = None):
+    """The ordered ``(name, block)`` list one sweep comprises.  NNGP CG Eta
+    draws append their iteration counts to ``cg_log`` when given."""
     updater = updater or {}
     on = lambda name: updater.get(name, True) is not False
     for name, item in _NOT_PORTED.items():
@@ -34,6 +37,7 @@ def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
             raise NotImplementedError(
                 f"updater {name!r} is not ported yet (ROADMAP {item})")
     adapt_nf = adapt_nf or tuple(0 for _ in range(spec.nr))
+    any_spatial = any(ls.spatial is not None for ls in spec.levels)
     steps = []
 
     if on("BetaLambda"):
@@ -65,9 +69,13 @@ def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
                 for q in range(spec.nr):
                     if q != r:
                         S = S - LRan[q]
-                lv = U.update_eta_nonspatial(
-                    spec, data, state, r, rng, S,
-                    None if noise is None else noise[r])
+                nz = None if noise is None else noise[r]
+                if spec.levels[r].spatial is None:
+                    lv = U.update_eta_nonspatial(spec, data, state, r, rng,
+                                                 S, nz)
+                else:
+                    lv = update_eta_spatial(spec, data, state, r, rng, S,
+                                            nz, cg_log=cg_log)
                 levels = list(state.levels)
                 levels[r] = lv
                 state = state.replace(levels=tuple(levels))
@@ -76,7 +84,22 @@ def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
             for r in range(spec.nr):
                 E = E + LRan[r]
             return state, E
-        steps.append(("Eta", _eta))
+        # one block covers every level; named for the spatial path when any
+        # level takes it, as in the JAX package
+        steps.append(("EtaSpatial" if any_spatial else "Eta", _eta))
+
+    if on("Alpha") and any_spatial:
+        def _alpha(data, carry, rng, noise):
+            state, E = carry
+            for r in range(spec.nr):
+                if spec.levels[r].spatial is not None:
+                    lv = update_alpha(spec, data, state, r, rng,
+                                      None if noise is None else noise[r])
+                    levels = list(state.levels)
+                    levels[r] = lv
+                    state = state.replace(levels=tuple(levels))
+            return state, E
+        steps.append(("Alpha", _alpha))
 
     # per-factor (Eta, Lambda) scale and (Eta, Beta_intercept) location
     # interweaving: both leave the linear predictor invariant, so E_shared
@@ -141,15 +164,16 @@ def sweep_prologue(state: GibbsState) -> GibbsState:
 
 
 def make_sweep(spec: ModelSpec, updater: dict | None = None,
-               adapt_nf: tuple | None = None):
+               adapt_nf: tuple | None = None, cg_log: list | None = None):
     """``sweep(data, state, rng, it=None, noise=None) -> state``.
 
     ``it`` is the sweep's 1-based index known on the host (the value
     ``state.it`` takes after the prologue); with it the Nf block skips the
     factor adaptation outright once every level's window has closed,
     instead of computing a move whose gate is false on every chain.
-    ``noise`` maps block names to that block's injected draws (tests)."""
-    steps = make_sweep_schedule(spec, updater, adapt_nf)
+    ``noise`` maps block names to that block's injected draws (tests).
+    ``cg_log`` collects the NNGP CG draws' iteration counts."""
+    steps = make_sweep_schedule(spec, updater, adapt_nf, cg_log)
 
     def sweep(data: ModelData, state: GibbsState, rng, it=None,
               noise=None) -> GibbsState:

@@ -13,7 +13,9 @@ JAX package left them to XLA; the tiny nc x nc / nf x nf Cholesky
 factorisations are ``chol_spd``.  The hot per-cell and per-system work
 goes through the hand-written kernels B1-B3 and B5 (:mod:`..ops`), and
 with missing values in Y the per-species and per-row masked grams through
-B6 (:mod:`..ops.gram`).
+B6 (:mod:`..ops.gram`).  The spatial Eta and alpha updates live in
+:mod:`.spatial`; the interweaving moves read its prior quadratics on a
+spatial level.
 """
 
 from __future__ import annotations
@@ -323,15 +325,20 @@ def interweave_scale(spec: ModelSpec, data: ModelData, state: GibbsState,
                      rng=None, noise=None) -> GibbsState:
     """Per-factor scale move (Eta_h, Lambda_h) -> (c Eta_h, Lambda_h / c), a
     Metropolis step along the likelihood-invariant scale orbit (see the
-    JAX package's docstring).  ``noise``: per level ``{"u": (C, nf)
-    normals, "acc": (C, nf) uniforms}``."""
+    JAX package's docstring).  The prior quadratic is ``eta_h' eta_h``, or
+    ``eta_h' iW(alpha_h) eta_h`` on a spatial level.  ``noise``: per level
+    ``{"u": (C, nf) normals, "acc": (C, nf) uniforms}``."""
     new_levels = []
     for r in range(spec.nr):
-        lv, ls = state.levels[r], spec.levels[r]
+        lvd, lv, ls = data.levels[r], state.levels[r], spec.levels[r]
         nz = None if noise is None else noise[r]
         C = lv.Eta.shape[0]
         mask = lv.nf_mask
-        A = (lv.Eta ** 2).sum(dim=1)                     # (C, nf)
+        if ls.spatial is None:
+            A = (lv.Eta ** 2).sum(dim=1)                 # (C, nf)
+        else:
+            from .spatial import eta_quad_at
+            A = eta_quad_at(lvd, ls, lv.Eta, lv.alpha_idx)
         delta = torch.where(mask[:, :, None] > 0, lv.Delta, 1.0)
         tau = torch.cumprod(delta, dim=1)
         B = (lv.Psi * tau[:, :, None, :] * lv.Lambda ** 2).sum(dim=(2, 3))
@@ -366,8 +373,9 @@ def interweave_location(spec: ModelSpec, data: ModelData, state: GibbsState,
                         rng=None, noise=None) -> GibbsState:
     """Per-factor location move (Eta_h, Beta_int) -> (Eta_h + c_h 1,
     Beta_int,j - c_h Lambda_hj): exact Gibbs along the likelihood-invariant
-    translation orbit (see the JAX package's docstring).  ``noise``: per
-    level a (C, nf) normal."""
+    translation orbit (see the JAX package's docstring); on a spatial level
+    the orbit prior is ``(1' iW 1, 1' iW eta)`` at each factor's alpha.
+    ``noise``: per level a (C, nf) normal."""
     if location_gate(spec, has_intercept=data.x_ones_ind is not None):
         return state
     ii = data.x_ones_ind
@@ -377,12 +385,16 @@ def interweave_location(spec: ModelSpec, data: ModelData, state: GibbsState,
     v00 = iV[:, ii, ii]                                  # (C,)
     new_levels = []
     for r in range(spec.nr):
-        lv, ls = state.levels[r], spec.levels[r]
+        lvd, lv, ls = data.levels[r], state.levels[r], spec.levels[r]
         lam = lambda_effective(lv)[..., 0]               # (C, nf, ns)
         mask = lv.nf_mask
         u = (iV[:, ii, None, :] @ (Beta - Mu))[:, 0]     # (C, ns)
-        q1 = torch.full_like(mask, float(ls.n_units))
-        s = lv.Eta.sum(dim=1)                            # 1' eta_h
+        if ls.spatial is None:
+            q1 = torch.full_like(mask, float(ls.n_units))
+            s = lv.Eta.sum(dim=1)                        # 1' eta_h
+        else:
+            from .spatial import eta_ones_forms_at
+            q1, s = eta_ones_forms_at(lvd, ls, lv.Eta, lv.alpha_idx)
         G = lam @ lam.transpose(1, 2)
         bB = (lam @ u[:, :, None])[..., 0]
         P = v00[:, None, None] * G + torch.diag_embed(

@@ -1,2 +1,3 @@
-"""Random draws, small linear algebra and masked grams, with the
-hand-written kernels B1-B3, B5 and B6 behind their wrappers."""
+"""Random draws, small linear algebra, masked grams and the NNGP
+operators, with the hand-written kernels B1-B3, B5, B6 and B8a-B8c behind
+their wrappers."""

@@ -2,19 +2,34 @@
 ``R/computeInitialParameters.R``).
 
 Host-side numpy, copied from ``hmsc_tpu/precompute.py`` for the models this
-slice of the port samples: no phylogeny and no spatial levels, so the data
-parameters are empty.  The phylogeny eigensystem (ROADMAP A5) and the
-spatial grids (ROADMAP A6) arrive with the slices that sample them.
+slice of the port samples: no phylogeny, and spatial levels of the ``Full``
+(exact GP) and ``NNGP`` (Vecchia) kinds.  The phylogeny eigensystem
+(ROADMAP A5) and the ``GPP`` knot grids (ROADMAP A6b) arrive with the
+slices that sample them.
+
+NNGP factors are stored as dense (np, k) neighbour-index / coefficient
+arrays, as in the JAX package.  Beside them the port keeps each unit's
+count of real neighbours (``nn_n``): the short lists are padded with index
+0 and coefficient 0, and the Vecchia kernel's reverse-neighbour lists
+(:func:`hmsc_tpu_torch.mcmc.structs.reverse_neighbours`) leave the pads out.
 """
 
 from __future__ import annotations
 
 import numpy as np
+from scipy.spatial import cKDTree
 
 from .model import FIXED_SIGMA2, Hmsc
 
 __all__ = ["compute_data_parameters", "compute_initial_parameters",
-           "DataParams"]
+           "DataParams", "LevelParams"]
+
+
+class LevelParams:
+    """Spatial grids for one random level (length-G arrays over alphapw)."""
+
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
 
 
 class DataParams:
@@ -29,14 +44,116 @@ class DataParams:
 
 
 def compute_data_parameters(hM: Hmsc) -> DataParams:
-    """Data parameters of a non-phylogenetic, non-spatial model: none."""
+    """Per-level spatial grids (Full and NNGP) of a non-phylogenetic model."""
     if hM.C is not None:
         raise NotImplementedError(
             "phylogeny is not ported yet (ROADMAP A5)")
-    if any(rL.s_dim != 0 for rL in hM.ranLevels):
-        raise NotImplementedError(
-            "spatial random levels are not ported yet (ROADMAP A6)")
-    return DataParams(rL_par=[None] * hM.nr)
+    par = DataParams()
+    for r in range(hM.nr):
+        rL = hM.ranLevels[r]
+        if rL.s_dim == 0:
+            par.rL_par.append(None)
+            continue
+        units = hM.pi_names[r]
+        alphapw = rL.alphapw
+        method = rL.spatial_method
+        if method == "Full":
+            if rL.dist_mat is None:
+                s = rL.coords_for(units)
+                dd = s[:, None, :] - s[None, :, :]
+                distance = np.sqrt((dd**2).sum(-1))
+            else:
+                distance = rL.dist_for(units)
+            par.rL_par.append(_full_grids(distance, alphapw[:, 0]))
+        elif method == "NNGP":
+            if rL.dist_mat is not None:
+                raise ValueError("computeDataParameters: Nearest neighbours not available for distance matrices")
+            k = rL.n_neighbours or 10
+            s = rL.coords_for(units)
+            par.rL_par.append(_nngp_grids(s, k, alphapw[:, 0]))
+        elif method == "GPP":
+            raise NotImplementedError(
+                "GPP spatial random levels are not ported yet (ROADMAP A6b)")
+        else:  # pragma: no cover
+            raise ValueError(f"unknown spatial method {method}")
+    return par
+
+
+def _full_grids(distance: np.ndarray, alphas: np.ndarray) -> LevelParams:
+    """Exact-GP grids: iW(alpha) and log det W(alpha) per grid point
+    (reference computeDataParameters.R:54-81).  W(alpha=0) = I."""
+    n = distance.shape[0]
+    G = len(alphas)
+    iWg = np.empty((G, n, n))
+    detWg = np.empty(G)
+    for g, a in enumerate(alphas):
+        W = np.eye(n) if a == 0 else np.exp(-distance / a)
+        L = np.linalg.cholesky(W + 1e-10 * np.eye(n))
+        Li = np.linalg.inv(L)
+        iWg[g] = Li.T @ Li
+        detWg[g] = 2.0 * np.sum(np.log(np.diag(L)))
+    return LevelParams(kind="Full", iWg=iWg, detWg=detWg, distance=distance)
+
+
+def _nngp_grids(s: np.ndarray, k: int, alphas: np.ndarray) -> LevelParams:
+    """Vecchia / NNGP factors as dense (np, k) neighbour arrays.
+
+    Matches the reference's construction (computeDataParameters.R:82-136):
+    kNN graph over all points, neighbours restricted to lower indices; per
+    alpha, per point: small kriging solve against its neighbours giving the
+    autoregressive coefficients A[i] and conditional variance D[i], so
+    RiW = D^{-1/2} (I - A) and iW = RiW' RiW.  ``nn_n[i]`` counts unit i's
+    real neighbours; slots from ``nn_n[i]`` on are pads (index 0,
+    coefficient 0).
+    """
+    n = s.shape[0]
+    k = min(k, n - 1)
+    tree = cKDTree(s)
+    _, idx = tree.query(s, k=k + 1)
+    nn = np.sort(idx[:, 1:], axis=1)             # drop self, ascending order
+
+    # neighbour lists restricted to prior points, padded
+    nn_idx = np.zeros((n, k), dtype=np.int64)
+    nn_n = np.zeros(n, dtype=np.int64)
+    for i in range(1, n):
+        prev = nn[i][nn[i] < i]
+        nn_n[i] = len(prev)
+        nn_idx[i, :len(prev)] = prev
+
+    G = len(alphas)
+    coef = np.zeros((G, n, k))
+    D = np.ones((G, n))
+    detWg = np.zeros(G)
+    pad_mask = np.arange(k)[None, :] < nn_n[:, None]
+    # pairwise distances point<->neighbours and neighbour<->neighbour
+    d_in = np.sqrt(((s[:, None, :] - s[nn_idx]) ** 2).sum(-1))        # (n, k)
+    d_nn = np.sqrt(((s[nn_idx][:, :, None, :] - s[nn_idx][:, None, :, :]) ** 2).sum(-1))  # (n,k,k)
+    for g, a in enumerate(alphas):
+        if a == 0:
+            continue  # iW = I, detW = 0
+        Knn = np.exp(-d_nn / a)
+        kin = np.exp(-d_in / a)
+        # mask out padding: identity rows/cols, zero rhs
+        m2 = pad_mask[:, :, None] & pad_mask[:, None, :]
+        Knn = np.where(m2, Knn, np.eye(k)[None])
+        kin = np.where(pad_mask, kin, 0.0)
+        v = np.linalg.solve(Knn + 1e-10 * np.eye(k)[None], kin[..., None])[..., 0]
+        v = np.where(pad_mask, v, 0.0)
+        Dg = 1.0 - (kin * v).sum(-1)
+        # duplicate unit coordinates give conditional variance 0, so 1/D
+        # and log(D) blow up in the f32 quadratics / CG scalings
+        Dg = np.maximum(Dg, _GP_DD_FLOOR)
+        Dg[0] = 1.0
+        coef[g] = v
+        D[g] = Dg
+        detWg[g] = np.sum(np.log(Dg))
+    return LevelParams(kind="NNGP", nn_idx=nn_idx, nn_n=nn_n, nn_coef=coef,
+                       nn_D=D, detWg=detWg, s=s)
+
+
+# conditional-variance floor for the NNGP grids (JAX package
+# precompute.py:178-185): 1e-3 of the unit marginal variance
+_GP_DD_FLOOR = 1e-3
 
 
 # ---------------------------------------------------------------------------
