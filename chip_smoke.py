@@ -40,7 +40,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    f. the 3b generator at np 100 (np nf = 200, below the dense/CG
       crossover), 50 + 100 sweeps: the dense NNGP Eta draw (B8b, B8c).
    The spatial paths must also recover the posterior mean of the GP range
-   (alpha) within a stated margin of the JAX package's own value.
+   (alpha) within a stated margin of the JAX package's own value; and the
+   alpha sampler, given an Eta drawn at an interior range on the 3a and 3b
+   levels, must draw around it.
    Then a short torch.profiler window over ten sweeps of each: device time
    by kernel against the run's wall time.
 6. One JSON line with every kernel's numbers, then the result line.
@@ -99,6 +101,13 @@ CONFIG3_JAX_ALPHA = {"config3a": (0.0, 0.0), "config3b": (0.0, 0.0),
 # two of the grid's 100 steps (the JAX values of seeds 1-3 span 0.0017, an
 # eighth of one step)
 ALPHA_MARGIN = 0.02
+# the alpha sampler at an interior range, which config 3's data (alpha at 0)
+# does not reach: each factor's eta drawn from the 3a and 3b levels' prior
+# at grid index ALPHA_PLANTED; over ALPHA_DRAWS calls of update_alpha no
+# draw may be index 0 and each factor's mean index must lie within
+# ALPHA_PLANTED_MARGIN grid steps of it (on the CPU, with the same Eta, at
+# most 2.76 steps for 3a and 1.30 for 3b)
+ALPHA_PLANTED, ALPHA_DRAWS, ALPHA_PLANTED_MARGIN = 20, 50, 6
 
 
 def card_line() -> str:
@@ -304,6 +313,60 @@ def alpha_mean(post, hM):
     """Posterior mean of each factor's GP range (distance units)."""
     grid = hM.ranLevels[0].alphapw[:, 0]
     return grid[post["Alpha_0"]].mean(axis=(0, 1)).tolist()
+
+
+def planted_eta(lp, g, C, nf, seed):
+    """(C, np, nf) draws from a Full or NNGP level's prior at grid index
+    ``g`` (float64, on the host): Full through the Cholesky factor of W_g;
+    NNGP unit by unit, each from its neighbours, which precede it."""
+    rng = np.random.default_rng(seed)
+    if lp.kind == "Full":
+        z = rng.standard_normal((C, lp.iWg.shape[1], nf))
+        L = np.linalg.cholesky(np.linalg.inv(lp.iWg[g]))
+        return np.einsum("uv,cvf->cuf", L, z)
+    z = rng.standard_normal((C, lp.nn_idx.shape[0], nf))
+    eta = np.zeros_like(z)
+    for i in range(z.shape[1]):
+        nb = lp.nn_idx[i, :lp.nn_n[i]]
+        eta[:, i] = (np.einsum("k,ckf->cf", lp.nn_coef[g, i, :len(nb)],
+                               eta[:, nb])
+                     + np.sqrt(lp.nn_D[g, i]) * z[:, i])
+    return eta
+
+
+def check_alpha_planted(torch, ht, card):
+    """update_alpha on the card for config 3a's and 3b's levels (3b through
+    B8b's grid mode), with every chain's Eta planted at ALPHA_PLANTED."""
+    from hmsc_tpu_torch.mcmc.sampler import initial_states
+    from hmsc_tpu_torch.mcmc.spatial import update_alpha
+    from hmsc_tpu_torch.mcmc.structs import build_model_data, build_spec
+    from hmsc_tpu_torch.ops.rand import Rng
+    from hmsc_tpu_torch.precompute import compute_data_parameters
+
+    dev = torch.device("cuda", 0)
+    for name in ("config3a", "config3b"):
+        m = config3_model(ht, name)
+        C = CONFIG3[name]["n_chains"]
+        spec = build_spec(m, CONFIG3_NF)
+        dp = compute_data_parameters(m)
+        data = build_model_data(m, dp, spec, dev)
+        state, _ = initial_states(m, spec, CONFIG3_SEED, C, dev)
+        eta = planted_eta(dp.rL_par[0], ALPHA_PLANTED, C, CONFIG3_NF, seed=5)
+        st = state.replace(levels=(state.levels[0].replace(Eta=torch.tensor(
+            eta, dtype=torch.float32, device=dev)),))
+        rng = Rng(3, dev)
+        draws = torch.stack([update_alpha(spec, data, st, 0, rng=rng)
+                             .alpha_idx for _ in range(ALPHA_DRAWS)])
+        draws = draws.cpu().numpy()
+        off = np.abs(draws.mean(axis=0) - ALPHA_PLANTED).max()
+        assert draws.min() > 0, f"{name}: update_alpha drew index 0"
+        assert off <= ALPHA_PLANTED_MARGIN, (
+            f"{name}: a factor's mean alpha index is {off} grid steps from "
+            f"the planted {ALPHA_PLANTED} (> {ALPHA_PLANTED_MARGIN})")
+        print(f"{name} alpha sampler, Eta planted at grid index "
+              f"{ALPHA_PLANTED}: {ALPHA_DRAWS} draws in "
+              f"[{draws.min()}, {draws.max()}], factors' mean indices at most"
+              f" {off:.2f} steps from it (<= {ALPHA_PLANTED_MARGIN}) [{card}]")
 
 
 def slope_corr(post, Beta):
@@ -726,6 +789,9 @@ def _grid_bytes(lvd, alpha):
 # config 3b's kernel shapes and the 5000-unit NNGP level of
 # benchmarks/bench_shard.py:260 (8 neighbours, 20 x 20 square)
 B8_SHAPES = ((1000, 10, 10.0), (5000, 8, 20.0))
+# B8b also runs on the dense-NNGP path (np 100: fewer units than a block
+# has threads)
+B8B_SHAPES = B8_SHAPES + ((CONFIG3["dense_nngp"]["np"], 10, 10.0),)
 B8_C, B8_NF, B8_G = 4, 2, 101
 
 
@@ -799,11 +865,12 @@ def check_b8a(torch, tsp, dev, card):
         nnz = int(lvd.rev_pos.numel())
         cells = B8_C * n * B8_NF
         # bytes: x, LiSL and alpha in, P x out, the grid slices at the
-        # alphas in use, the neighbour and reverse lists; operations: the
+        # alphas in use, the neighbour lists and the reverse CSR (rev_ptr,
+        # rev_pos); operations: the
         # forward's 2k + 3 a cell, the transpose's 2 a real neighbour per
         # (chain, factor) and the likelihood's 2 nf a cell
         nbytes = (4.0 * (2 * cells + cells * B8_NF + B8_C * B8_NF)
-                  + _grid_bytes(lvd, alpha) + 4.0 * (n + 1 + 2 * nnz))
+                  + _grid_bytes(lvd, alpha) + 4.0 * (n + 1 + nnz))
         ops = cells * (2 * k + 3 + 2 * B8_NF + 1) + 2.0 * B8_C * B8_NF * nnz
         b, by = bound_ms(nbytes, ops)
         print(f"B8a vecchia_apply device time, one P x (forward + transpose) "
@@ -854,7 +921,7 @@ def riw_csr(torch, lvd, alpha, x):
 
 def check_b8b(torch, tsp, dev, card):
     res = {}
-    for n, k, side in B8_SHAPES:
+    for n, k, side in B8B_SHAPES:
         lvd = nngp_level(torch, dev, n, k, side, seed=n)
         g = torch.Generator(device=dev).manual_seed(n + 2)
         alpha = torch.randint(0, B8_G, (B8_C, B8_NF), generator=g,
@@ -1188,6 +1255,7 @@ def main() -> int:
           f" corr(posterior-mean slopes, simulated) = {corr:.4f} (> 0.9)")
 
     spatial = spatial_paths(torch, ht, K, card, by_path)
+    check_alpha_planted(torch, ht, card)
 
     for label, m, n_chains, nf in (("headline", hM, h["n_chains"], h["nf"]),
                                    ("config5", hM5, c5["n_chains"], c5["nf"]),

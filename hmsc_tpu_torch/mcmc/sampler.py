@@ -167,7 +167,7 @@ def sample_mcmc(hM, samples: int, transient: int = 0, thin: int = 1,
     data = build_model_data(hM, compute_data_parameters(hM), spec, dev)
     state, rng = initial_states(hM, spec, seed, n_chains, dev)
     trng = Rng(int(rng.integers(0, 2**62)), dev)
-    cg_log = []                       # (loop iterations, per-chain) per draw
+    cg_log = []         # (level, loop iterations, largest, per-chain)
     sweep = make_sweep(spec, updater, adapt_nf, cg_log)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -201,8 +201,8 @@ def sample_mcmc(hM, samples: int, transient: int = 0, thin: int = 1,
     nf_sat = {r: state.levels[r].nf_sat.cpu().numpy()
               for r in range(spec.nr)}
     cg_iterations = {
-        "loop": [n for n, _ in cg_log],
-        "chains": (torch.stack([k for _, k in cg_log]).cpu().numpy()
+        "loop": [e[1] for e in cg_log],
+        "chains": (torch.stack([e[3] for e in cg_log]).cpu().numpy()
                    if cg_log else np.zeros((0, n_chains), np.int32))}
     t2 = time.perf_counter()
 

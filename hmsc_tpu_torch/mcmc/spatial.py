@@ -21,12 +21,14 @@ products for Full, kernel B8b for NNGP.  ``GPP`` is not ported yet
 (ROADMAP A6b).
 
 The CG loop runs on the host: eager PyTorch cannot branch on the device.
-It reads the chains' convergence back once every ``_CG_CHECK_EVERY``
-iterations (one ``.item()``), and chains that have converged are frozen
-(their iterates no longer change), which is what the JAX package's
-``while_loop`` does under ``vmap``.  A CG draw appends its iteration
+It reads the chains' convergence back with one ``.item()`` at a time, and
+chains that have converged are frozen (their iterates no longer change),
+which is what the JAX package's ``while_loop`` does under ``vmap``.  The
+first read comes at the largest per-chain count of the level's previous
+draw (warm started, consecutive draws need similar counts), the next ones
+every ``_CG_CHECK_EVERY`` iterations after it.  A CG draw appends its
 counts to the caller's ``cg_log`` list when one is given (``sample_mcmc``
-reports them).
+reports them and the next draw of the level reads its first check there).
 """
 
 from __future__ import annotations
@@ -50,7 +52,8 @@ _NNGP_DENSE_MAX = 256
 # the JAX package's CG contract (spatial.py:290-349)
 CG_TOL = 1e-5
 CG_MAXITER = 500
-# iterations between two host reads of the chains' convergence
+# iterations between two host reads of the chains' convergence, after the
+# first read
 _CG_CHECK_EVERY = 8
 
 
@@ -63,9 +66,9 @@ def update_eta_spatial(spec: ModelSpec, data: ModelData, state: GibbsState,
                        cg_log: list | None = None) -> LevelState:
     """Eta_r | rest for a Full or NNGP level.  ``noise``: the dense draws
     ``{"eps": (C, nf np)}`` (factor-major), or for the CG sampler ``{"eps1":
-    (C, np, nf), "xi": (C, ny, ns)}``.  A CG draw appends ``(iterations
-    the loop ran, per-chain iterations (C,) on the device)`` to
-    ``cg_log``."""
+    (C, np, nf), "xi": (C, ny, ns)}``.  A CG draw appends ``(r, iterations
+    the loop ran, the largest per-chain count, per-chain iterations (C,) on
+    the device)`` to ``cg_log``."""
     lvd, lv, ls = data.levels[r], state.levels[r], spec.levels[r]
     npr, nf = ls.n_units, ls.nf_max
     if ls.spatial == "NNGP" and npr * nf > _NNGP_DENSE_MAX:
@@ -126,23 +129,27 @@ def _eta_nngp_cg(spec, data, state, r, rng, S, noise, tol=CG_TOL,
     b_like = F.new_zeros((C, npr, nf))
     b_like.index_add_(1, lvd.pi_row, w @ lam.transpose(1, 2))
     b = F + vecchia_riw_t(lvd, alpha, eps1.contiguous()) + b_like
-    eta, res, iters, chain_iters = vecchia_cg_draw(
+    first = next((e[2] for e in reversed(cg_log or ()) if e[0] == r), 0)
+    eta, res, iters, kmax, chain_iters = vecchia_cg_draw(
         lambda x: vecchia_pmv(lvd, alpha, x, LiSL), b, lv.Eta.contiguous(),
-        tol, maxiter)
+        tol, maxiter, first_check=first)
     if cg_log is not None:
-        cg_log.append((iters, chain_iters))
+        cg_log.append((r, iters, kmax, chain_iters))
     thresh = max(100.0 * tol, 1e-3)       # scales with the requested tol
     eta = torch.where((res < thresh)[:, None, None], eta, float("nan"))
     return lv.replace(Eta=eta)
 
 
-def vecchia_cg_draw(pmv, b, x0, tol=CG_TOL, maxiter=CG_MAXITER):
+def vecchia_cg_draw(pmv, b, x0, tol=CG_TOL, maxiter=CG_MAXITER,
+                    first_check=0):
     """Conjugate gradients for ``P x = b`` per chain (iterates (C, np, nf)),
     from ``x0``: the JAX package's ``jax.scipy.sparse.linalg.cg`` with
     ``tol`` relative to ``|b|``, ``atol = 0`` and ``maxiter``, run on the
-    host with converged chains frozen.  Returns ``(x, relative residual
-    (C,), iterations the loop ran, per-chain iterations (C,))``.  ``pmv``
-    is applied ``iterations + 2`` times."""
+    host with converged chains frozen.  The host reads the convergence at
+    iteration ``first_check`` and every ``_CG_CHECK_EVERY`` after it; the
+    solution does not depend on when.  Returns ``(x, relative residual
+    (C,), iterations the loop ran, the largest per-chain count, per-chain
+    iterations (C,))``.  ``pmv`` is applied ``iterations + 2`` times."""
     def dot(u, v):
         return (u * v).sum(dim=(1, 2))
 
@@ -153,10 +160,13 @@ def vecchia_cg_draw(pmv, b, x0, tol=CG_TOL, maxiter=CG_MAXITER):
     gamma = dot(r, r)
     k = torch.zeros_like(gamma, dtype=torch.int32)
     active = (gamma > atol2) & (k < maxiter)
-    it = 0
+    it, kmax = 0, -1
     while it < maxiter:
-        if it % _CG_CHECK_EVERY == 0 and not bool(active.any()):
-            break
+        if it >= first_check and (it - first_check) % _CG_CHECK_EVERY == 0:
+            # one read: -1 while a chain runs on, else the largest count
+            kmax = int(torch.where(active.any(), -1, k.max()))
+            if kmax >= 0:
+                break
         Ap = pmv(p)
         a = gamma / dot(p, Ap)
         x_ = x + a[:, None, None] * p
@@ -171,9 +181,11 @@ def vecchia_cg_draw(pmv, b, x0, tol=CG_TOL, maxiter=CG_MAXITER):
         k = k + active.to(torch.int32)
         active = (gamma > atol2) & (k < maxiter)
         it += 1
+    if kmax < 0:                          # stopped by maxiter, not a read
+        kmax = int(k.max())
     res = torch.linalg.vector_norm(pmv(x) - b, dim=(1, 2)) / torch.clamp_min(
         torch.linalg.vector_norm(b, dim=(1, 2)), 1e-30)
-    return x, res, it, k
+    return x, res, it, kmax, k
 
 
 # ---------------------------------------------------------------------------

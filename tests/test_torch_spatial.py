@@ -345,8 +345,9 @@ def test_update_eta_nngp_cg(built, cg_path):
     lv = TS.update_eta_spatial(b["spec_t"], b["data_t"], st, 0,
                                S=_residual(b["spec_t"], b["data_t"], st),
                                noise=noise, cg_log=log)
-    (loop, chains), = log
-    assert 0 < int(chains.max()) <= loop and loop % TS._CG_CHECK_EVERY == 0
+    (r, loop, kmax, chains), = log
+    assert r == 0 and kmax == int(chains.max())
+    assert 0 < kmax <= loop and loop % TS._CG_CHECK_EVERY == 0
     tol = 10 * TS.CG_TOL
     for c in range(len(keys)):
         bv = rhs[c].T.reshape(-1).double().numpy()
@@ -359,8 +360,35 @@ def test_update_eta_nngp_cg(built, cg_path):
         assert np.linalg.norm(got - exact) <= bound
         assert np.linalg.norm(got - want) <= 2 * bound
     # a warm start at the solution stops at once; chains are frozen apart
-    x, res, it, k = TS.vecchia_cg_draw(pmv, rhs, lv.Eta)
+    x, res, it, kmax, k = TS.vecchia_cg_draw(pmv, rhs, lv.Eta)
     assert it <= TS._CG_CHECK_EVERY and (res < 1e-3).all()
+
+
+def test_cg_first_check_follows_previous_draw(built, cg_path):
+    """The host's first convergence read comes at the level's previous
+    draw's largest per-chain count: converged chains are frozen, so the
+    solution is the same bit for bit whenever the reads come, and a draw
+    that needs no more iterations than the previous one stops there."""
+    b = built["NNGP"]
+    pmv, rhs, _, noise = _cg_system(b)
+    x0 = b["state_t"].levels[0].Eta
+    x, _, it, kmax, k = TS.vecchia_cg_draw(pmv, rhs, x0)
+    assert it % TS._CG_CHECK_EVERY == 0
+    assert 1 < kmax <= it < kmax + TS._CG_CHECK_EVERY
+    for first, want_it in ((kmax, kmax), (kmax - 1,
+                                          kmax - 1 + TS._CG_CHECK_EVERY)):
+        x1, _, it1, kmax1, k1 = TS.vecchia_cg_draw(pmv, rhs, x0,
+                                                   first_check=first)
+        assert it1 == want_it and kmax1 == kmax
+        assert torch.equal(x1, x) and torch.equal(k1, k)
+    # through the Eta draw: the hint is the same level's entry, not the
+    # last one of another level
+    st = b["state_t"]
+    log = [(0, 8, kmax, k), (1, 8, kmax + 3, k)]
+    TS.update_eta_spatial(b["spec_t"], b["data_t"], st, 0,
+                          S=_residual(b["spec_t"], b["data_t"], st),
+                          noise=noise, cg_log=log)
+    assert log[-1][:3] == (0, kmax, kmax)
 
 
 def test_cg_stall_poisons_the_draw(built):
