@@ -9,7 +9,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every hand-written kernel from ``hmsc_tpu_torch/csrc`` with nvcc (one
    nvcc per source, all started together).
 2. Each kernel against its plain PyTorch version on the card, at the shapes
-   the main paths give it (tolerances stated at each check).
+   the main paths give it (tolerances stated at each check); and the GPP
+   Eta draw, in float32 with its knot space in float64, against its
+   float64 run from the same inputs at config 3c's shapes.
 3. Times: each kernel's device time per launch (torch.profiler, after
    warm-up) beside its plain version's device time per call, the one-call
    PyTorch yardstick where there is one, and the least time the card could
@@ -31,20 +33,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
       probit / lognormal-Poisson columns, nf 2, 4 chains, 125 + 250 sweeps
       (B1-B3, B5);
    c. the headline with 10% of Y missing, 10 + 50 sweeps (B1-B3, B6);
-   d. config 3a of BASELINE.md: a Full spatial level, np 200 (200 x 2 rows
+   d. the headline with the probit-DA intercept interweave on
+      (``updater={"InterweaveDA": True}``), 10 + 50 sweeps (B1-B3, B7);
+   e. config 3a of BASELINE.md: a Full spatial level, np 200 (200 x 2 rows
       x 50 probit species), nf 2, 4 chains, 125 + 250 sweeps (B1-B3);
-   e. config 3b: an NNGP level with 10 neighbours, np 1000 (2000 x 50),
+   f. config 3b: an NNGP level with 10 neighbours, np 1000 (2000 x 50),
       nf 2, 4 chains, 125 + 250 sweeps, the matrix-free CG Eta draw (B8a,
       whose launches must equal what the CG iterations the port reports
       imply, and B8b);
-   f. the 3b generator at np 100 (np nf = 200, below the dense/CG
-      crossover), 50 + 100 sweeps: the dense NNGP Eta draw (B8b, B8c).
+   g. the 3b generator at np 100 (np nf = 200, below the dense/CG
+      crossover), 50 + 100 sweeps: the dense NNGP Eta draw (B8b, B8c);
+   h. config 3c: the shape of 3b with a GPP level on 100 knots and
+      spatially correlated latent factors, 125 + 250 sweeps (B8d-1..3).
    The spatial paths must also recover the posterior mean of the GP range
    (alpha) within a stated margin of the JAX package's own value; and the
-   alpha sampler, given an Eta drawn at an interior range on the 3a and 3b
-   levels, must draw around it.
-   Then a short torch.profiler window over ten sweeps of each: device time
-   by kernel against the run's wall time.
+   alpha sampler, given an Eta drawn at an interior range on the 3a, 3b and
+   3c levels, must draw around it.
+   Then a short torch.profiler window over ten sweeps of each but (g):
+   device time by kernel against the run's wall time.
 6. One JSON line with every kernel's numbers, then the result line.
 
 It needs the repository (it imports ``hmsc_tpu_torch`` from beside itself)
@@ -73,6 +79,8 @@ HEADLINE = dict(ny=1000, ns=1000, nf=8, n_chains=4, transient=10,
 CONFIG5 = dict(ny=300, ns=90, nf=2, n_chains=4, transient=125, samples=250,
                data_seed=42, seed=1)
 NA_HEADLINE = dict(HEADLINE, transient=10, samples=50, na_share=0.1)
+# the headline with the probit-DA intercept interweave on (B7)
+DA_HEADLINE = dict(HEADLINE, transient=10, samples=50)
 # the JAX package's own slope correlations on config 5 (CPU, the same data
 # and seed; scripts/config5_jax_recovery.py): normal, probit, lognormal
 # Poisson.  A block passes above min(0.9, the JAX value - 0.05).
@@ -87,23 +95,32 @@ CONFIG3 = {
                      transient=125, samples=250),
     "dense_nngp": dict(np=100, method="NNGP", n_neighbours=10, n_chains=4,
                        transient=50, samples=100),
+    # config 3c: the shape of 3b with a GPP level on construct_knots(xy,
+    # n_knots=10) (100 knots), and latent factors drawn from the
+    # exponential GP exp(-d / 2.0) (not iid: the posterior alpha sits at an
+    # interior range, where the knot algebra carries the draw)
+    "config3c": dict(np=1000, method="GPP", n_knots=10, gp_range=2.0,
+                     n_chains=4, transient=125, samples=250),
 }
 CONFIG3_DATA_SEED, CONFIG3_SEED, CONFIG3_NF, CONFIG3_NS = 42, 1, 2, 50
 # posterior means of the GP range alpha per factor (distance units) from
 # the JAX package on the CPU, same data and seed 1
 # (scripts/config3_jax_recovery.py; its slope correlations: 0.9889,
-# 0.9978, 0.9771).  The generator's latent factors are iid over units, so
-# the posterior sits at alpha = 0 (no spatial range)
+# 0.9978, 0.9771, 0.9960).  The 3a/3b generator's latent factors are iid
+# over units, so the posterior sits at alpha = 0 (no spatial range); 3c's
+# are drawn at range 2.0
 CONFIG3_JAX_ALPHA = {"config3a": (0.0, 0.0), "config3b": (0.0, 0.0),
-                     "dense_nngp": (0.00034177, 0.0)}
+                     "dense_nngp": (0.00034177, 0.0),
+                     "config3c": (1.8941740, 1.2273784)}
 # the port's posterior-mean alpha must lie within this share of the alpha
 # grid's range (the bounding-box diagonal) of the JAX package's, per factor:
 # two of the grid's 100 steps (the JAX values of seeds 1-3 span 0.0017, an
 # eighth of one step)
 ALPHA_MARGIN = 0.02
-# the alpha sampler at an interior range, which config 3's data (alpha at 0)
-# does not reach: each factor's eta drawn from the 3a and 3b levels' prior
-# at grid index ALPHA_PLANTED; over ALPHA_DRAWS calls of update_alpha no
+# the alpha sampler at an interior range, which config 3a's and 3b's data
+# (alpha at 0) do not reach: each factor's eta drawn from the 3a, 3b and
+# 3c levels' prior at grid index ALPHA_PLANTED; over ALPHA_DRAWS calls of
+# update_alpha no
 # draw may be index 0 and each factor's mean index must lie within
 # ALPHA_PLANTED_MARGIN grid steps of it (on the CPU, with the same Eta, at
 # most 2.76 steps for 3a and 1.30 for 3b)
@@ -280,9 +297,12 @@ class _Named:
 def config3_data(name):
     """A config-3 model's inputs as ``benchmarks/run_benchmarks.py ·
     _spatial`` draws them from ``default_rng(42)``: two rows per unit,
-    design [1, x], two iid latent factors, 50 probit species.  Returns
-    (coordinates, unit labels per row, X, Y, simulated Beta)."""
-    n = CONFIG3[name]["np"]
+    design [1, x], two iid latent factors (for 3c the same normals through
+    the Cholesky factor of the exponential GP's covariance at the path's
+    ``gp_range``), 50 probit species.  Returns (coordinates, unit labels
+    per row, X, Y, simulated Beta)."""
+    c = CONFIG3[name]
+    n = c["np"]
     rng = np.random.default_rng(CONFIG3_DATA_SEED)
     ny, ns = 2 * n, CONFIG3_NS
     units = [f"u{i:04d}" for i in range(n)]
@@ -290,6 +310,9 @@ def config3_data(name):
     xy = _Named(rng.uniform(size=(n, 2)) * 10, units)
     X = np.column_stack([np.ones(ny), rng.standard_normal(ny)])
     eta = rng.standard_normal((n, 2))
+    if "gp_range" in c:
+        d = np.sqrt(((xy.values[:, None] - xy.values[None]) ** 2).sum(-1))
+        eta = np.linalg.cholesky(np.exp(-d / c["gp_range"])) @ eta
     lam = rng.standard_normal((2, ns))
     Beta = rng.standard_normal((2, ns)) * 0.5
     L = X @ Beta + eta[unit_of] @ lam
@@ -303,6 +326,8 @@ def config3_model(pkg, name):
     c = CONFIG3[name]
     xy, labels, X, Y, _ = config3_data(name)
     kw = {"n_neighbours": c["n_neighbours"]} if c["method"] == "NNGP" else {}
+    if c["method"] == "GPP":
+        kw["s_knot"] = pkg.construct_knots(xy.values, n_knots=c["n_knots"])
     rl = pkg.HmscRandomLevel(s_data=xy, s_method=c["method"], **kw)
     pkg.set_priors_random_level(rl, nf_max=CONFIG3_NF, nf_min=CONFIG3_NF)
     return pkg.Hmsc(Y=Y, X=X, distr="probit", study_design=labels[:, None],
@@ -324,6 +349,19 @@ def planted_eta(lp, g, C, nf, seed):
         z = rng.standard_normal((C, lp.iWg.shape[1], nf))
         L = np.linalg.cholesky(np.linalg.inv(lp.iWg[g]))
         return np.einsum("uv,cvf->cuf", L, z)
+    if lp.kind == "GPP":
+        # the predictive process: knot values w ~ N(0, W22), then eta =
+        # W12 W22^-1 w + sqrt(dD) z, with W12, W22 and dD recovered from
+        # the grids (idD W12, F = W22 + W12' idD W12)
+        idD, M = lp.idDg[g], lp.idDW12g[g]
+        W12 = M / idD[:, None]
+        W22 = lp.Fg[g] - W12.T @ M
+        nK = W22.shape[0]
+        w = np.einsum("mk,ckf->cmf", np.linalg.cholesky(W22),
+                      rng.standard_normal((C, nK, nf)))
+        z = rng.standard_normal((C, len(idD), nf))
+        return (np.einsum("um,cmf->cuf", W12 @ np.linalg.inv(W22), w)
+                + z / np.sqrt(idD)[None, :, None])
     z = rng.standard_normal((C, lp.nn_idx.shape[0], nf))
     eta = np.zeros_like(z)
     for i in range(z.shape[1]):
@@ -335,8 +373,9 @@ def planted_eta(lp, g, C, nf, seed):
 
 
 def check_alpha_planted(torch, ht, card):
-    """update_alpha on the card for config 3a's and 3b's levels (3b through
-    B8b's grid mode), with every chain's Eta planted at ALPHA_PLANTED."""
+    """update_alpha on the card for config 3a's, 3b's and 3c's levels (3b
+    through B8b's grid mode, 3c through B8d-3's), with every chain's Eta
+    planted at ALPHA_PLANTED."""
     from hmsc_tpu_torch.mcmc.sampler import initial_states
     from hmsc_tpu_torch.mcmc.spatial import update_alpha
     from hmsc_tpu_torch.mcmc.structs import build_model_data, build_spec
@@ -344,7 +383,7 @@ def check_alpha_planted(torch, ht, card):
     from hmsc_tpu_torch.precompute import compute_data_parameters
 
     dev = torch.device("cuda", 0)
-    for name in ("config3a", "config3b"):
+    for name in ("config3a", "config3b", "config3c"):
         m = config3_model(ht, name)
         C = CONFIG3[name]["n_chains"]
         spec = build_spec(m, CONFIG3_NF)
@@ -1041,8 +1080,464 @@ def check_b8c(torch, tsp, dev, card):
     return res[CONFIG3["dense_nngp"]["np"]]
 
 
+def gpp_level(torch, dev, n, n_knots, side, seed):
+    """A GPP level's tensors on the card, as ``LevelData`` holds them: the
+    port's grids for ``n`` uniform units on a ``side`` x ``side`` square,
+    knots from ``construct_knots(xy, n_knots)``, over the default
+    101-point alpha grid.  Returns the level and its host grids."""
+    from types import SimpleNamespace
+
+    from hmsc_tpu_torch.precompute import _gpp_grids, construct_knots
+
+    pts = np.random.default_rng(seed).uniform(size=(n, 2)) * side
+    diag = float(np.sqrt(((pts.max(0) - pts.min(0)) ** 2).sum()))
+    alphas = diag * np.arange(101) / 100
+    lp = _gpp_grids(pts, construct_knots(pts, n_knots=n_knots), alphas)
+
+    def t(a, dt=torch.float32):
+        return torch.tensor(np.asarray(a), dtype=dt, device=dev)
+
+    alphapw = np.column_stack([alphas, np.full(101, 1 / 101)])
+    return SimpleNamespace(idDg=t(lp.idDg), idDW12g=t(lp.idDW12g),
+                           Fg=t(lp.Fg), iFg=t(lp.iFg, torch.float64),
+                           detDg=t(lp.detDg), alphapw=t(alphapw)), lp
+
+
+# config 3c's kernel shapes (C 4, np 1000, nK 100, nf 2) and a small one
+# (C 2, np 60, nK 9, nf 3); the factors' alpha indices cycle through 0
+# (W = I), mid-grid and the last
+B8D_SHAPES = ((4, 1000, 10, 2, 10.0), (2, 60, 3, 3, 10.0))
+B8D_ALPHAS = (0, 50, 100)
+
+
+def _gpp_alpha(torch, dev, C, nf):
+    a = [[B8D_ALPHAS[(c * nf + f) % 3] for f in range(nf)] for c in range(C)]
+    return torch.tensor(a, dtype=torch.int32, device=dev)
+
+
+def _gpp_used_bytes(lvd, alpha, f_bytes=4):
+    """Bytes of the grid slices at the distinct alpha indices in use: idD,
+    idD W12 and F (float32) or iF (``f_bytes=8``: float64)."""
+    _, n, nK = lvd.idDW12g.shape
+    used = int(alpha.unique().numel())
+    return used * (4.0 * (n + n * nK) + f_bytes * nK * nK)
+
+
+def _gpp_quad_grid_f32(torch, lvd, eta):
+    """The GPP grid quadratic as the JAX package forms it, in float32 (iF
+    rounded to float32, float32 sums): the reading the B8d-3 check must
+    reject."""
+    t1 = torch.einsum("gu,cuh->chg", lvd.idDg, eta ** 2)
+    Et = torch.einsum("cuh,gum->chgm", eta, lvd.idDW12g)
+    t2 = torch.einsum("chgm,gmn,chgn->chg", Et, lvd.iFg.float(), Et)
+    return torch.where(lvd.alphapw[:, 0] == 0, (eta * eta).sum(1)[..., None],
+                       t1 - t2)
+
+
+def check_gpp_draw(torch, tsp, dev, lvd, LiSL, gen, card):
+    """The GPP Eta draw at config 3c's shapes with every factor at grid
+    index 14 (3c's range), 50 or 100: the port's float32 draw (H summed,
+    factorised and solved in float64) against the float64 draw from the
+    same float32 inputs and normals, to 1e-3 of the reference's standard
+    deviation; beside it the all-float32 draw (H rounded to float32 and
+    factorised in float32, as the JAX package does), for the record."""
+    from types import SimpleNamespace
+
+    from hmsc_tpu_torch.mcmc.spatial import gpp_draw, gpp_factor
+    from hmsc_tpu_torch.ops.linalg import chol_spd
+
+    C, n, nf, _ = LiSL.shape
+    nK = lvd.idDW12g.shape[2]
+    lvd64 = SimpleNamespace(**{k: v.double() for k, v in vars(lvd).items()})
+    F = 10.0 * torch.randn((C, n, nf), generator=gen, device=dev)
+    e1 = torch.randn((C, n, nf), generator=gen, device=dev)
+    e2 = torch.randn((C, nf * nK), generator=gen, device=dev)
+    for a in (14, 50, 100):
+        alpha = torch.full((C, nf), a, dtype=torch.int32, device=dev)
+        M1, iA, LiA, LH = gpp_factor(lvd, alpha, LiSL)
+        got = gpp_draw((M1, iA, LiA, LH), F, e1, e2).double()
+        f32 = gpp_draw((M1, iA, LiA, chol_spd(tsp.gpp_knot(lvd, alpha, iA)
+                                              .float())), F, e1, e2)
+        iA64, LiA64 = tsp._gpp_unit_plain(lvd64, alpha, LiSL.double())
+        ref = gpp_draw((tsp.gpp_m1_at(lvd64, alpha), iA64, LiA64, chol_spd(
+            tsp._gpp_knot_plain(lvd64, alpha, iA64))), F.double(),
+            e1.double(), e2.double())
+        sd = ref.std().item()
+        err = (got - ref).abs().max().item()
+        err32 = (f32.double() - ref).abs().max().item()
+        assert torch.isfinite(got).all(), f"GPP draw at alpha index {a}"
+        assert err <= 1e-3 * sd, \
+            f"GPP draw at alpha index {a}: {err} > 1e-3 x sd {sd}"
+        print(f"GPP draw at C {C}, np {n}, nK {nK}, nf {nf}, alpha index "
+              f"{a}: max |float32 - float64| {err:.3g} = {err / sd:.3g} sd "
+              f"(1e-3); the all-float32 draw {err32:.3g} = "
+              f"{err32 / sd:.3g} sd [{card}]")
+
+
+def check_b8d(torch, tsp, dev, card):
+    """B8d-1 (gpp_unit), B8d-2 (gpp_knot) and B8d-3 (gpp_quad) against
+    their plain versions at each of ``B8D_SHAPES``; times at 3c's."""
+    res = {}
+    for C, n, nk_side, nf, side in B8D_SHAPES:
+        lvd, _ = gpp_level(torch, dev, n, nk_side, side, seed=n + 7)
+        nK = lvd.idDW12g.shape[2]
+        g = torch.Generator(device=dev).manual_seed(n + 4)
+        alpha = _gpp_alpha(torch, dev, C, nf)
+        M = torch.randn((C, n, nf, nf), generator=g, device=dev)
+        LiSL = (M @ M.transpose(2, 3) * 20.0).contiguous()
+        bad = [(0, 3), (C - 1, n // 2)]
+        LiSL_bad = LiSL.clone()
+        for c, u in bad:
+            LiSL_bad[c, u] -= 1e4 * torch.eye(nf, device=dev)
+
+        # B8d-1: per-unit blocks; NaN where a block is indefinite
+        iAk, LiAk = tsp.gpp_unit(lvd, alpha, LiSL_bad)
+        iAp, LiAp = tsp._gpp_unit_plain(lvd, alpha, LiSL_bad)
+        nanm = torch.zeros((C, n), dtype=torch.bool, device=dev)
+        for c, u in bad:
+            nanm[c, u] = True
+        errs1 = []
+        for label, k, p in (("iA", iAk, iAp), ("LiA", LiAk, LiAp)):
+            assert torch.isnan(k[nanm]).all() and torch.isnan(p[nanm]).all(),\
+                f"B8d-1 {label}: planted indefinite blocks are not NaN"
+            assert torch.isfinite(k[~nanm]).all(), f"B8d-1 {label}"
+            # two float32 factorisations of an nf x nf block: against each
+            # block's largest entry
+            scale = p[~nanm].abs().amax(dim=(1, 2), keepdim=True)
+            e = ((k[~nanm] - p[~nanm]).abs() / scale).max().item()
+            assert e <= 1e-4, f"B8d-1 {label} np={n}: rel diff {e} > 1e-4"
+            errs1.append(e)
+
+        # B8d-2: the knot correction, on the kernel's iA of the PD blocks,
+        # against the plain version (both sum in float64 and return H in
+        # float64), to 1e-9 of each chain's largest |H| entry; at 3c's
+        # shape the float32 sum (one torch.einsum, as the JAX package forms
+        # H) must miss it
+        iA, _ = tsp.gpp_unit(lvd, alpha, LiSL)
+        Hk = tsp.gpp_knot(lvd, alpha, iA)
+        Hp = tsp._gpp_knot_plain(lvd, alpha, iA)
+        M1 = tsp.gpp_m1_at(lvd, alpha)
+        Hf = -torch.einsum("chum,cuhg,cgun->chmgn", M1, iA, M1)
+        for f in range(nf):
+            Hf[:, f, :, f, :] += lvd.Fg[alpha[:, f].long()]
+        Hs = Hp.abs().amax(dim=(1, 2), keepdim=True)
+        e2 = ((Hk - Hp).abs() / Hs).max().item()
+        e2f = ((Hf.reshape(Hp.shape).double() - Hp).abs() / Hs).max().item()
+        assert Hk.dtype == torch.float64 and torch.isfinite(Hk).all(), \
+            "B8d-2: H must be finite float64"
+        assert e2 <= 1e-9, f"B8d-2 np={n}: diff / max|H| {e2} > 1e-9"
+        at_3c = (C, n) == B8D_SHAPES[0][:2]
+        assert e2f > 1e-9 or not at_3c, "B8d-2: the float32 H passes"
+        assert torch.equal(Hk, tsp.gpp_knot(lvd, alpha, iA)), \
+            "B8d-2: two runs differ"
+
+        # B8d-3: grid and at-alpha quadratics (double sums, float32 out),
+        # each to 1e-5 of the plain value plus 1e-12 of the sum of its
+        # terms' magnitudes (the ones-form 1' iW eta may be near 0); at 3c's
+        # shape the float32 grid form (the JAX package's) must miss it
+        eta = torch.randn((C, n, nf), generator=g, device=dev)
+        vk = tsp.gpp_quad_grid(lvd, eta)
+        vp = tsp._gpp_quad_grid_plain(lvd, eta)
+        ak = tsp.gpp_quad_at(lvd, alpha, eta)
+        ap = tsp._gpp_quad_at_plain(lvd, alpha, eta)
+        assert torch.isfinite(vk).all() and torch.isfinite(ak).all(), "B8d-3"
+        ea = eta.abs()
+        Ee = torch.einsum("cuh,gum->chgm", ea, lvd.idDW12g)
+        iFa = lvd.iFg.abs().float()
+        mg = (torch.einsum("gu,cuh->chg", lvd.idDg, ea ** 2)
+              + torch.einsum("chgm,gmn,chgn->chg", Ee, iFa, Ee))
+        e3 = ((vk - vp).abs() / (1e-5 * vp.abs() + 1e-12 * mg)).max().item()
+        e3f = ((_gpp_quad_grid_f32(torch, lvd, eta) - vp).abs()
+               / (1e-5 * vp.abs() + 1e-12 * mg)).max().item()
+        a_ = alpha.long()
+        W12a = lvd.idDW12g[a_]
+        Eea = torch.einsum("cuh,chum->chm", ea, W12a)
+        E1a = W12a.sum(dim=2)
+        idDa, iFat = lvd.idDg[a_], iFa[a_]
+        mags = torch.stack([
+            torch.einsum("chu,cuh->ch", idDa, ea ** 2)
+            + torch.einsum("chm,chmn,chn->ch", Eea, iFat, Eea),
+            idDa.sum(dim=2) + torch.einsum("chm,chmn,chn->ch", E1a, iFat,
+                                           E1a),
+            torch.einsum("chu,cuh->ch", idDa, ea)
+            + torch.einsum("chm,chmn,chn->ch", E1a, iFat, Eea)], dim=2)
+        zero = tsp.gpp_alpha_zero(lvd, alpha)[..., None]
+        mags = torch.where(zero, torch.stack(
+            [(ea ** 2).sum(1), torch.full_like(ea[:, 0], float(n)),
+             ea.sum(1)], dim=2), mags)
+        e3a = ((ak - ap).abs() / (1e-5 * ap.abs() + 1e-12 * mags)).max(
+        ).item()
+        for label, e in (("grid", e3), ("at-alpha", e3a)):
+            assert e <= 1.0, f"B8d-3 {label} np={n}: {e} x the tolerance"
+        assert e3f > 1.0 or not at_3c, "B8d-3: the float32 form passes"
+        assert torch.equal(vk, tsp.gpp_quad_grid(lvd, eta)) and torch.equal(
+            ak, tsp.gpp_quad_at(lvd, alpha, eta)), "B8d-3: two runs differ"
+        abs_err = dict(
+            gpp_unit=max((iAk - iAp)[~nanm].abs().max().item(),
+                         (LiAk - LiAp)[~nanm].abs().max().item()),
+            gpp_knot=(Hk - Hp).abs().max().item(),
+            gpp_quad=max((vk - vp).abs().max().item(),
+                         (ak - ap).abs().max().item()))
+        print(f"B8d check C={C} np={n} nK={nK} nf={nf}, alpha indices "
+              f"{sorted(set(alpha.flatten().tolist()))}: B8d-1 max |kernel -"
+              f" plain| / block max {errs1[0]:.3g} (iA), {errs1[1]:.3g} "
+              f"(LiA) (1e-4), planted indefinite blocks NaN; B8d-2 "
+              f"{e2:.3g} of max|H| (1e-9; float32 H {e2f:.3g}); B8d-3 "
+              f"{e3:.3g} (grid), {e3a:.3g} (at-alpha) of 1e-5 |v| + 1e-12 "
+              f"of the terms' magnitudes (float32 grid form {e3f:.3g}); "
+              f"B8d-2 and B8d-3 two runs bit-identical")
+        if (C, n) != B8D_SHAPES[0][:2]:
+            continue
+        check_gpp_draw(torch, tsp, dev, lvd, LiSL, g, card)
+
+        def unit():
+            tsp.gpp_unit(lvd, alpha, LiSL)
+
+        def unit_plain():
+            tsp._gpp_unit_plain(lvd, alpha, LiSL)
+
+        def knot():
+            tsp.gpp_knot(lvd, alpha, iA)
+
+        def knot_plain():
+            tsp._gpp_knot_plain(lvd, alpha, iA)
+
+        def knot_library():
+            torch.einsum("chum,cuhg,cgun->chmgn", M1, iA, M1)
+
+        def grid():
+            tsp.gpp_quad_grid(lvd, eta)
+
+        def grid_plain():
+            tsp._gpp_quad_grid_plain(lvd, eta)
+
+        def at():
+            tsp.gpp_quad_at(lvd, alpha, eta)
+
+        def at_plain():
+            tsp._gpp_quad_at_plain(lvd, alpha, eta)
+
+        G = lvd.idDg.shape[0]
+        used = _gpp_used_bytes(lvd, alpha)
+        t = {}
+        for name, kern, plain, match in (
+                ("gpp_unit", unit, unit_plain, ("gpp_unit_kernel",)),
+                ("gpp_knot", knot, knot_plain,
+                 ("gpp_knot_partial_kernel", "gpp_knot_sum_kernel")),
+                ("gpp_quad", grid, grid_plain, ("gpp_quad_grid_kernel",))):
+            ms_parts = [device_ms(torch, kern, m) for m in match]
+            t[name] = dict(
+                ms=sum(ms_parts), parts_ms=ms_parts,
+                plain_ms=device_ms(torch, plain, calls=10),
+                event_ms=event_ms(torch, kern),
+                plain_event_ms=event_ms(torch, plain, batch=5),
+                held_ms=held_event_ms(torch, kern))
+        # bytes: LiSL in, iA and LiA out, the idD slices in use; operations:
+        # two nf^3/3 factorisations, the nf^3/3 inverse and nf^3/3 product
+        b1 = bound_ms(4.0 * C * n * 3 * nf * nf + 4.0 * int(
+            alpha.unique().numel()) * n, C * n * (4 * nf ** 3 / 3))
+        # bytes: the M1 slices and F in use, iA in, H out (float64);
+        # operations: 2 a (unit, entry of H's lower triangle), M1 iA
+        # hoisted and H symmetric (67 TFLOP/s is also float64's tensor-core
+        # rate)
+        b2 = bound_ms(used + 4.0 * C * n * nf * nf + 8.0 * C * (nf * nK) ** 2,
+                      C * n * (nf * nK) * (nf * nK + 1.0))
+        # grid mode: idD, idD W12 and (float64) iF grids once, eta in, C nf
+        # G out; operations per (column, grid point): 2 np nK (Et), 3 nK^2,
+        # 3 np
+        b3 = bound_ms(4.0 * (G * (n + n * nK) + C * n * nf + C * nf * G)
+                      + 8.0 * G * nK * nK,
+                      C * nf * G * (2.0 * n * nK + 3.0 * nK * nK + 3.0 * n))
+        t["gpp_knot"]["library_ms"] = device_ms(torch, knot_library, calls=10)
+        t["gpp_unit"]["library_ms"] = t["gpp_quad"]["library_ms"] = None
+        at_ms = device_ms(torch, at, "gpp_quad_at_kernel")
+        at_plain_ms = device_ms(torch, at_plain, calls=10)
+        b_at = bound_ms(_gpp_used_bytes(lvd, alpha, 8)
+                        + 4.0 * (C * n * nf + 3 * C * nf),
+                        C * nf * (4.0 * n * nK + 9.0 * nK * nK + 5.0 * n))
+        for name, (bb, by) in (("gpp_unit", b1), ("gpp_knot", b2),
+                               ("gpp_quad", b3)):
+            t[name].update(bound_ms=bb, bound_by=by,
+                           max_abs_err=abs_err[name], shape=[C, n, nK, nf])
+        t["gpp_quad"].update(at_ms=at_ms, at_plain_ms=at_plain_ms,
+                             at_bound_ms=b_at[0])
+        for name, label in (("gpp_unit", "B8d-1 gpp_unit"),
+                            ("gpp_knot", "B8d-2 gpp_knot"),
+                            ("gpp_quad", "B8d-3 gpp_quad grid")):
+            r = t[name]
+            lib = ("" if r["library_ms"] is None else
+                   f", one torch.einsum of the weighted gram "
+                   f"{r['library_ms']:.4f} ms")
+            print(f"{label} device time at C {C}, np {n}, nK {nK}, nf {nf}: "
+                  f"{r['ms']:.5f} ms ({' + '.join(f'{x:.5f}' for x in r['parts_ms'])}; plain "
+                  f"{r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.6f} "
+                  f"ms by {r['bound_by']}; held stream {r['held_ms']:.5f} "
+                  f"ms, with enqueue {r['event_ms']:.4f} ms, plain "
+                  f"{r['plain_event_ms']:.4f} ms) [{card}]")
+        print(f"B8d-3 gpp_quad at-alpha device time: {at_ms:.5f} ms (plain "
+              f"{at_plain_ms:.4f} ms, bound {b_at[0]:.6f} ms by {b_at[1]}) "
+              f"[{card}]")
+        res = t
+    return res
+
+
+def da_inputs(torch, dev, C, ny, ns, seed, na=0.0):
+    """Z consistent with the signs of Y (as update_z leaves it), a random
+    Beta, iV and prior term, every fifth column not probit; planted: an
+    all-one column (no upper bound), an all-zero one (no lower bound), and
+    prior means past 9 sigma above and below the interval."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Y = (torch.rand((ny, ns), generator=g, device=dev) < 0.5).float()
+    Y[:, 0], Y[:, 1] = 1.0, 0.0
+    mask = None
+    if na:
+        mask = (torch.rand((ny, ns), generator=g, device=dev) >= na).float()
+        mask[:, 2] = 0.0                         # a column with no data
+    nc = 2
+    Beta = torch.randn((C, nc, ns), generator=g, device=dev)
+    E = Beta[:, 0][:, None] + torch.randn((C, ny, ns), generator=g,
+                                          device=dev)
+    Z = torch.where(Y > 0.5, E.abs(), -E.abs()) + 1e-3 * torch.where(
+        Y > 0.5, 1.0, -1.0)
+    Z = Z.contiguous()
+    fam = torch.full((ns,), 2, dtype=torch.int32, device=dev)
+    fam[4::5] = 1
+    v00 = torch.rand((C,), generator=g, device=dev) * 2.0 + 0.5
+    up = torch.randn((C, ns), generator=g, device=dev)
+    up[:, 3] = 1e3 * v00                         # mean far below the interval
+    up[:, 6] = -1e3 * v00                        # mean far above it
+    return Z, Y, mask, fam, Beta.contiguous(), up.contiguous(), v00
+
+
+def _b7_quantile_slack(torch, a, b, u, prob):
+    """Per (chain, species), in sd units: 8 float32 ulps of the survival
+    probability s of the JAX op's inverse-CDF branch times the quantile's
+    slope 1 / phi(ndtri(s)) (float64 on the host; 0 on the far-tail branch
+    and on non-probit columns)."""
+    from scipy.special import ndtr, ndtri
+
+    a, b, u = (x.double().cpu().numpy() for x in (a, b, u))
+    with np.errstate(invalid="ignore", over="ignore"):
+        right = (a + np.clip(b, -1e30, 1e30)) > 0
+        right = np.where(np.isinf(b), a > 0, right)
+        right = np.where(np.isinf(a), b > 0, right)
+        a2, b2 = np.where(right, a, -b), np.where(right, b, -a)
+        sa, sb = ndtr(-a2), ndtr(-b2)
+        s = np.clip(sb + u * (sa - sb), 1e-30, 1 - 2.0 ** -24)
+        x = ndtri(s)
+        slack = 8 * 2.0 ** -23 * s * np.sqrt(2 * np.pi) * np.exp(x * x / 2)
+    slack = np.where((a2 > 9.0) | ~prob.cpu().numpy()[None], 0.0, slack)
+    return torch.tensor(slack, dtype=torch.float32, device=prob.device)
+
+
+def check_b7(torch, trand, dev, card):
+    """B7 against its plain version with injected uniforms (one- and
+    two-sided intervals, infinite bounds, |a| > 9, u = 1e-38 and u one ulp
+    below 1; without and with NA cells), then with its own Philox by the
+    probability integral transform (KS)."""
+    from scipy import stats
+
+    C, ny, ns = DA_HEADLINE["n_chains"], DA_HEADLINE["ny"], \
+        DA_HEADLINE["ns"]
+    worst = 0.0
+    for na in (0.0, 0.1):
+        Z, Y, mask, fam, Beta, up, v00 = da_inputs(torch, dev, C, ny, ns,
+                                                   seed=21, na=na)
+        g = torch.Generator(device=dev).manual_seed(22)
+        u = torch.rand((C, ns), generator=g, device=dev).clamp_min_(1e-38)
+        u[0, :8] = 1e-38
+        u[1, :8] = 1.0 - 2.0 ** -24
+        tk, Zk = trand.da_intercept_draw(Z, Y, mask, fam, Beta, 0, up, v00,
+                                         u=u)
+        tp, Zp = trand._da_intercept_draw_plain(Z, Y, mask, fam, Beta, 0,
+                                                up, v00, u)
+        sd = v00[:, None] ** -0.5
+        prob = fam == 2
+        assert torch.isfinite(tk).all() and torch.isfinite(Zk).all(), "B7"
+        assert torch.equal(tk[:, ~prob], Beta[:, 0, ~prob]) and torch.equal(
+            Zk[..., ~prob], Z[..., ~prob]), "B7: a non-probit column changed"
+        # the planted interval kinds happened
+        negR = -(Z - Beta[:, 0][:, None])
+        obs = torch.ones_like(Y) if mask is None else mask
+        lo = torch.where((Y > 0.5) & (obs > 0), negR, -math.inf).amax(1)
+        hi = torch.where((Y <= 0.5) & (obs > 0), negR, math.inf).amin(1)
+        mean = Beta[:, 0] - up / v00[:, None]
+        a, b = (lo - mean) / sd, (hi - mean) / sd
+        assert torch.isinf(hi[:, 0]).all() and torch.isinf(lo[:, 1]).all()
+        assert (a[:, 3] > 9).all() and (b[:, 6] < -9).all()
+        # t to 1e-4 sd, plus 8 float32 ulps of the survival probability s
+        # carried through the inverse CDF's slope 1 / phi(x): at u one ulp
+        # below 1 on a half-open interval s sits at 1 - 2^-24, where one
+        # ulp of s moves the draw by ~0.1 sd (float32 ndtr and rounding
+        # differ between the kernel and PyTorch's elementwise ops there)
+        allow = 1e-4 + _b7_quantile_slack(torch, a, b, u, prob)
+        e = (tk - tp).abs() / sd
+        e_t = (e / allow).max().item()
+        # Z = R + t: the same difference, up to Z's own rounding
+        e_z = ((Zk - Zp - (tk - tp)[:, None]).abs()
+               / (1.0 + Zp.abs())).max().item()
+        assert e_t <= 1.0 and e_z <= 1e-5, \
+            f"B7 na={na}: t {e_t} of its tolerance, Z {e_z} > 1e-5"
+        worst = max(worst, (tk - tp).abs().max().item())
+        print(f"B7 check {C}x{ny}x{ns}, {na:.0%} NA: max |kernel - plain| / "
+              f"sd {e.max().item():.3g} (t; at most {e_t:.3g} of 1e-4 + 8 "
+              f"ulps of s through the quantile's slope), Z - t shift "
+              f"{e_z:.3g} (1e-5); infinite bounds, |a| > 9 on both sides, u "
+              f"= 1e-38 and 1 - 2^-24 covered; non-probit columns unchanged")
+    # its own Philox: the draws' probability integral transform is uniform
+    Z, Y, mask, fam, Beta, up, v00 = da_inputs(torch, dev, C, ny, ns,
+                                               seed=23)
+    up[:, 3], up[:, 6] = 0.0, 0.0
+    rng = trand.Rng(24, dev)
+    draws = torch.stack([trand.da_intercept_draw(Z, Y, None, fam, Beta, 0,
+                                                 up, v00, rng)[0]
+                         for _ in range(25)])
+    negR = -(Z - Beta[:, 0][:, None])
+    lo = torch.where(Y > 0.5, negR, -math.inf).amax(1)
+    hi = torch.where(Y <= 0.5, negR, math.inf).amin(1)
+    mean = Beta[:, 0] - up / v00[:, None]
+    sd = v00[:, None] ** -0.5
+    keep = (fam == 2).expand(C, ns)
+    z = ((draws - mean) / sd)[:, keep].double().cpu().numpy()
+    aa = ((lo - mean) / sd)[keep].double().cpu().numpy()
+    bb = ((hi - mean) / sd)[keep].double().cpu().numpy()
+    pit = stats.truncnorm.cdf(z, aa[None], bb[None]).ravel()
+    p = stats.kstest(pit, "uniform").pvalue
+    assert p > 1e-3, f"B7 Philox: KS p {p} <= 1e-3"
+    print(f"B7 check: in-kernel Philox, {pit.size} draws: probability "
+          f"integral transform KS p {p:.3g} (> 1e-3)")
+
+    Z, Y, mask, fam, Beta, up, v00 = da_inputs(torch, dev, C, ny, ns,
+                                               seed=25)
+
+    def kern():
+        trand.da_intercept_draw(Z, Y, None, fam, Beta, 0, up, v00, rng)
+
+    def plain():
+        trand._da_intercept_draw_plain(Z, Y, None, fam, Beta, 0, up, v00,
+                                       rng.uniform((C, ns)))
+
+    ms = device_ms(torch, kern, "truncnorm_da_kernel")
+    plain_ms = device_ms(torch, plain, calls=10)
+    ev, plain_ev = event_ms(torch, kern), event_ms(torch, plain, batch=5)
+    held = held_event_ms(torch, kern)
+    cells = C * ny * ns
+    # bytes: Z and Y read once, Z written once, the per-species terms;
+    # operations: ~4 a cell (the residual, its sign, the extremum) and ~2
+    # a cell for the shift, ~150 a draw
+    b, by = bound_ms(4.0 * (2 * cells + ny * ns + 4 * C * ns + ns),
+                     6.0 * cells + 150.0 * C * ns)
+    print(f"B7 truncnorm_da device time: {ms:.4f} ms (plain {plain_ms:.4f} "
+          f"ms, bound {b:.4f} ms by {by}; held stream {held:.5f} ms, with "
+          f"enqueue {ev:.4f} ms, plain {plain_ev:.4f} ms) at Z "
+          f"{C}x{ny}x{ns} [{card}]")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=None, event_ms=ev,
+                plain_event_ms=plain_ev, held_ms=held, shape=[C, ny, ns])
+
+
 def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
-                      cg_loop=()):
+                      cg_loop=(), updater=None):
     """Kernel launches the sweep schedule implies: Z once at start and once
     a sweep, for probit columns (B1) and for Poisson columns (B5);
     BetaLambda and each level's Eta systems (B2, where P <= 16) each sweep;
@@ -1056,7 +1551,11 @@ def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
     below the dense/CG crossover (B8c); above it, for every CG draw
     (``cg_loop``: the iterations of each, as the port reports them), one
     transpose for the prior perturbation and two launches for each of the
-    iterations + 2 applications of P (B8a)."""
+    iterations + 2 applications of P (B8a).  On a GPP level, each sweep:
+    the per-unit blocks (B8d-1) and the knot correction (B8d-2) of the Eta
+    draw, and the three quadratics as on NNGP (B8d-3).  With
+    ``updater={"InterweaveDA": True}`` on a probit model with an intercept,
+    the DA intercept draw each sweep (B7)."""
     from hmsc_tpu_torch.mcmc import spatial as tspatial
     from hmsc_tpu_torch.mcmc.structs import _find_ones_column
 
@@ -1069,7 +1568,11 @@ def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
     nngp = [ls for ls in spec.levels if ls.spatial == "NNGP"]
     dense = sum(ls.n_units * ls.nf_max <= tspatial._NNGP_DENSE_MAX
                 for ls in nngp)
-    quads = 2 + int(_find_ones_column(hM) is not None)
+    ones = _find_ones_column(hM) is not None
+    quads = 2 + int(ones)
+    gpp = sum(ls.spatial == "GPP" for ls in spec.levels)
+    da = bool((updater or {}).get("InterweaveDA")) and spec.any_probit \
+        and ones
     return {"probit_z": (1 + sweeps) * spec.any_probit,
             "mvn_prec_small": sweeps * systems,
             "standard_gamma": sweeps * per_sweep_gamma + 2 * nf_sweeps,
@@ -1077,16 +1580,21 @@ def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
             "masked_gram": sweeps * (1 + spec.nr) * spec.has_na,
             "vecchia_apply": sum(1 + 2 * (n + 2) for n in cg_loop),
             "nngp_quad": sweeps * quads * len(nngp),
-            "nngp_riw": sweeps * dense}
+            "nngp_riw": sweeps * dense,
+            "gpp_unit": sweeps * gpp,
+            "gpp_knot": sweeps * gpp,
+            "gpp_quad": sweeps * quads * gpp,
+            "truncnorm_da": sweeps * da}
 
 
-def profile_sweeps(torch, ht, hM, card, label, n_chains, nf, sweeps=10):
+def profile_sweeps(torch, ht, hM, card, label, n_chains, nf, sweeps=10,
+                   updater=None):
     """Where a path's sweep time goes: device time by kernel name over a
     short profiled run (torch.profiler), against the run's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     kw = dict(samples=sweeps, transient=0, n_chains=n_chains, seed=2,
-              nf_cap=nf, align_post=False)
+              nf_cap=nf, align_post=False, updater=updater)
     ht.sample_mcmc(hM, **kw)                      # warm the same shapes
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1104,7 +1612,7 @@ def profile_sweeps(torch, ht, hM, card, label, n_chains, nf, sweeps=10):
 
 
 def run_path(torch, ht, K, card, label, hM, n_chains, nf, transient,
-             samples, seed):
+             samples, seed, updater=None):
     """One main path through ``sample_mcmc`` with every launch counter set
     to 0 just before and read just after; each count must equal the one
     the schedule implies.  Returns the posterior and the counts."""
@@ -1113,13 +1621,14 @@ def run_path(torch, ht, K, card, label, hM, n_chains, nf, transient,
     torch.cuda.synchronize()
     K.reset_launches()
     post = ht.sample_mcmc(hM, samples=samples, transient=transient,
-                          n_chains=n_chains, seed=seed, nf_cap=nf)
+                          n_chains=n_chains, seed=seed, nf_cap=nf,
+                          updater=updater)
     torch.cuda.synchronize()
     launches = dict(K.launches)
     spec = build_spec(hM, nf)
     want = expected_launches(spec, transient, samples, 1,
                              (transient,) * spec.nr, hM,
-                             post.cg_iterations["loop"])
+                             post.cg_iterations["loop"], updater)
     beta = post["Beta"]
     assert beta.shape == (n_chains, samples, spec.nc, spec.ns), label
     assert np.isfinite(beta).all(), f"{label}: non-finite Beta"
@@ -1202,7 +1711,9 @@ def main() -> int:
                "masked_gram": check_b6(torch, tgram, dev, card),
                "vecchia_apply": check_b8a(torch, tsp, dev, card),
                "nngp_quad": check_b8b(torch, tsp, dev, card),
-               "nngp_riw": check_b8c(torch, tsp, dev, card)}
+               "nngp_riw": check_b8c(torch, tsp, dev, card),
+               **check_b8d(torch, tsp, dev, card),
+               "truncnorm_da": check_b7(torch, trand, dev, card)}
     time_b4(torch, trand, dev, card)
 
     # recovery: posterior-mean slopes against the simulated ones
@@ -1254,6 +1765,17 @@ def main() -> int:
     print(f"na_headline recovery: {np.isnan(Y_na).mean():.4f} of Y missing;"
           f" corr(posterior-mean slopes, simulated) = {corr:.4f} (> 0.9)")
 
+    # (d) the headline with the probit-DA intercept interweave
+    da = DA_HEADLINE
+    da_upd = {"InterweaveDA": True}
+    post_da, by_path["da_headline"] = run_path(
+        torch, ht, K, card, "da_headline", hM, da["n_chains"], da["nf"],
+        da["transient"], da["samples"], seed=1, updater=da_upd)
+    corr = slope_corr(post_da, Beta_h)
+    assert corr > 0.9, f"da_headline: slope correlation {corr} <= 0.9"
+    print(f"da_headline recovery: corr(posterior-mean slopes, simulated) = "
+          f"{corr:.4f} (> 0.9)")
+
     spatial = spatial_paths(torch, ht, K, card, by_path)
     check_alpha_planted(torch, ht, card)
 
@@ -1266,8 +1788,13 @@ def main() -> int:
                                     CONFIG3_NF),
                                    ("config3b", spatial["config3b"],
                                     CONFIG3["config3b"]["n_chains"],
+                                    CONFIG3_NF),
+                                   ("config3c", spatial["config3c"],
+                                    CONFIG3["config3c"]["n_chains"],
                                     CONFIG3_NF)):
         profile_sweeps(torch, ht, m, card, label, n_chains, nf)
+    profile_sweeps(torch, ht, hM, card, "da_headline", da["n_chains"],
+                   da["nf"], updater=da_upd)
 
     # kernel -> (label, source, the TPU op it replaces, the path whose
     # launches the line reports: the first that runs it)
@@ -1292,6 +1819,15 @@ def main() -> int:
                       "hmsc_tpu/mcmc/spatial.py:415", "config3b"),
         "nngp_riw": ("B8c nngp_riw", "hmsc_tpu_torch/csrc/nngp_riw.cu",
                      "hmsc_tpu/mcmc/spatial.py:213", "dense_nngp"),
+        "gpp_unit": ("B8d-1 gpp_unit", "hmsc_tpu_torch/csrc/gpp_unit.cu",
+                     "hmsc_tpu/mcmc/spatial.py:151", "config3c"),
+        "gpp_knot": ("B8d-2 gpp_knot", "hmsc_tpu_torch/csrc/gpp_knot.cu",
+                     "hmsc_tpu/mcmc/spatial.py:178", "config3c"),
+        "gpp_quad": ("B8d-3 gpp_quad", "hmsc_tpu_torch/csrc/gpp_quad.cu",
+                     "hmsc_tpu/mcmc/spatial.py:426", "config3c"),
+        "truncnorm_da": ("B7 truncnorm_da",
+                         "hmsc_tpu_torch/csrc/truncnorm_da.cu",
+                         "hmsc_tpu/ops/rand.py:25", "da_headline"),
     }
     assert set(meta) == set(K.KERNELS) == set(results)
     kernels = []

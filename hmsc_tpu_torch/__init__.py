@@ -10,16 +10,21 @@ posterior container) are copied into it.
 
 This slice samples normal, probit, Poisson and lognormal-Poisson JSDMs
 (any mix of them across species), with missing values in Y, a design
-matrix, optional traits, and unstructured or spatial (``Full`` and
-``NNGP``) random levels (``sample_mcmc``).  Entry points run
+matrix, optional traits, and unstructured or spatial (``Full``, ``NNGP``
+and ``GPP``) random levels (``sample_mcmc``), with the opt-in probit-DA
+intercept interweave (``updater={"InterweaveDA": True}``).  Entry points run
 on the CUDA card unless the caller passes ``device="cpu"``; features of
 later slices raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from .model import Hmsc
 from .random_level import HmscRandomLevel, set_priors_random_level
+from .precompute import construct_knots
 from .mcmc.sampler import sample_mcmc
 from .post import Posterior
 
+# reference-style camelCase alias
+constructKnots = construct_knots
+
 __all__ = ["Hmsc", "HmscRandomLevel", "set_priors_random_level",
-           "sample_mcmc", "Posterior"]
+           "construct_knots", "constructKnots", "sample_mcmc", "Posterior"]

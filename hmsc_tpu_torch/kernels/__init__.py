@@ -37,7 +37,11 @@ KERNELS = {"probit_z": "probit_z.cu",
            "masked_gram": "masked_gram.cu",
            "vecchia_apply": "vecchia_apply.cu",
            "nngp_quad": "nngp_quad.cu",
-           "nngp_riw": "nngp_riw.cu"}
+           "nngp_riw": "nngp_riw.cu",
+           "gpp_unit": "gpp_unit.cu",
+           "gpp_knot": "gpp_knot.cu",
+           "gpp_quad": "gpp_quad.cu",
+           "truncnorm_da": "truncnorm_da.cu"}
 
 launches = {name: 0 for name in KERNELS}
 
@@ -137,11 +141,23 @@ def library():
             lib.hmsc_nngp_quad_at.argtypes = [p, p, p, p, p, p, i, i, i, i,
                                               p]
             lib.hmsc_nngp_riw.argtypes = [p, p, p, p, p, i, i, i, i, p]
+            lib.hmsc_gpp_unit.argtypes = [p, p, p, p, p, p, i, i, i, p]
+            lib.hmsc_gpp_knot.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
+                                          i, p]
+            lib.hmsc_gpp_quad_grid.argtypes = [p, p, p, p, p, p, p, i, i, i,
+                                               i, i, p]
+            lib.hmsc_gpp_quad_at.argtypes = [p, p, p, p, p, p, p, p, i, i,
+                                             i, i, p]
+            lib.hmsc_truncnorm_da.argtypes = [p, p, p, p, p, p, p, p, p, p,
+                                              i, i, i, i, i, u64, u32, p]
             for fn in (lib.hmsc_probit_z, lib.hmsc_mvn_prec_small,
                        lib.hmsc_standard_gamma, lib.hmsc_poisson_z,
                        lib.hmsc_masked_gram, lib.hmsc_vecchia_fwd,
                        lib.hmsc_vecchia_adj, lib.hmsc_nngp_quad_grid,
-                       lib.hmsc_nngp_quad_at, lib.hmsc_nngp_riw):
+                       lib.hmsc_nngp_quad_at, lib.hmsc_nngp_riw,
+                       lib.hmsc_gpp_unit, lib.hmsc_gpp_knot,
+                       lib.hmsc_gpp_quad_grid, lib.hmsc_gpp_quad_at,
+                       lib.hmsc_truncnorm_da):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib

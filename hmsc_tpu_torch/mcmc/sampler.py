@@ -13,6 +13,7 @@ from a host generator.
 
 from __future__ import annotations
 
+import logging
 import time
 import warnings
 
@@ -25,8 +26,10 @@ from .structs import (DEFAULT_NF_CAP, GibbsState, build_model_data,
                       build_spec, build_state, check_supported,
                       stack_states)
 from .sweep import make_sweep, record_sample
-from .updaters import update_z
+from .updaters import da_intercept_gate, update_z
 from ..ops.rand import Rng
+
+log = logging.getLogger(__name__)
 
 __all__ = ["sample_mcmc", "resolve_device", "initial_states"]
 
@@ -165,6 +168,15 @@ def sample_mcmc(hM, samples: int, transient: int = 0, thin: int = 1,
     check_supported(hM, spec)
     record = normalize_record(spec, record)
     data = build_model_data(hM, compute_data_parameters(hM), spec, dev)
+    # structural gate for the opt-in probit-DA intercept interweave: a
+    # model it cannot run on is told so, and runs without it
+    if updater and updater.get("InterweaveDA") is True:
+        reason = da_intercept_gate(
+            spec, has_intercept=data.x_ones_ind is not None)
+        if reason:
+            log.info(f"Setting updater$InterweaveDA=FALSE: {reason}")
+            updater = dict(updater)
+            updater["InterweaveDA"] = False
     state, rng = initial_states(hM, spec, seed, n_chains, dev)
     trng = Rng(int(rng.integers(0, 2**62)), dev)
     cg_log = []         # (level, loop iterations, largest, per-chain)

@@ -1,7 +1,7 @@
 """Spatially structured latent factors: the Eta draws and the GP-range
-(alpha) grid sampler (port of ``hmsc_tpu/mcmc/spatial.py`` for the
-``Full`` and ``NNGP`` methods; reference ``R/updateEta.R:110-196``,
-``R/updateAlpha.R:3-86``).  Chains are the leading batch axis.
+(alpha) grid sampler (port of ``hmsc_tpu/mcmc/spatial.py``; reference
+``R/updateEta.R:110-196``, ``R/updateAlpha.R:3-86``).  Chains are the
+leading batch axis.
 
 - ``Full`` — exact GP: the (nf np)^2 coupled precision (block-diagonal
   iW(alpha_h) plus the per-unit factor coupling) is assembled densely and
@@ -14,11 +14,20 @@
   applies the factor only (kernel B8a): perturbation optimisation, so the
   solution has the full conditional's law up to the CG tolerance, warm
   started from the current Eta.
+- ``GPP`` — the knot-based predictive process: the precision ``P = A - M
+  F^{-1} M'`` by double Woodbury, with per-unit nf x nf blocks ``A``
+  (kernel B8d-1 writes their inverses and factors) and the (nf nK)^2 knot
+  correction ``H`` (kernel B8d-2); ``H``'s Cholesky and its triangular
+  solves are library calls, as the JAX package leaves them to XLA, but in
+  float64: ``H``'s condition number reaches ~2e7 at a large alpha, and in
+  float32 (the JAX package's) the draw is off by a few percent of its
+  standard deviation there.  At
+  alpha = 0 a factor's knot terms are switched off (``idD = 1``, ``M1 =
+  0``: ``W = I``).
 
 The alpha sampler and the interweaving moves read the prior quadratics
 ``eta' iW eta`` over the alpha grid or at each factor's alpha: batched
-products for Full, kernel B8b for NNGP.  ``GPP`` is not ported yet
-(ROADMAP A6b).
+products for Full, kernel B8b for NNGP, kernel B8d-3 for GPP.
 
 The CG loop runs on the host: eager PyTorch cannot branch on the device.
 It reads the chains' convergence back with one ``.item()`` at a time, and
@@ -36,13 +45,15 @@ from __future__ import annotations
 import torch
 
 from ..ops.linalg import chol_spd, sample_mvn_prec
-from ..ops.spatial import (nngp_quad_at, nngp_quad_grid, nngp_riw_dense,
-                           vecchia_pmv, vecchia_riw_t)
+from ..ops.spatial import (gpp_knot, gpp_m1_at, gpp_quad_at, gpp_quad_grid,
+                           gpp_unit, nngp_quad_at, nngp_quad_grid,
+                           nngp_riw_dense, vecchia_pmv, vecchia_riw_t)
 from .structs import GibbsState, LevelState, ModelData, ModelSpec
 from .updaters import _level_gram, _noise, lambda_effective
 
 __all__ = ["update_eta_spatial", "update_alpha", "vecchia_cg_draw",
-           "eta_quad_grid", "eta_quad_at", "eta_ones_forms_at"]
+           "gpp_factor", "gpp_draw", "eta_quad_grid", "eta_quad_at",
+           "eta_ones_forms_at"]
 
 # above this many (units x factors) coefficients, NNGP Eta switches from the
 # dense joint Cholesky to the matrix-free CG sampler (the JAX package's
@@ -64,12 +75,15 @@ _CG_CHECK_EVERY = 8
 def update_eta_spatial(spec: ModelSpec, data: ModelData, state: GibbsState,
                        r: int, rng=None, S=None, noise=None,
                        cg_log: list | None = None) -> LevelState:
-    """Eta_r | rest for a Full or NNGP level.  ``noise``: the dense draws
-    ``{"eps": (C, nf np)}`` (factor-major), or for the CG sampler ``{"eps1":
-    (C, np, nf), "xi": (C, ny, ns)}``.  A CG draw appends ``(r, iterations
-    the loop ran, the largest per-chain count, per-chain iterations (C,) on
-    the device)`` to ``cg_log``."""
+    """Eta_r | rest for a spatial level.  ``noise``: the dense draws
+    ``{"eps": (C, nf np)}`` (factor-major), for the CG sampler ``{"eps1":
+    (C, np, nf), "xi": (C, ny, ns)}``, for GPP ``{"eps1": (C, np, nf),
+    "eps2": (C, nf nK)}``.  A CG draw appends ``(r, iterations the loop ran,
+    the largest per-chain count, per-chain iterations (C,) on the device)``
+    to ``cg_log``."""
     lvd, lv, ls = data.levels[r], state.levels[r], spec.levels[r]
+    if ls.spatial == "GPP":
+        return _eta_gpp(spec, data, state, r, rng, S, noise)
     npr, nf = ls.n_units, ls.nf_max
     if ls.spatial == "NNGP" and npr * nf > _NNGP_DENSE_MAX:
         return _eta_nngp_cg(spec, data, state, r, rng, S, noise,
@@ -140,6 +154,58 @@ def _eta_nngp_cg(spec, data, state, r, rng, S, noise, tol=CG_TOL,
     return lv.replace(Eta=eta)
 
 
+def gpp_factor(lvd, alpha_idx, LiSL):
+    """The step-invariant part of the GPP full conditional ``P = A - M
+    F_blk^{-1} M'`` with ``A = LiSL + unitdiag(idD)`` (the JAX package's
+    ``gpp_factor`` with ``_eta_gpp``'s alpha-0 overrides), per chain:
+    ``(M1 (C, nf, np, nK), iA, LiA (C, np, nf, nf), LH (C, nf nK, nf
+    nK))``.  B8d-1 writes ``iA`` and ``LiA``, B8d-2 ``H`` (float64); ``LH
+    = chol_spd(H)`` in float64 (jittered, as ``A``'s factor in B8d-1 is;
+    ``LiA`` is the plain Cholesky of ``iA``)."""
+    alpha = alpha_idx.contiguous()
+    iA, LiA = gpp_unit(lvd, alpha, LiSL.contiguous())
+    LH = chol_spd(gpp_knot(lvd, alpha, iA))
+    return gpp_m1_at(lvd, alpha), iA, LiA, LH
+
+
+def gpp_draw(payload, F, eps1, eps2):
+    """Exact draw ``eta ~ N(P^{-1} F, P^{-1})`` per chain from a
+    :func:`gpp_factor` payload: the mean by double Woodbury, the noise as
+    ``LiA eps1 + iA M LH^{-T} eps2`` (covariance exactly ``P^{-1}``).
+    ``F``, ``eps1`` (C, np, nf); ``eps2`` (C, nf nK).  The knot-space
+    solves run in ``LH``'s type (float64 from :func:`gpp_factor`), the
+    per-unit products in ``F``'s."""
+    M1, iA, LiA, LH = payload
+    C, nf, _, nK = M1.shape
+    LHt = LH.transpose(1, 2)
+    iA_rhs = torch.einsum("cuhg,cug->cuh", iA, F)
+    Mt = torch.einsum("chum,cuh->chm", M1, iA_rhs).reshape(C, nf * nK, 1)
+    corr = torch.linalg.solve_triangular(
+        LHt, torch.linalg.solve_triangular(LH, Mt.to(LH.dtype), upper=False),
+        upper=True).reshape(C, nf, nK).to(F.dtype)
+    Mx = torch.einsum("chum,chm->cuh", M1, corr)
+    mean = iA_rhs + torch.einsum("cuhg,cug->cuh", iA, Mx)
+    noise1 = torch.einsum("cuhg,cug->cuh", LiA, eps1)
+    w = torch.linalg.solve_triangular(LHt, eps2[..., None].to(LH.dtype),
+                                      upper=True).reshape(C, nf, nK)
+    w = w.to(F.dtype)
+    Mw = torch.einsum("chum,chm->cuh", M1, w)
+    return mean + noise1 + torch.einsum("cuhg,cug->cuh", iA, Mw)
+
+
+def _eta_gpp(spec, data, state, r, rng, S, noise):
+    """GPP Eta via double Woodbury (the JAX package's ``_eta_gpp``;
+    reference updateEta.R:148-196)."""
+    lvd, lv, ls = data.levels[r], state.levels[r], spec.levels[r]
+    npr, nf, nK = ls.n_units, ls.nf_max, lvd.idDW12g.shape[2]
+    LiSL, F = _level_gram(spec, data, lvd, ls, lv, state.iSigma, S)
+    payload = gpp_factor(lvd, lv.alpha_idx, LiSL)
+    C = F.shape[0]
+    eps1 = _noise(noise, "eps1", lambda: rng.normal((C, npr, nf), F.dtype))
+    eps2 = _noise(noise, "eps2", lambda: rng.normal((C, nf * nK), F.dtype))
+    return lv.replace(Eta=gpp_draw(payload, F, eps1, eps2))
+
+
 def vecchia_cg_draw(pmv, b, x0, tol=CG_TOL, maxiter=CG_MAXITER,
                     first_check=0):
     """Conjugate gradients for ``P x = b`` per chain (iterates (C, np, nf)),
@@ -194,12 +260,15 @@ def vecchia_cg_draw(pmv, b, x0, tol=CG_TOL, maxiter=CG_MAXITER,
 
 def eta_quad_grid(lvd, ls, eta):
     """``(v, ld)``: the prior quadratics ``eta_h' iW_g eta_h`` over the whole
-    alpha grid, (C, nf, G), and ``log det W_g``, (G,)."""
+    alpha grid, (C, nf, G), and ``log det W_g``, (G,) (``detDg`` for
+    GPP)."""
     if ls.spatial == "Full":
         C, npr, nf = eta.shape
         e = eta.transpose(1, 2).reshape(1, C * nf, npr)
         v = ((e @ lvd.iWg) * e).sum(dim=2)               # (G, C nf)
         v = v.transpose(0, 1).reshape(C, nf, -1)
+    elif ls.spatial == "GPP":
+        return gpp_quad_grid(lvd, eta.contiguous()), lvd.detDg
     else:
         v = nngp_quad_grid(lvd, eta.contiguous())
     return v, lvd.detWg
@@ -212,7 +281,8 @@ def eta_quad_at(lvd, ls, eta, alpha_idx):
         iW = lvd.iWg[alpha_idx.long()]                   # (C, nf, np, np)
         e = eta.transpose(1, 2)
         return ((iW @ e[..., None])[..., 0] * e).sum(dim=2)
-    return nngp_quad_at(lvd, alpha_idx.contiguous(), eta.contiguous())[..., 0]
+    quad_at = gpp_quad_at if ls.spatial == "GPP" else nngp_quad_at
+    return quad_at(lvd, alpha_idx.contiguous(), eta.contiguous())[..., 0]
 
 
 def eta_ones_forms_at(lvd, ls, eta, alpha_idx):
@@ -221,7 +291,8 @@ def eta_ones_forms_at(lvd, ls, eta, alpha_idx):
     if ls.spatial == "Full":
         w = lvd.iWg[alpha_idx.long()].sum(dim=3)         # iW_h @ 1
         return w.sum(dim=2), (w * eta.transpose(1, 2)).sum(dim=2)
-    out = nngp_quad_at(lvd, alpha_idx.contiguous(), eta.contiguous())
+    quad_at = gpp_quad_at if ls.spatial == "GPP" else nngp_quad_at
+    out = quad_at(lvd, alpha_idx.contiguous(), eta.contiguous())
     return out[..., 1], out[..., 2]
 
 

@@ -14,7 +14,7 @@
 name, per-level fields as ``levels.<r>.<field>``), so the tests can start
 both engines from byte-identical inputs.  For an NNGP level they also build
 the reverse-neighbour lists of the Vecchia kernel
-(:func:`reverse_neighbours`).
+(:func:`reverse_neighbours`); a GPP level's knot grids load as they are.
 """
 
 from __future__ import annotations
@@ -114,6 +114,12 @@ class LevelData(_Replace):
     # unit rev_pos[e] // k for e in rev_ptr[j]:rev_ptr[j+1]
     rev_ptr: Any = None          # (np + 1,) int32
     rev_pos: Any = None          # (nnz,) int32
+    # spatial 'GPP'
+    idDg: Any = None             # (G, np)
+    idDW12g: Any = None          # (G, np, nK)
+    Fg: Any = None               # (G, nK, nK)
+    iFg: Any = None              # (G, nK, nK) float64 (see _F64_FIELDS)
+    detDg: Any = None            # (G,)
 
 
 @dataclasses.dataclass
@@ -189,8 +195,6 @@ def check_supported(hM: Hmsc, spec: ModelSpec) -> None:
         (spec.x_is_list, "per-species X lists (ROADMAP A5)"),
         (any(ls.x_dim > 0 for ls in spec.levels),
          "covariate-dependent random levels, x_dim > 0 (ROADMAP A5)"),
-        (any(ls.spatial == "GPP" for ls in spec.levels),
-         "GPP spatial random levels (ROADMAP A6b)"),
         (spec.ncsel > 0, "variable selection (ROADMAP A7)"),
         (spec.nc_rrr > 0, "reduced-rank regression (ROADMAP A7)"),
     )
@@ -283,8 +287,10 @@ def build_model_data(hM: Hmsc, data_par: DataParams, spec: ModelSpec,
             d[pre + "alphapw"] = rL.alphapw
             if ls.spatial == "Full":
                 keys = ("iWg", "detWg")
-            else:
+            elif ls.spatial == "NNGP":
                 keys = ("nn_idx", "nn_coef", "nn_D", "nn_n", "detWg")
+            else:
+                keys = ("idDg", "idDW12g", "Fg", "iFg", "detDg")
             for k in keys:
                 d[pre + k] = getattr(lp, k)
     return data_from_numpy(d, device, dtype)
@@ -344,12 +350,17 @@ _INT_FIELDS = {"pi_row": torch.int64, "distr_family": torch.int32,
                "nn_idx": torch.int32, "nn_n": torch.int32,
                "rev_ptr": torch.int32, "rev_pos": torch.int32}
 _INDEX_FIELDS = {"x_intercept_ind", "tr_intercept_ind", "x_ones_ind"}
+# held in float64 whatever the working type: the GPP grid's F^-1 reaches
+# cond(F) ~ 3e7 at large alpha, where its float32 rounding alone moves the
+# prior quadratic Et' F^-1 Et by up to its own size (csrc/gpp_quad.cu)
+_F64_FIELDS = {"iFg"}
 
 
 def _tensor(name, a, device, dtype):
     # a copy: the port's tensors never alias the caller's arrays
-    return torch.tensor(np.asarray(a), dtype=_INT_FIELDS.get(name, dtype),
-                        device=device)
+    dt = torch.float64 if name in _F64_FIELDS else _INT_FIELDS.get(name,
+                                                                    dtype)
+    return torch.tensor(np.asarray(a), dtype=dt, device=device)
 
 
 def _split_levels(d: dict):

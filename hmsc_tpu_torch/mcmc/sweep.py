@@ -7,7 +7,8 @@ the linear predictor computed at the end of the Eta block and read by
 InvSigma and Z (the interweaving moves leave the product Eta Lambda + X
 Beta invariant, so it is not recomputed).  Updaters can be disabled with
 the ``updater`` toggle dict, as in the JAX package
-(``updater={"Interweave": False}``).
+(``updater={"Interweave": False}``); the probit-DA intercept interweave is
+opt-in (``updater={"InterweaveDA": True}``).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ __all__ = ["make_sweep_schedule", "make_sweep", "sweep_prologue",
            "record_sample"]
 
 # opt-in updaters of the JAX package that this slice does not port
-_NOT_PORTED = {"Gamma2": "A7", "GammaEta": "A7", "InterweaveDA": "A7"}
+_NOT_PORTED = {"Gamma2": "A7", "GammaEta": "A7"}
 
 
 def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
@@ -32,6 +33,7 @@ def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
     draws append their iteration counts to ``cg_log`` when given."""
     updater = updater or {}
     on = lambda name: updater.get(name, True) is not False
+    want = lambda name: updater.get(name, False) is True
     for name, item in _NOT_PORTED.items():
         if updater.get(name) is True:
             raise NotImplementedError(
@@ -130,6 +132,16 @@ def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
             state, E = carry
             return U.update_z(spec, data, state, rng, E, noise), E
         steps.append(("Z", _z))
+
+    # opt-in ASIS flip of the probit augmentation on the intercept row,
+    # after Z so that the ancillary residual comes from the freshest Z; it
+    # changes Beta and Z jointly, and nothing after it reads E_shared
+    if want("InterweaveDA") and on("Z") and on("BetaLambda"):
+        def _interweave_da(data, carry, rng, noise):
+            state, E = carry
+            return U.interweave_da_intercept(spec, data, state, rng,
+                                             noise), E
+        steps.append(("InterweaveDA", _interweave_da))
 
     # factor-count adaptation during burn-in (it <= adapt_nf[r])
     if any(adapt_nf[r] > 0 and on("Nf") for r in range(spec.nr)):

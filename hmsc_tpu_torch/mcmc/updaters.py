@@ -13,7 +13,8 @@ JAX package left them to XLA; the tiny nc x nc / nf x nf Cholesky
 factorisations are ``chol_spd``.  The hot per-cell and per-system work
 goes through the hand-written kernels B1-B3 and B5 (:mod:`..ops`), and
 with missing values in Y the per-species and per-row masked grams through
-B6 (:mod:`..ops.gram`).  The spatial Eta and alpha updates live in
+B6 (:mod:`..ops.gram`); the opt-in probit-DA intercept interweave through
+B7.  The spatial Eta and alpha updates live in
 :mod:`.spatial`; the interweaving moves read its prior quadratics on a
 spatial level.
 """
@@ -26,15 +27,16 @@ import torch
 
 from ..ops.gram import masked_gram
 from ..ops.linalg import chol_spd, sample_mvn_prec, sample_mvn_prec_batched
-from ..ops.rand import (poisson_z, standard_gamma, truncated_normal_onesided,
-                        wishart)
+from ..ops.rand import (da_intercept_draw, poisson_z, standard_gamma,
+                        truncated_normal_onesided, wishart)
 from .structs import GibbsState, LevelState, ModelData, ModelSpec
 
 __all__ = ["lambda_effective", "linear_fixed", "level_loading",
            "total_loading", "eta_star", "update_z", "update_beta_lambda",
            "update_gamma_v", "gamma_given_beta", "update_lambda_priors",
            "update_eta_nonspatial", "interweave_scale", "location_gate",
-           "interweave_location", "update_inv_sigma", "update_nf"]
+           "interweave_location", "da_intercept_gate",
+           "interweave_da_intercept", "update_inv_sigma", "update_nf"]
 
 
 def _noise(noise, key, draw):
@@ -408,6 +410,51 @@ def interweave_location(spec: ModelSpec, data: ModelData, state: GibbsState,
         Beta[:, ii] = Beta[:, ii] + (-(c[:, None, :] @ lam)[:, 0])
         new_levels.append(lv.replace(Eta=lv.Eta + c[:, None, :]))
     return state.replace(levels=tuple(new_levels), Beta=Beta)
+
+
+def da_intercept_gate(spec: ModelSpec, has_intercept: bool) -> str | None:
+    """Why :func:`interweave_da_intercept` cannot run on this model, or
+    ``None`` when eligible (the JAX package's ``da_intercept_gate``)."""
+    if not spec.any_probit:
+        return "no probit column — the move flips the probit augmentation"
+    if not has_intercept:
+        return "the design has no intercept column to shift"
+    if spec.x_is_list:
+        return "per-species design matrices"
+    if spec.ncsel > 0:
+        return ("variable selection's effective-Beta zeroing decouples the "
+                "intercept row from the recorded Beta")
+    if spec.nc_rrr > 0:
+        return "RRR appends state-dependent design columns"
+    if spec.has_phylo:
+        return ("the phylogenetic prior couples intercepts across species; "
+                "the per-species conditional no longer factorises over the "
+                "sign-interval box")
+    return None
+
+
+def interweave_da_intercept(spec: ModelSpec, data: ModelData,
+                            state: GibbsState, rng=None,
+                            noise=None) -> GibbsState:
+    """ASIS flip of the probit data augmentation for the intercept row
+    (the JAX package's ``interweave_da_intercept``): redraw ``Beta[int, j]``
+    with the residual ``R = Z - Beta[int]`` held fixed, from its Gaussian
+    prior conditional truncated to the interval the signs of Y impose on
+    it, then rebuild ``Z = R + Beta[int]`` (kernel B7).  NA cells impose no
+    bound; non-probit columns are untouched.  Structural eligibility lives
+    in :func:`da_intercept_gate`.  ``noise``: ``{"u": (C, ns)}`` uniforms on
+    [1e-38, 1)."""
+    ii = data.x_ones_ind
+    Mu = state.Gamma @ data.Tr.T                         # (C, nc, ns)
+    u_prior = (state.iV[:, ii, None, :] @ (state.Beta - Mu))[:, 0]
+    v00 = state.iV[:, ii, ii].contiguous()
+    t, Z = da_intercept_draw(
+        state.Z, data.Y, data.Ymask if spec.has_na else None,
+        data.distr_family, state.Beta.contiguous(), ii, u_prior, v00, rng,
+        None if noise is None else noise["u"])
+    Beta = state.Beta.clone()
+    Beta[:, ii] = t
+    return state.replace(Z=Z, Beta=Beta)
 
 
 # ---------------------------------------------------------------------------

@@ -30,16 +30,21 @@ _JITTER = 1e-6
 _SMALL_P_MAX = 16
 
 
-def chol_spd(A):
+def chol_spd(A, jitter=_JITTER):
     """Cholesky of symmetric PD matrices (..., n, n) with relative diagonal
-    jitter ``_JITTER * mean(diag)``; NaN where a matrix is not PD."""
-    n = A.shape[-1]
-    scale = torch.diagonal(A, dim1=-2, dim2=-1).mean(dim=-1)
-    eye = torch.eye(n, dtype=A.dtype, device=A.device)
-    L, info = torch.linalg.cholesky_ex(A + (_JITTER * scale)[..., None, None]
-                                       * eye)
-    return torch.where((info > 0)[..., None, None],
-                       torch.full_like(L, float("nan")), L)
+    jitter ``jitter * mean(diag)``; NaN in full where a matrix is not PD.
+    ``jitter=0`` is the plain factorisation, and there a NaN input counts
+    as not PD too (cuSOLVER, unlike LAPACK, reports no failure for it)."""
+    if jitter:
+        scale = torch.diagonal(A, dim1=-2, dim2=-1).mean(dim=-1)
+        eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+        A = A + (jitter * scale)[..., None, None] * eye
+    L, info = torch.linalg.cholesky_ex(A)
+    bad = info > 0
+    if not jitter:
+        bad = bad | torch.isnan(L).flatten(-2).any(-1)
+    return torch.where(bad[..., None, None], torch.full_like(L, float("nan")),
+                       L)
 
 
 def sample_mvn_prec(L, rhs, eps):

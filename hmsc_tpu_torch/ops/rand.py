@@ -7,7 +7,11 @@ Two of them are kernels written by hand for Hopper (``csrc/``):
 - B3 :func:`standard_gamma` — per-element Marsaglia-Tsang rejection
   (``csrc/standard_gamma.cu``);
 - B5 :func:`poisson_z` — the Polya-Gamma Poisson Z draw, one thread per
-  cell (``csrc/poisson_z.cu``).
+  cell (``csrc/poisson_z.cu``);
+- B7 :func:`da_intercept_draw` — the probit-DA intercept interweave's
+  per-species two-sided truncated normal, with its truncation interval
+  reduced over the rows and the ``Z`` shift (``csrc/truncnorm_da.cu``);
+  its plain version runs :func:`truncated_normal`, the JAX op.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and runs the
 plain PyTorch version beside it only for a tensor on the CPU.  The plain
@@ -29,8 +33,9 @@ import torch
 
 from .. import kernels as K
 
-__all__ = ["Rng", "truncated_normal_onesided", "standard_gamma", "wishart",
-           "polya_gamma", "poisson_z"]
+__all__ = ["Rng", "truncated_normal", "truncated_normal_onesided",
+           "standard_gamma", "wishart", "polya_gamma", "poisson_z",
+           "da_intercept_draw"]
 
 _TINY = 1e-38  # smallest safe f32 normal-ish (JAX package rand.py:18)
 # f32 ndtri overflows to -inf below ~1e-33; quantile-space probabilities are
@@ -70,6 +75,47 @@ class Rng:
         """(seed, offset) for one kernel launch's Philox counters."""
         s = torch.randint(0, 2 ** 62, (2,), generator=self.host).tolist()
         return s[0], s[1] & 0xFFFFFFFF
+
+
+# ---------------------------------------------------------------------------
+# two-sided truncated normal (the plain version behind B7)
+# ---------------------------------------------------------------------------
+
+def truncated_normal(lower, upper, mean=0.0, std=1.0, *, _u):
+    """Truncated normal draw on [lower, upper], elementwise over the
+    broadcast shape: the JAX op (``hmsc_tpu/ops/rand.py:25-81``) step by
+    step.  Inverse CDF in the survival parameterisation for right-tail
+    intervals (left ones are reflected into it), so one-sided truncations
+    stay accurate into the tail in float32; the survival probability is
+    clipped to [1e-30, 1 - 2^-24] before the inverse CDF; past 9 sigma the
+    exponential tail (Robert 1995), truncated to the interval, replaces the
+    quantile; the result is clipped to the interval.  ``_u`` are the
+    uniforms (on [1e-38, 1)): the JAX op's injection hook, here the only
+    source (B7's wrapper draws them)."""
+    lower, upper, mean, std = (torch.as_tensor(v) for v in
+                               (lower, upper, mean, std))
+    shape = torch.broadcast_shapes(lower.shape, upper.shape, mean.shape,
+                                   std.shape)
+    a = (lower.expand(shape) - mean) / std
+    b = (upper.expand(shape) - mean) / std
+    u = torch.as_tensor(_u).expand(shape)
+
+    right = (a + torch.clamp(b, -1e30, 1e30)) > 0
+    right = torch.where(torch.isinf(b), a > 0, right)
+    right = torch.where(torch.isinf(a), b > 0, right)
+    a2 = torch.where(right, a, -b)
+    b2 = torch.where(right, b, -a)
+
+    sa, sb = _ndtr(-a2), _ndtr(-b2)                   # P(X > a2) >= P(X > b2)
+    s = sb + u * (sa - sb)
+    x_r = -torch.special.ndtri(torch.clamp(s, _P_FLOOR, _S_CEIL))
+    span = torch.clamp(b2 - a2, min=0.0)
+    lam_r = torch.clamp_min(a2, 1.0)
+    x_far = a2 - torch.log1p(-u * (1.0 - torch.exp(-lam_r * span))) / lam_r
+    x = torch.where(a2 > 9.0, x_far, x_r)
+    x = torch.minimum(torch.maximum(x, a2), b2)       # clipped-quantile edges
+    x = torch.where(right, x, -x)
+    return mean + std * x
 
 
 # ---------------------------------------------------------------------------
@@ -302,6 +348,93 @@ def _poisson_z_plain(Y, Zprev, E, iSigma, fam, eps_pg, eps_z):
     z = mu + torch.sqrt(s2) * eps_z
     z = torch.where(torch.isfinite(z), z, Zprev)      # reference NaN guard
     return torch.where(fam == 3, z, Zprev)
+
+
+# ---------------------------------------------------------------------------
+# B7: the probit-DA intercept draw
+# ---------------------------------------------------------------------------
+
+def da_intercept_draw(Z, Y, Ymask, fam, Beta, ii: int, u_prior, v00,
+                      rng: Rng | None = None, u=None):
+    """The draw of ``interweave_da_intercept`` (JAX package
+    ``updaters.py:906-937``): per chain and probit species, with ``b0 =
+    Beta[ii]`` and the residual ``R = Z - b0`` held fixed, a new intercept
+    ``t`` from the prior conditional ``N(b0 - u_prior / v00, 1 / v00)``
+    truncated to ``(max_{Y=1} -R, min_{Y=0} -R)`` over the observed rows,
+    and ``Z = R + t``; non-probit columns keep ``b0`` and ``Z``.
+
+    ``Z`` (C, ny, ns), ``Y`` (ny, ns), ``Ymask`` (ny, ns) or None when no
+    cell is missing, ``fam`` (ns,) int32, ``Beta`` (C, nc, ns), ``u_prior``
+    (C, ns) = ``iV[ii] (Beta - Mu)``, ``v00`` (C,) = ``iV[ii, ii]``.
+    ``u`` (C, ns) injects the uniforms (the JAX op's ``_u``); otherwise the
+    kernel draws them from Philox keyed by ``rng.philox()``, and the plain
+    version from ``rng.uniform``.  Returns ``(t (C, ns), Z (C, ny, ns))``."""
+    C, ny, ns = Z.shape
+    nc = Beta.shape[1]
+    if (Y.shape != (ny, ns) or fam.shape != (ns,) or Beta.shape != (C, nc, ns)
+            or u_prior.shape != (C, ns) or v00.shape != (C,)
+            or (Ymask is not None and Ymask.shape != (ny, ns))
+            or (u is not None and u.shape != (C, ns))
+            or not 0 <= ii < nc):
+        raise ValueError(f"da_intercept_draw: Z {tuple(Z.shape)}, Y "
+                         f"{tuple(Y.shape)}, fam {tuple(fam.shape)}, Beta "
+                         f"{tuple(Beta.shape)}, ii {ii}")
+    if not Z.is_cuda:
+        if u is None:
+            u = rng.uniform((C, ns), Z.dtype)
+        return _da_intercept_draw_plain(Z, Y, Ymask, fam, Beta, ii, u_prior,
+                                        v00, u)
+    floats = (("Z", Z), ("Y", Y), ("Beta", Beta), ("u_prior", u_prior),
+              ("v00", v00)) + ((("Ymask", Ymask),) if Ymask is not None
+                               else ()) + ((("u", u),) if u is not None
+                                           else ())
+    for name, t in floats:
+        if t.device != Z.device or t.dtype != torch.float32 \
+                or not t.is_contiguous():
+            raise ValueError(f"da_intercept_draw: {name} must be a "
+                             "contiguous float32 tensor on Z's device")
+    if fam.device != Z.device or fam.dtype != torch.int32 \
+            or not fam.is_contiguous():
+        raise ValueError("da_intercept_draw: fam must be a contiguous int32 "
+                         "tensor on Z's device")
+    t_out = Z.new_empty((C, ns))
+    Z_out = torch.empty_like(Z)
+    if Z.numel() == 0:
+        return t_out, Z_out
+    seed, offset = (0, 0) if u is not None else rng.philox()
+    with torch.cuda.device(Z.device):
+        code = K.library().hmsc_truncnorm_da(
+            Z.data_ptr(), Y.data_ptr(),
+            None if Ymask is None else Ymask.data_ptr(), fam.data_ptr(),
+            Beta.data_ptr(), u_prior.data_ptr(), v00.data_ptr(),
+            None if u is None else u.data_ptr(), t_out.data_ptr(),
+            Z_out.data_ptr(), C, ny, ns, nc, ii, seed, offset,
+            K.stream_of(Z))
+    K.check(code, "truncnorm_da")
+    K.launches["truncnorm_da"] += 1
+    return t_out, Z_out
+
+
+def _da_intercept_draw_plain(Z, Y, Ymask, fam, Beta, ii, u_prior, v00, u):
+    """The JAX updater's draw step by step, chains on the leading axis."""
+    prob = fam == 2
+    b0 = Beta[:, ii]                                  # (C, ns)
+    R = Z - b0[:, None, :]
+    negR = -R
+    if Ymask is not None:
+        one = (Y > 0.5) & (Ymask > 0)
+        zero = (Y <= 0.5) & (Ymask > 0)
+    else:
+        one = Y > 0.5
+        zero = ~one
+    inf = torch.tensor(float("inf"), dtype=R.dtype, device=R.device)
+    lo = torch.where(one, negR, -inf).amax(dim=1)     # (C, ns)
+    hi = torch.where(zero, negR, inf).amin(dim=1)
+    v = v00[:, None]
+    t = truncated_normal(lo, hi, mean=b0 - u_prior / v, std=v ** -0.5,
+                         _u=u)
+    t = torch.where(prob, t, b0)
+    return t, torch.where(prob, R + t[:, None, :], Z)
 
 
 def wishart(df, scale_factor, rng: Rng | None = None, noise=None):

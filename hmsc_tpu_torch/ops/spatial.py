@@ -1,5 +1,6 @@
-"""The NNGP (Vecchia) operators of the spatial Eta and alpha updates, with
-the hand-written kernels B8a-B8c behind their wrappers:
+"""The NNGP (Vecchia) and GPP (predictive-process) operators of the spatial
+Eta and alpha updates, with the hand-written kernels B8a-B8d behind their
+wrappers:
 
 - B8a :func:`vecchia_riw`, :func:`vecchia_riw_t`, :func:`vecchia_pmv` —
   ``RiW x``, ``RiW' u`` and the CG sampler's ``P x = RiW'(RiW x) + LiSL x``
@@ -9,15 +10,27 @@ the hand-written kernels B8a-B8c behind their wrappers:
   ones-forms (``csrc/nngp_quad.cu``; ``eta_quad_grid``, ``eta_quad_at``,
   ``eta_ones_forms_at``);
 - B8c :func:`nngp_riw_dense` — the dense factor ``RiW`` below the dense/CG
-  crossover (``csrc/nngp_riw.cu``; ``_nngp_dense_iW``).
+  crossover (``csrc/nngp_riw.cu``; ``_nngp_dense_iW``);
+- B8d-1 :func:`gpp_unit` — the per-unit Woodbury blocks ``iA`` and
+  ``chol(iA)`` of the GPP Eta draw (``csrc/gpp_unit.cu``; ``gpp_factor``);
+- B8d-2 :func:`gpp_knot` — the knot correction ``H = blockdiag(F) - M' iA
+  M``, summed and returned in float64 (``csrc/gpp_knot.cu``;
+  ``gpp_factor``);
+- B8d-3 :func:`gpp_quad_grid`, :func:`gpp_quad_at` — the GPP prior
+  quadratics over the alpha grid, or at each factor's alpha with the
+  ones-forms (``csrc/gpp_quad.cu``; the GPP branches of ``eta_quad_grid``,
+  ``eta_quad_at``, ``eta_ones_forms_at``).
 
-``lvd`` is an NNGP level's ``LevelData``: ``nn_idx`` (np, k), ``nn_coef``
-(G, np, k), ``nn_D`` (G, np), ``nn_n`` and the reverse-neighbour CSR
-(``rev_ptr``, ``rev_pos``).  ``alpha_idx`` (C, nf) picks each
-chain's factor's grid point, and iterates are (C, np, nf).  Each wrapper
-launches its kernel for CUDA tensors (or raises) and runs the plain PyTorch
-version beside it only for tensors on the CPU; every launch is counted in
-:data:`hmsc_tpu_torch.kernels.launches`.
+``lvd`` is a level's ``LevelData``: for NNGP ``nn_idx`` (np, k),
+``nn_coef`` (G, np, k), ``nn_D`` (G, np), ``nn_n`` and the
+reverse-neighbour CSR (``rev_ptr``, ``rev_pos``); for GPP ``idDg`` (G, np),
+``idDW12g`` (G, np, nK), ``Fg`` and ``iFg`` (G, nK, nK; ``iFg`` in
+float64) and ``alphapw`` (G, 2), whose grid points at alpha 0 switch the
+knot algebra off (``W = I``).  ``alpha_idx`` (C, nf) picks each chain's factor's grid point, and
+iterates are (C, np, nf).  The kernels read the grids in place at those
+indices.  Each wrapper launches its kernel for CUDA tensors (or raises) and
+runs the plain PyTorch version beside it only for tensors on the CPU; every
+launch is counted in :data:`hmsc_tpu_torch.kernels.launches`.
 """
 
 from __future__ import annotations
@@ -25,9 +38,15 @@ from __future__ import annotations
 import torch
 
 from .. import kernels as K
+from .linalg import chol_spd
 
 __all__ = ["vecchia_riw", "vecchia_riw_t", "vecchia_pmv", "nngp_quad_grid",
-           "nngp_quad_at", "nngp_riw_dense"]
+           "nngp_quad_at", "nngp_riw_dense", "gpp_unit", "gpp_knot",
+           "gpp_quad_grid", "gpp_quad_at", "gpp_alpha_zero", "gpp_m1_at"]
+
+# the per-unit blocks of B8d-1 are held in registers up to this many factors
+# (csrc/gpp_unit.cu instantiates 1..16)
+_GPP_NF_MAX = 16
 
 
 def _check(name, lvd, alpha_idx, *tensors):
@@ -238,3 +257,206 @@ def _nngp_riw_dense_plain(lvd, alpha_idx):
                     lvd.nn_idx.long()[None, None]), -coef, accumulate=True)
     RiW = RiW + torch.eye(npr, dtype=coef.dtype, device=coef.device)
     return RiW / torch.sqrt(D)[..., None]
+
+
+# ---------------------------------------------------------------------------
+# B8d: the GPP (predictive-process) blocks
+# ---------------------------------------------------------------------------
+
+def _check_gpp(name, lvd, alpha_idx, *tensors):
+    """Device, type and layout checks of a GPP level before a launch."""
+    dev = lvd.idDW12g.device
+    for label, t, dtype in ((("idDg", lvd.idDg, torch.float32),
+                             ("idDW12g", lvd.idDW12g, torch.float32),
+                             ("Fg", lvd.Fg, torch.float32),
+                             ("iFg", lvd.iFg, torch.float64),
+                             ("alphapw", lvd.alphapw, torch.float32))
+                            + ((("alpha_idx", alpha_idx, torch.int32),)
+                               if alpha_idx is not None else ())
+                            + tuple(tensors)):
+        if t.device != dev or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be a contiguous {dtype} "
+                             f"tensor on {dev}")
+
+
+def gpp_alpha_zero(lvd, alpha_idx):
+    """(C, nf) True where a factor's grid point is alpha = 0 (W = I)."""
+    return lvd.alphapw[alpha_idx.long(), 0] == 0
+
+
+def gpp_m1_at(lvd, alpha_idx):
+    """The knot cross terms ``M1 = idD W12`` at each factor's alpha, zero
+    at alpha 0: (C, nf, np, nK)."""
+    M1 = lvd.idDW12g[alpha_idx.long()]
+    return torch.where(gpp_alpha_zero(lvd, alpha_idx)[..., None, None], 0.0,
+                       M1)
+
+
+def gpp_unit(lvd, alpha_idx, LiSL):
+    """The per-unit Woodbury blocks of the GPP Eta draw: with ``A_u =
+    LiSL_u + diag(idD_u)`` (idD at each factor's alpha, 1 at alpha 0),
+    ``iA = A^{-1}`` through ``chol_spd`` and ``LiA = chol(iA)``, each (C,
+    np, nf, nf); NaN for a unit whose block is not positive definite."""
+    C, npr, nf, _ = LiSL.shape
+    if not LiSL.is_cuda:
+        return _gpp_unit_plain(lvd, alpha_idx, LiSL)
+    if nf > _GPP_NF_MAX or alpha_idx.shape != (C, nf):
+        raise ValueError(f"gpp_unit: LiSL {tuple(LiSL.shape)} (nf <= "
+                         f"{_GPP_NF_MAX}), alpha_idx {tuple(alpha_idx.shape)}")
+    _check_gpp("gpp_unit", lvd, alpha_idx, ("LiSL", LiSL, torch.float32))
+    iA, LiA = torch.empty_like(LiSL), torch.empty_like(LiSL)
+    with torch.cuda.device(LiSL.device):
+        code = K.library().hmsc_gpp_unit(
+            LiSL.data_ptr(), lvd.idDg.data_ptr(), lvd.alphapw.data_ptr(),
+            alpha_idx.data_ptr(), iA.data_ptr(), LiA.data_ptr(), C, npr, nf,
+            K.stream_of(LiSL))
+    K.check(code, "gpp_unit")
+    K.launches["gpp_unit"] += 1
+    return iA, LiA
+
+
+def _gpp_unit_plain(lvd, alpha_idx, LiSL):
+    """The JAX ``gpp_factor``'s per-unit part (``spatial.py:164-185``, the
+    default two-triangular-solve path) and ``_eta_gpp``'s alpha-0 override
+    of idD, per chain."""
+    nf = LiSL.shape[-1]
+    idD = lvd.idDg[alpha_idx.long()]                     # (C, nf, np)
+    idD = torch.where(gpp_alpha_zero(lvd, alpha_idx)[..., None], 1.0, idD)
+    A = LiSL + torch.diag_embed(idD.transpose(1, 2))
+    LA = chol_spd(A)
+    eye = torch.eye(nf, dtype=A.dtype, device=A.device).expand_as(A)
+    iA = torch.linalg.solve_triangular(
+        LA.transpose(-1, -2),
+        torch.linalg.solve_triangular(LA, eye, upper=False), upper=True)
+    return iA, chol_spd(iA, jitter=0.0)
+
+
+def gpp_knot(lvd, alpha_idx, iA):
+    """The knot-space correction of the GPP Eta draw, ``H = blockdiag_h(
+    F(alpha_h)) - M' iA M`` with ``M1 = idD W12`` at each factor's alpha
+    (zero at alpha 0): ``H[c, h nK + m, g nK + n] = [h = g] F[m, n] - sum_u
+    M1[h,u,m] iA[u,h,g] M1[g,u,n]``, (C, nf nK, nf nK) in float64: H's
+    condition number reaches ~2e7 at a large alpha, so the sums are taken
+    in double and the knot-space factorisation runs in float64 (see
+    ``csrc/gpp_knot.cu``).  The unit sum runs in a fixed
+    order, so two runs give the same bits."""
+    C, npr, nf, _ = iA.shape
+    nK = lvd.idDW12g.shape[2]
+    if not iA.is_cuda:
+        return _gpp_knot_plain(lvd, alpha_idx, iA)
+    if alpha_idx.shape != (C, nf):
+        raise ValueError(f"gpp_knot: iA {tuple(iA.shape)}, alpha_idx "
+                         f"{tuple(alpha_idx.shape)}")
+    _check_gpp("gpp_knot", lvd, alpha_idx, ("iA", iA, torch.float32))
+    splits = _knot_splits(npr)
+    n = nf * nK
+    partial = iA.new_empty((C, splits, n, n), dtype=torch.float64)
+    H = iA.new_empty((C, n, n), dtype=torch.float64)
+    with torch.cuda.device(iA.device):
+        code = K.library().hmsc_gpp_knot(
+            iA.data_ptr(), lvd.idDW12g.data_ptr(), lvd.Fg.data_ptr(),
+            lvd.alphapw.data_ptr(), alpha_idx.data_ptr(), partial.data_ptr(),
+            H.data_ptr(), C, npr, nf, nK, splits, K.stream_of(iA))
+    K.check(code, "gpp_knot")
+    K.launches["gpp_knot"] += 1
+    return H
+
+
+def _knot_splits(npr):
+    """Unit ranges B8d-2 splits the sum into (blocks of at least 128 units,
+    at most 8 ranges): a function of the shape only, so the order of the
+    final sum never changes from run to run."""
+    return max(1, min(8, npr // 128))
+
+
+def _gpp_knot_plain(lvd, alpha_idx, iA):
+    """The JAX ``gpp_factor``'s ``H`` (``spatial.py:178-183``), per chain,
+    computed in float64 from the given inputs (the kernel's accumulation)."""
+    C, _, nf, _ = iA.shape
+    M1 = gpp_m1_at(lvd, alpha_idx).double()              # (C, nf, np, nK)
+    nK = M1.shape[3]
+    H = -torch.einsum("chum,cuhg,cgun->chmgn", M1, iA.double(), M1)
+    Fm = lvd.Fg[alpha_idx.long()].double()               # (C, nf, nK, nK)
+    for f in range(nf):
+        H[:, f, :, f, :] += Fm[:, f]
+    return H.reshape(C, nf * nK, nf * nK)
+
+
+def gpp_quad_grid(lvd, eta):
+    """``v[c, f, g] = eta_cf' iW_g eta_cf`` over the whole alpha grid for a
+    GPP level: ``sum_u idD_g eta^2 - Et' iF_g Et`` with ``Et = eta' idDW12_g``,
+    or ``eta' eta`` where alpha_g = 0.  (C, nf, G)."""
+    if not eta.is_cuda:
+        return _gpp_quad_grid_plain(lvd, eta)
+    C, npr, nf = eta.shape
+    G, _, nK = lvd.idDW12g.shape
+    _check_gpp("gpp_quad_grid", lvd, None, ("eta", eta, torch.float32))
+    out = eta.new_empty((C, nf, G))
+    scratch = eta.new_empty((G, C * nf, nK), dtype=torch.float64)
+    with torch.cuda.device(eta.device):
+        code = K.library().hmsc_gpp_quad_grid(
+            eta.data_ptr(), lvd.idDg.data_ptr(), lvd.idDW12g.data_ptr(),
+            lvd.iFg.data_ptr(), lvd.alphapw.data_ptr(), scratch.data_ptr(),
+            out.data_ptr(), C, npr, nf, nK, G, K.stream_of(eta))
+    K.check(code, "gpp_quad")
+    K.launches["gpp_quad"] += 1
+    return out
+
+
+def gpp_quad_at(lvd, alpha_idx, eta):
+    """At each factor's alpha: ``(q, q1, s)`` = (``eta' iW eta``, ``1' iW
+    1``, ``1' iW eta``) of a GPP level, stacked on the last axis: (C, nf,
+    3); at alpha 0 (``iW = I``) ``(eta' eta, np, 1' eta)``."""
+    if not eta.is_cuda:
+        return _gpp_quad_at_plain(lvd, alpha_idx, eta)
+    C, npr, nf = eta.shape
+    nK = lvd.idDW12g.shape[2]
+    _check_gpp("gpp_quad_at", lvd, alpha_idx, ("eta", eta, torch.float32))
+    out = eta.new_empty((C, nf, 3))
+    scratch = eta.new_empty((C * nf, 2, nK), dtype=torch.float64)
+    with torch.cuda.device(eta.device):
+        code = K.library().hmsc_gpp_quad_at(
+            eta.data_ptr(), lvd.idDg.data_ptr(), lvd.idDW12g.data_ptr(),
+            lvd.iFg.data_ptr(), lvd.alphapw.data_ptr(), alpha_idx.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), C, npr, nf, nK,
+            K.stream_of(eta))
+    K.check(code, "gpp_quad")
+    K.launches["gpp_quad"] += 1
+    return out
+
+
+def _gpp_quad_grid_plain(lvd, eta):
+    """The GPP branch of the JAX ``eta_quad_grid`` (``spatial.py:426-437``),
+    per chain, computed in float64 from the float32 inputs (the kernel's
+    accumulation; see ``csrc/gpp_quad.cu``) and returned in eta's type."""
+    e, idD, W = eta.double(), lvd.idDg.double(), lvd.idDW12g.double()
+    q_full = (e * e).sum(dim=1)                          # (C, nf)
+    t1 = torch.einsum("gu,cuh->chg", idD, e ** 2)
+    Et = torch.einsum("cuh,gum->chgm", e, W)
+    t2 = torch.einsum("chgm,gmn,chgn->chg", Et, lvd.iFg.double(), Et)
+    zero = lvd.alphapw[:, 0] == 0
+    return torch.where(zero, q_full[..., None], t1 - t2).to(eta.dtype)
+
+
+def _gpp_quad_at_plain(lvd, alpha_idx, eta):
+    """The GPP branches of the JAX ``eta_quad_at`` (``spatial.py:463-478``)
+    and ``eta_ones_forms_at`` (``:519-540``), per chain, in float64 as
+    :func:`_gpp_quad_grid_plain`."""
+    out_dtype, eta = eta.dtype, eta.double()
+    a = alpha_idx.long()
+    idD, W12 = lvd.idDg[a].double(), lvd.idDW12g[a].double()
+    iF = lvd.iFg[a].double()
+    t1 = torch.einsum("chu,cuh->ch", idD, eta ** 2)
+    Et = torch.einsum("cuh,chum->chm", eta, W12)
+    t2 = torch.einsum("chm,chmn,chn->ch", Et, iF, Et)
+    q_full = (eta * eta).sum(dim=1)
+    E1 = W12.sum(dim=2)                                  # 1' idDW12
+    q1 = idD.sum(dim=2) - torch.einsum("chm,chmn,chn->ch", E1, iF, E1)
+    s = (torch.einsum("chu,cuh->ch", idD, eta)
+         - torch.einsum("chm,chmn,chn->ch", E1, iF, Et))
+    zero = gpp_alpha_zero(lvd, alpha_idx)
+    npr = eta.shape[1]
+    return torch.stack([torch.where(zero, q_full, t1 - t2),
+                        torch.where(zero, float(npr), q1),
+                        torch.where(zero, eta.sum(dim=1), s)],
+                       dim=2).to(out_dtype)

@@ -3,9 +3,9 @@
 
 Host-side numpy, copied from ``hmsc_tpu/precompute.py`` for the models this
 slice of the port samples: no phylogeny, and spatial levels of the ``Full``
-(exact GP) and ``NNGP`` (Vecchia) kinds.  The phylogeny eigensystem
-(ROADMAP A5) and the ``GPP`` knot grids (ROADMAP A6b) arrive with the
-slices that sample them.
+(exact GP), ``NNGP`` (Vecchia) and ``GPP`` (knot-based predictive process)
+kinds, with :func:`construct_knots` for the GPP knot grid.  The phylogeny
+eigensystem (ROADMAP A5) arrives with the slice that samples it.
 
 NNGP factors are stored as dense (np, k) neighbour-index / coefficient
 arrays, as in the JAX package.  Beside them the port keeps each unit's
@@ -22,7 +22,7 @@ from scipy.spatial import cKDTree
 from .model import FIXED_SIGMA2, Hmsc
 
 __all__ = ["compute_data_parameters", "compute_initial_parameters",
-           "DataParams", "LevelParams"]
+           "construct_knots", "DataParams", "LevelParams"]
 
 
 class LevelParams:
@@ -44,7 +44,8 @@ class DataParams:
 
 
 def compute_data_parameters(hM: Hmsc) -> DataParams:
-    """Per-level spatial grids (Full and NNGP) of a non-phylogenetic model."""
+    """Per-level spatial grids (Full, NNGP, GPP) of a non-phylogenetic
+    model."""
     if hM.C is not None:
         raise NotImplementedError(
             "phylogeny is not ported yet (ROADMAP A5)")
@@ -72,8 +73,13 @@ def compute_data_parameters(hM: Hmsc) -> DataParams:
             s = rL.coords_for(units)
             par.rL_par.append(_nngp_grids(s, k, alphapw[:, 0]))
         elif method == "GPP":
-            raise NotImplementedError(
-                "GPP spatial random levels are not ported yet (ROADMAP A6b)")
+            if rL.dist_mat is not None:
+                raise ValueError("computeDataParameters: predictive gaussian process not available for distance matrices")
+            s = rL.coords_for(units)
+            knots = rL.s_knot
+            if knots is None:
+                raise ValueError("computeDataParameters: GPP requires knot locations (sKnot)")
+            par.rL_par.append(_gpp_grids(s, np.asarray(knots, float), alphapw[:, 0]))
         else:  # pragma: no cover
             raise ValueError(f"unknown spatial method {method}")
     return par
@@ -151,9 +157,80 @@ def _nngp_grids(s: np.ndarray, k: int, alphas: np.ndarray) -> LevelParams:
                        nn_D=D, detWg=detWg, s=s)
 
 
-# conditional-variance floor for the NNGP grids (JAX package
+# conditional-variance floor for the GPP and NNGP grids (JAX package
 # precompute.py:178-185): 1e-3 of the unit marginal variance
 _GP_DD_FLOOR = 1e-3
+
+
+def _gpp_grids(s: np.ndarray, knots: np.ndarray, alphas: np.ndarray) -> LevelParams:
+    """Knot-based predictive-process grids (reference
+    computeDataParameters.R:138-194): per alpha the diagonal residual
+    correction idD, idD*W12, F = W22 + W12' idD W12, its inverse, and
+    log det of the implied covariance."""
+    n, nK = s.shape[0], knots.shape[0]
+    d12 = np.sqrt(((s[:, None, :] - knots[None, :, :]) ** 2).sum(-1))
+    dd = knots[:, None, :] - knots[None, :, :]
+    d22 = np.sqrt((dd**2).sum(-1))
+    G = len(alphas)
+    idDg = np.empty((G, n))
+    idDW12g = np.empty((G, n, nK))
+    Fg = np.empty((G, nK, nK))
+    iFg = np.empty((G, nK, nK))
+    detDg = np.empty(G)
+    for g, a in enumerate(alphas):
+        if a == 0:
+            W22 = np.eye(nK)
+            W12 = np.zeros((n, nK))
+        else:
+            W22 = np.exp(-d22 / a)
+            W12 = np.exp(-d12 / a)
+        iW22 = np.linalg.inv(W22 + 1e-10 * np.eye(nK))
+        dD = 1.0 - np.einsum("ik,kl,il->i", W12, iW22, W12)
+        # nugget floor: a unit at (or within float distance of) a knot has
+        # conditional variance dD -> 0, and idD = 1/dD would make the f32
+        # double-Woodbury Eta solve cancel catastrophically
+        dD = np.maximum(dD, _GP_DD_FLOOR)
+        idD = 1.0 / dD
+        idDW12 = idD[:, None] * W12
+        F = W22 + W12.T @ idDW12
+        iF = np.linalg.inv(F)
+        # log det of W_gpp = W12 iW22 W12' + diag(dD)
+        liW22 = np.linalg.cholesky(iW22)
+        t2 = W12 @ liW22
+        DS = t2.T @ (idD[:, None] * t2) + np.eye(nK)
+        LDS = np.linalg.cholesky(DS)
+        detDg[g] = np.sum(np.log(dD)) + 2.0 * np.sum(np.log(np.diag(LDS)))
+        idDg[g] = idD
+        idDW12g[g] = idDW12
+        Fg[g] = F
+        iFg[g] = iF
+    return LevelParams(kind="GPP", idDg=idDg, idDW12g=idDW12g, Fg=Fg, iFg=iFg,
+                       detDg=detDg, s=s, knots=knots)
+
+
+def construct_knots(s_data, n_knots: int | None = None, knot_dist: float | None = None,
+                    min_knot_dist: float | None = None) -> np.ndarray:
+    """Regular knot grid over the data's bounding box for GPP, dropping knots
+    farther than ``min_knot_dist`` from any datum (reference
+    ``R/constructKnots.R:26-49``)."""
+    s = np.asarray(s_data, dtype=float)
+    if s.ndim == 1:
+        s = s[:, None]
+    lo, hi = s.min(axis=0), s.max(axis=0)
+    if knot_dist is not None:
+        axes = [np.arange(l, h + knot_dist, knot_dist) for l, h in zip(lo, hi)]
+    else:
+        n_knots = n_knots or 10
+        axes = [np.linspace(l, h, n_knots) for l, h in zip(lo, hi)]
+    mesh = np.meshgrid(*axes, indexing="ij")
+    knots = np.column_stack([m.ravel() for m in mesh])
+    if min_knot_dist is None and knot_dist is not None:
+        min_knot_dist = knot_dist
+    if min_knot_dist is not None:
+        tree = cKDTree(s)
+        dist, _ = tree.query(knots, k=1)
+        knots = knots[dist <= min_knot_dist]
+    return knots
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Recovery of the JAX package on BASELINE.md config 3, on the CPU.
 
-    JAX_PLATFORMS=cpu python3 scripts/config3_jax_recovery.py [seed ...]
+    JAX_PLATFORMS=cpu python3 scripts/config3_jax_recovery.py \
+        [--path NAME ...] [seed ...]
 
-Fits the three spatial paths that ``chip_smoke.py`` drives through the
-port (config 3a: Full, np 200; config 3b: NNGP with 10 neighbours, np 1000;
-the 3b generator at np 100) with ``hmsc_tpu.sample_mcmc`` at the same
-settings (4 chains, the same sweeps and seed 1 unless seeds are given), on
-the data ``chip_smoke.py`` draws, and prints for each the correlation of
-the posterior-mean slopes with the simulated ones and each factor's
-posterior-mean GP range alpha: the reference that ``chip_smoke.py`` holds
-the port's runs against (``CONFIG3_JAX_ALPHA``).
+Fits the spatial paths that ``chip_smoke.py`` drives through the port
+(config 3a: Full, np 200; config 3b: NNGP with 10 neighbours, np 1000; the
+3b generator at np 100; config 3c: GPP with 100 knots, np 1000, spatially
+correlated factors), or the ones named with ``--path``, with
+``hmsc_tpu.sample_mcmc`` at the same settings (4 chains, the same sweeps
+and seed 1 unless seeds are given), on the data ``chip_smoke.py`` draws,
+and prints for each the correlation of the posterior-mean slopes with the
+simulated ones and each factor's posterior-mean GP range alpha: the
+reference that ``chip_smoke.py`` holds the port's runs against
+(``CONFIG3_JAX_ALPHA``).
 """
 
 import json
@@ -26,8 +29,15 @@ from chip_smoke import (CONFIG3, CONFIG3_NF, CONFIG3_SEED,  # noqa: E402
 
 
 def main() -> int:
-    seeds = [int(a) for a in sys.argv[1:]] or [CONFIG3_SEED]
+    args, paths = sys.argv[1:], []
+    while "--path" in args:
+        i = args.index("--path")
+        paths.append(args[i + 1])
+        del args[i:i + 2]
+    seeds = [int(a) for a in args] or [CONFIG3_SEED]
     for name, c in CONFIG3.items():
+        if paths and name not in paths:
+            continue
         hM = config3_model(hmsc_tpu, name)
         for seed in seeds:
             post = hmsc_tpu.sample_mcmc(hM, samples=c["samples"],

@@ -191,12 +191,15 @@ def _model_with(case):
         hkw["Y"] = Y
     elif case == "phylo":
         hkw["C"] = np.eye(Y.shape[1])
-    elif case == "spatial":
-        # Full and NNGP levels are in the port; GPP (ROADMAP A6b) is not
+    elif case in ("spatial", "gpp"):
+        # a GPP level (in the port); "spatial" adds a phylogeny, which is
+        # not (ROADMAP A5)
         g = np.random.default_rng(0)
         xy = pd.DataFrame(g.uniform(size=(len(units), 2)), index=units)
         hkw["ran_levels"] = {"unit": hmsc_tpu_torch.HmscRandomLevel(
             s_data=xy, s_method="GPP", s_knot=g.uniform(size=(4, 2)))}
+        if case == "spatial":
+            hkw["C"] = np.eye(Y.shape[1])
     elif case == "x_dim":
         xd = pd.DataFrame(np.ones((len(units), 2)), index=units)
         hkw["ran_levels"] = {"unit": hmsc_tpu_torch.HmscRandomLevel(
@@ -208,26 +211,29 @@ def _model_with(case):
 
 @pytest.mark.parametrize("case", ["phylo", "spatial", "x_dim", "x_list"])
 def test_features_outside_the_slice_raise(case):
+    """Each feature of a later slice is refused by name; a GPP model is in
+    the slice, so with a phylogeny it is the phylogeny that is named."""
     hM = _model_with(case)
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    match = "phylogeny" if case == "spatial" else "ROADMAP A"
+    with pytest.raises(NotImplementedError, match=match):
         hmsc_tpu_torch.sample_mcmc(hM, samples=1, device="cpu")
 
 
 @pytest.mark.parametrize("arg", [{"precision_policy": "auto"},
                                  {"mesh": object()},
                                  {"checkpoint_every": 5},
-                                 {"updater": {"InterweaveDA": True}}])
+                                 {"updater": {"Gamma2": True}}])
 def test_options_outside_the_slice_raise(arg):
     _, hM = make_models("probit")
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         hmsc_tpu_torch.sample_mcmc(hM, samples=1, device="cpu", **arg)
 
 
-@pytest.mark.parametrize("case", ["poisson", "na"])
+@pytest.mark.parametrize("case", ["poisson", "na", "gpp"])
 def test_poisson_and_na_models_sample(case):
-    """Poisson responses and missing values in Y are in the slice: the
-    sampler runs them on the CPU when asked, and without a card it refuses
-    to run them anywhere else."""
+    """Poisson responses, missing values in Y and GPP levels are in the
+    slice: the sampler runs them on the CPU when asked, and without a card
+    it refuses to run them anywhere else."""
     hM = _model_with(case)
     post = hmsc_tpu_torch.sample_mcmc(hM, samples=2, transient=1,
                                       n_chains=1, seed=0, device="cpu")

@@ -503,16 +503,22 @@ def test_nngp_cg_sampler_reports_iterations(cg_path):
 
 
 def test_gpp_still_raises():
-    """GPP levels are the next slice: the sampler and the grids refuse
-    them, naming the ROADMAP item."""
+    """GPP levels are in the port (tests/test_torch_gpp.py): the grids
+    build and the sampler runs them; what still raises on a GPP model is a
+    feature of a later slice, here a phylogeny, refused by name."""
     mj = small_model(ny=20, ns=4, n_units=10, spatial="GPP", nf=2, seed=3)
     rl = mj.ranLevels[0]
     names = sorted(rl._s_index, key=rl._s_index.get)
     rt = ht.HmscRandomLevel(s_data=pd.DataFrame(rl.s, index=names),
                             s_method="GPP", s_knot=rl.s_knot)
-    mt = ht.Hmsc(Y=mj.Y, X=mj.X, distr="normal",
-                 study_design=mj.study_design, ran_levels={"lvl": rt})
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
-        ht.sample_mcmc(mt, samples=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
-        t_cdp(mt)
+    kw = dict(Y=mj.Y, X=mj.X, distr="normal", study_design=mj.study_design,
+              ran_levels={"lvl": rt})
+    mt = ht.Hmsc(**kw)
+    assert t_cdp(mt).rL_par[0].kind == "GPP"
+    post = ht.sample_mcmc(mt, samples=2, transient=1, n_chains=2, seed=1,
+                          device="cpu")
+    assert post.chain_health["good_chains"].all()
+    assert np.isfinite(post["Eta_0"]).all()
+    with pytest.raises(NotImplementedError, match="phylogeny"):
+        ht.sample_mcmc(ht.Hmsc(C=np.eye(mj.ns), **kw), samples=1,
+                       device="cpu")

@@ -101,7 +101,10 @@ def gamma_v_noise(spec, key):
     kv, kg = jax.random.split(key)
     kn, kc = jax.random.split(kv)
     p = spec.nc
-    dfs = (spec.f0 + spec.ns - jnp.arange(p, dtype=jnp.float32)) / 2.0
+    # the default float type: float64 under jax.enable_x64, as the JAX
+    # wishart draws there
+    dfs = (spec.f0 + spec.ns - jnp.arange(p, dtype=jnp.zeros(()).dtype)) \
+        / 2.0
     return {"wishart": {"normal": jax.random.normal(kn, (p, p)),
                         "gamma": jgamma(kc, dfs)},
             "gamma": {"eps": jax.random.normal(kg, (spec.nc * spec.nt,))}}
