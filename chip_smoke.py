@@ -9,7 +9,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every hand-written kernel from ``hmsc_tpu_torch/csrc`` with nvcc (one
    nvcc per source, all started together).
 2. Each kernel against its plain PyTorch version on the card, at the shapes
-   the main paths give it (tolerances stated at each check); and the GPP
+   the main paths give it (tolerances stated at each check; the serving
+   kernels at the headline posterior's shapes); and the GPP
    Eta draw, in float32 with its knot space in float64, against its
    float64 run from the same inputs at config 3c's shapes.
 3. Times: each kernel's device time per launch (torch.profiler, after
@@ -44,7 +45,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    g. the 3b generator at np 100 (np nf = 200, below the dense/CG
       crossover), 50 + 100 sweeps: the dense NNGP Eta draw (B8b, B8c);
    h. config 3c: the shape of 3b with a GPP level on 100 knots and
-      spatially correlated latent factors, 125 + 250 sweeps (B8d-1..3).
+      spatially correlated latent factors, 125 + 250 sweeps (B8d-1..3);
+   i. serving the headline's posterior (800 draws) through
+      ``ServingEngine`` + ``warmup`` (B9a-c): the 1000 training rows served
+      and offline ``predict`` against a float64 recomputation, sampled
+      means against expected ones, quantiles against torch.quantile, a
+      conditional query that must beat the marginal Brier score on
+      held-out species, 64 concurrent queries coalesced, random query
+      sizes and an epoch flip with no plan built, one HTTP query; every
+      sampler kernel 0 launches; latencies printed.
    The spatial paths must also recover the posterior mean of the GP range
    (alpha) within a stated margin of the JAX package's own value; and the
    alpha sampler, given an Eta drawn at an interior range on the 3a, 3b and
@@ -1536,6 +1545,396 @@ def check_b7(torch, trand, dev, card):
                 plain_event_ms=plain_ev, held_ms=held, shape=[C, ny, ns])
 
 
+# ---------------------------------------------------------------------------
+# the serving kernels B9a-c, at the headline posterior's shapes
+# ---------------------------------------------------------------------------
+
+# the headline's posterior as the serving engine stages it: 4 chains x 200
+# samples, nc 2, nf_max 8, 1000 units (+ the mean-field zero row), 1000
+# species; query blocks of 1 and 64 rows (the largest bucket)
+SERVE = dict(n=800, nc=2, nf=8, ns=1000, units=1000)
+SERVE_Q = (0.05, 0.5, 0.95)
+
+
+def serve_inputs(torch, dev, B, seed, dtype=None, fam=None, sig=None):
+    """A synthetic posterior at the headline's shapes and a query block:
+    (X, uidx, Beta, sigma, [Lambda], [Eta], fam, ym, ys)."""
+    s = SERVE
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f32 = dict(device=dev, dtype=torch.float32)
+    n, nc, nf, ns = s["n"], s["nc"], s["nf"], s["ns"]
+    Beta = 0.7 * torch.randn((n, nc, ns), generator=g, **f32)
+    sigma = torch.ones((n, ns), **f32) if sig is None else sig
+    lam = 0.4 * torch.randn((n, nf, ns), generator=g, **f32)
+    eta = torch.randn((n, s["units"] + 1, nf), generator=g, **f32)
+    eta[:, -1] = 0.0
+    X = torch.cat([torch.ones((B, 1), **f32),
+                   torch.randn((B, nc - 1), generator=g, **f32)], dim=1)
+    uidx = torch.randint(0, s["units"] + 1, (1, B), generator=g, device=dev,
+                         dtype=torch.int32)
+    if fam is None:
+        fam = torch.full((ns,), 2, device=dev, dtype=torch.int32)
+    ym = torch.zeros((ns,), **f32)
+    ys = torch.ones((ns,), **f32)
+    if dtype is not None:
+        Beta, sigma, lam, eta = (t.to(dtype) for t in (Beta, sigma, lam,
+                                                       eta))
+    return X, uidx, Beta, sigma, [lam], [eta], fam, ym, ys
+
+
+def binomial_inside(sampled, expected, n, tail=1e-9):
+    """Whether every sampled 0 / 1 mean over ``n`` draws, as a count,
+    lies within the ``tail`` quantiles of Binomial(n, expected mean)."""
+    from scipy import stats
+
+    p = np.clip(np.asarray(expected, np.float64), 0.0, 1.0)
+    count = np.rint(np.asarray(sampled, np.float64) * n)
+    return bool(np.all((count >= stats.binom.ppf(tail, n, p))
+                       & (count <= stats.binom.isf(tail, n, p))))
+
+
+def _plain_moments(torch, tserve, args, expected, gen=None):
+    y = tserve._serve_predict_plain(*args, expected, gen)
+    return y.mean(dim=0), y.std(dim=0, correction=0), y
+
+
+def _kernel_ms(torch, fn, names):
+    """Device time of a wrapper that launches several kernels: the sum of
+    each kernel's time per launch."""
+    return sum(device_ms(torch, fn, name) for name in names)
+
+
+def b9a_bound(n, B, ns, nc, nf, nbytes_draw=4):
+    """Bytes: the draws of Beta, sigma and Lambda, the Eta rows the block
+    gathers, X and uidx read once, mean and sd written once; operations:
+    the linear predictor's 2 (nc + nf) B ns n multiply-adds."""
+    nbytes = (nbytes_draw * n * (nc * ns + ns + nf * ns + B * nf)
+              + 4 * (B * nc + B) + 4 * 2 * B * ns)
+    return bound_ms(nbytes, 2.0 * (nc + nf) * B * ns * n)
+
+
+def check_b9a(torch, tserve, dev, card):
+    """B9a against its plain version: expected moments and draws at B 1 and
+    64, float32 and bfloat16 draws, to 1e-5; a normal / probit / Poisson
+    mix to 1e-5 of max(1, |plain|); two runs bit-identical; sampled probit
+    means within the 1e-9 binomial tails of the expected ones; sampled
+    normal draws
+    by KS against their law and Poisson draws by KS against the plain
+    sampler's (rates 0.5, 5, 50, 5000)."""
+    from scipy import stats
+
+    worst = 0.0
+    for B in (1, 64):
+        for dt in (torch.float32, torch.bfloat16):
+            args = serve_inputs(torch, dev, B, seed=20 + B, dtype=dt)
+            mk, sk, yk = tserve.serve_predict(*args, expected=True,
+                                              draws=True)
+            mp, sp, yp = _plain_moments(torch, tserve, args, True)
+            err = max((mk - mp).abs().max().item(),
+                      (sk - sp).abs().max().item(),
+                      (yk - yp).abs().max().item())
+            assert err <= 1e-5, f"B9a expected B {B} {dt}: {err} > 1e-5"
+            worst = max(worst, err)
+            print(f"B9a check: expected, B {B}, {dt}: max |kernel - plain| "
+                  f"over mean, sd and draws = {err:.3g} (tolerance 1e-5)")
+    ns = SERVE["ns"]
+    fam = torch.tensor([1, 2, 3], device=dev, dtype=torch.int32).repeat(
+        ns // 3 + 1)[:ns].contiguous()
+    g = torch.Generator(device=dev).manual_seed(7)
+    sig = 0.1 + 0.9 * torch.rand((SERVE["n"], ns), generator=g, device=dev)
+    args = serve_inputs(torch, dev, 64, seed=31, fam=fam, sig=sig)
+    mk, sk, _ = tserve.serve_predict(*args, expected=True)
+    mp, sp, _ = _plain_moments(torch, tserve, args, True)
+    err = max(((mk - mp).abs() / mp.abs().clamp_min(1.0)).max().item(),
+              ((sk - sp).abs() / sp.abs().clamp_min(1.0)).max().item())
+    assert err <= 1e-5, f"B9a family mix: {err} > 1e-5"
+    print(f"B9a check: normal / probit / Poisson columns, expected: max "
+          f"|kernel - plain| / max(1, |plain|) = {err:.3g} (tolerance 1e-5)")
+    args = serve_inputs(torch, dev, 64, seed=84)
+    m1, s1, _ = tserve.serve_predict(*args, expected=True)
+    m2, s2, _ = tserve.serve_predict(*args, expected=True)
+    assert torch.equal(m1, m2) and torch.equal(s1, s2), \
+        "B9a: two runs differ"
+    ms_, _, _ = tserve.serve_predict(*args, expected=False, seed=5,
+                                     offset=9)
+    assert binomial_inside(ms_.cpu().numpy(), m1.cpu().numpy(),
+                           SERVE["n"]), "B9a sampled probit: a mean beyond " \
+        "the binomial 1e-9 tails"
+    print("B9a check: two runs bit-identical; sampled probit means within "
+          "the 1e-9 tails of Binomial(n, expected mean)")
+    # sampled draws at a constant linear predictor per column (Lambda 0,
+    # X = [1, 0]): Poisson columns at rates 0.5, 5, 50, 5000 (sigma 1e-8),
+    # normal columns N(0.3, 2.0)
+    rates = (0.5, 5.0, 50.0, 5000.0)
+    X, uidx, Beta, sigma, lams, etas, _, ym, ys = serve_inputs(
+        torch, dev, 64, seed=3)
+    fam = torch.tensor([3, 3, 3, 3, 1, 1], device=dev, dtype=torch.int32)
+    mu = torch.tensor([math.log(r) for r in rates] + [0.3, 0.3], device=dev)
+    k = fam.numel()
+    Beta = torch.zeros_like(Beta[:, :, :k])
+    Beta[:, 0, :] = mu
+    sigma = torch.full_like(sigma[:, :k], 1e-8)
+    sigma[:, 4:] = 2.0
+    X = X.clone()
+    X[:, 1] = 0.0
+    lams = [torch.zeros_like(lams[0][:, :, :k])]
+    args = (X, uidx, Beta, sigma, lams, etas, fam, ym[:k].contiguous(),
+            ys[:k].contiguous())
+    _, _, yk = tserve.serve_predict(*args, expected=False, moments=False,
+                                    draws=True, seed=11, offset=2)
+    gen = torch.Generator().manual_seed(11)
+    yp = tserve._serve_predict_plain(*[a.cpu() if torch.is_tensor(a) else
+                                       [t.cpu() for t in a] for a in args],
+                                     False, gen)
+    yk = yk.reshape(-1, k).cpu().double().numpy()
+    yp = yp.reshape(-1, k).double().numpy()
+    for c, r in enumerate(rates):
+        p = stats.ks_2samp(yk[:, c], yp[:, c]).pvalue
+        se_r = math.sqrt(r / yk.shape[0])
+        assert p > 1e-4 and abs(yk[:, c].mean() - r) < 6 * se_r, \
+            f"B9a Poisson rate {r}: KS p {p}, mean {yk[:, c].mean()}"
+        print(f"B9a check: sampled Poisson at rate {r}: KS p = {p:.3g} "
+              f"against the plain sampler, mean {yk[:, c].mean():.4f}")
+    for c in (4, 5):
+        p = stats.kstest(yk[:, c], stats.norm(0.3, math.sqrt(2.0)).cdf
+                         ).pvalue
+        assert p > 1e-4, f"B9a sampled normal: KS p {p}"
+        print(f"B9a check: sampled normal column {c}: KS p = {p:.3g} "
+              "against N(0.3, 2)")
+
+    times = {}
+    for B in (64, 1):
+        args = serve_inputs(torch, dev, B, seed=40 + B)
+        for expected in (True, False):
+            def kern():
+                tserve.serve_predict(*args, expected=expected)
+
+            def kern_draws():
+                tserve.serve_predict(*args, expected=expected,
+                                     moments=False, draws=True)
+            mom = _kernel_ms(torch, kern, ("serve_predict_kernel",
+                                           "combine_moments_kernel"))
+            drw = device_ms(torch, kern_draws, "serve_predict_kernel")
+            times[(B, expected)] = (mom, drw)
+            print(f"B9a serve_predict device time, B {B}, "
+                  f"{'expected' if expected else 'sampled'}: moments "
+                  f"{mom:.4f} ms, draws mode {drw:.4f} ms [{card}]")
+    args = serve_inputs(torch, dev, 64, seed=104)
+    X, uidx, Beta, sigma, lams, etas = args[:6]
+
+    def kern():
+        tserve.serve_predict(*args, expected=True)
+
+    def plain():
+        y = tserve._serve_predict_plain(*args, True, None)
+        y.mean(dim=0), y.std(dim=0, correction=0)
+
+    rows = etas[0][:, uidx[0].long(), :]
+
+    def library():
+        torch.einsum("yc,ncj->nyj", X, Beta) + torch.einsum(
+            "nyf,nfj->nyj", rows, lams[0])
+
+    ms = times[(64, True)][0]
+    plain_ms = device_ms(torch, plain, calls=10)
+    lib_ms = device_ms(torch, library, calls=10)
+    ev, plain_ev = event_ms(torch, kern), event_ms(torch, plain, batch=5)
+    held = held_event_ms(torch, kern)
+    b, by = b9a_bound(SERVE["n"], 64, SERVE["ns"], SERVE["nc"], SERVE["nf"])
+    b1, by1 = b9a_bound(SERVE["n"], 1, SERVE["ns"], SERVE["nc"],
+                        SERVE["nf"])
+    print(f"B9a serve_predict device time: {ms:.4f} ms (plain {plain_ms:.4f} "
+          f"ms, the einsum pair forming L {lib_ms:.4f} ms, bound {b:.4f} ms "
+          f"by {by}; B 1: {times[(1, True)][0]:.4f} ms, bound {b1:.5f} ms by "
+          f"{by1}; held stream {held:.5f} ms, with enqueue {ev:.4f} ms, "
+          f"plain {plain_ev:.4f} ms) at B 64, {SERVE['n']} draws x "
+          f"{SERVE['ns']} species, expected moments [{card}]")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=lib_ms, event_ms=ev,
+                plain_event_ms=plain_ev, held_ms=held,
+                ms_b1=times[(1, True)][0], bound_ms_b1=b1,
+                ms_sampled=times[(64, False)][0],
+                ms_draws=times[(64, True)][1],
+                ms_b1_sampled_draws=times[(1, False)][1],
+                shape=[SERVE["n"], 64, SERVE["ns"]])
+
+
+def check_b9c(torch, tserve, dev, card):
+    """B9c against its plain version (exact) and torch.quantile (1e-6) on
+    B9a's expected draws at B 64; a planted NaN column gives NaN; 37 and
+    1025 draws of a wider law exact against the plain version."""
+    q = torch.tensor(SERVE_Q, device=dev)
+    args = serve_inputs(torch, dev, 64, seed=52)
+    _, _, y = tserve.serve_predict(*args, expected=True, moments=False,
+                                   draws=True)
+    qk = tserve.draw_quantiles(y, q)
+    qp = tserve._draw_quantiles_plain(y, q)
+    ql = torch.quantile(y, q, dim=0)
+    assert torch.equal(qk, qp), "B9c: kernel != plain"
+    err = (qk - ql).abs().max().item()
+    assert err <= 1e-6, f"B9c vs torch.quantile: {err} > 1e-6"
+    g = torch.Generator(device=dev).manual_seed(5)
+    for n in (37, 1025):
+        w = 30.0 * torch.randn((n, 3, 50), generator=g, device=dev)
+        w[:, 1, 7] = float("nan")
+        a = tserve.draw_quantiles(w, q)
+        b = tserve._draw_quantiles_plain(w, q)
+        assert torch.isnan(a[:, 1, 7]).all(), "B9c: a NaN column"
+        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)), \
+            f"B9c at {n} draws: kernel != plain"
+    print(f"B9c check: {tuple(y.shape)} draws, q {SERVE_Q}: kernel == plain "
+          f"exactly, max |kernel - torch.quantile| = {err:.3g} (tolerance "
+          "1e-6); 37 and 1025 draws with a NaN column exact")
+
+    def kern():
+        tserve.draw_quantiles(y, q)
+
+    def plain():
+        tserve._draw_quantiles_plain(y, q)
+
+    def library():
+        torch.quantile(y, q, dim=0)
+
+    ms = device_ms(torch, kern, "serve_quantile_kernel")
+    plain_ms = device_ms(torch, plain, calls=5)
+    lib_ms = device_ms(torch, library, calls=5)
+    ev, plain_ev = event_ms(torch, kern), event_ms(torch, plain, batch=3)
+    held = held_event_ms(torch, kern)
+    n, cols = y.shape[0], y[0].numel()
+    # bytes: the draws read once, the quantiles written once; operations:
+    # n log2 n comparisons a column (a comparison sort's least)
+    b, by = bound_ms(4.0 * (n * cols + q.numel() * cols),
+                     n * math.log2(n) * cols)
+    print(f"B9c serve_quantile device time: {ms:.4f} ms (plain {plain_ms:.4f} "
+          f"ms, torch.quantile {lib_ms:.4f} ms, bound {b:.4f} ms by {by}; "
+          f"held stream {held:.5f} ms, with enqueue {ev:.4f} ms, plain "
+          f"{plain_ev:.4f} ms) at {n} x 64 x {SERVE['ns']}, {q.numel()} "
+          f"quantiles [{card}]")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=lib_ms, event_ms=ev,
+                plain_event_ms=plain_ev, held_ms=held,
+                shape=[n, 64, SERVE["ns"], q.numel()])
+
+
+def b9b_ops(n, B, ns, observed, nc, nf, steps):
+    """B9b's operations, multiply-adds as 2, over the species each pass
+    needs: per (draw, row) LFix and the link's E over all ``ns`` species
+    (2 nc + 2 nf a species); over the ``observed`` cells of all B rows
+    (unobserved ones weigh 0 in the gram and F, and only F reads Z) the
+    gram (3 a cell and entry of its lower triangle), E at the initial Z
+    and after each step (2 nf a cell each), and per step F (2 nf + 3 a
+    cell)."""
+    per_species = 2 * nc + 2 * nf
+    per_observed = (3 * nf * (nf + 1) / 2 + (steps + 1) * 2 * nf
+                    + steps * (2 * nf + 3))
+    return n * (B * ns * per_species + observed * per_observed)
+
+
+def conditional_query(torch, dev, args, seed, observed=500):
+    """Yc and mask for a query block: species < ``observed`` observed with
+    Bernoulli(0.5) 0 / 1 values, drawn independently of the posterior; the
+    rest unobserved."""
+    X, uidx = args[0], args[1]
+    B, ns = X.shape[0], SERVE["ns"]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Yc = (torch.rand((B, ns), generator=g, device=dev) < 0.5).float()
+    mask = torch.zeros((B, ns), device=dev)
+    mask[:, :observed] = 1.0
+    return Yc * mask, mask
+
+
+def check_b9b(torch, tserve, dev, card, steps=3):
+    """B9b against its plain version with every draw injected, at B 64 and
+    mcmc_step 3 (expected and sampled), and at B 1, bfloat16 draws:
+    expected mean and sd to 1e-5, sampled means within two flipped 0 / 1
+    draws on at most 0.1% of the cells; two Philox runs bit-identical."""
+    worst = 0.0
+    n, ns, nf = SERVE["n"], SERVE["ns"], SERVE["nf"]
+    for B, dt, expected in ((64, torch.float32, True),
+                            (64, torch.float32, False),
+                            (1, torch.bfloat16, True)):
+        args = serve_inputs(torch, dev, B, seed=60 + B, dtype=dt)
+        Yc, mask = conditional_query(torch, dev, args, seed=61)
+        g = torch.Generator(device=dev).manual_seed(62)
+        noise = {"eps_z": torch.randn((n, steps + 1, B, ns), generator=g,
+                                      device=dev),
+                 "u_z": torch.rand((n, steps + 1, B, ns), generator=g,
+                                   device=dev).clamp_min_(1e-38),
+                 "eps_rows": torch.randn((n, steps, B, nf), generator=g,
+                                         device=dev)}
+        if not expected:
+            noise["eps_out"] = torch.randn((n, B, ns), generator=g,
+                                           device=dev)
+        X, uidx = args[:2]
+        rest = args[2:]
+        mk, sk = tserve.serve_conditional(X, uidx, Yc, mask, *rest,
+                                          mcmc_step=steps, expected=expected,
+                                          noise=noise)
+        mp, sp = tserve._serve_conditional_plain(X, uidx, Yc, mask, *rest,
+                                                 steps, expected, noise, None)
+        err = max((mk - mp).abs().max().item(), (sk - sp).abs().max().item())
+        if expected:
+            assert err <= 1e-5, f"B9b B {B} {dt}: {err} > 1e-5"
+            worst = max(worst, err)
+            tol = "tolerance 1e-5"
+        else:
+            # a sampled probit response is Z > 0: where float rounding moves
+            # a Z across 0 one draw flips, moving the mean by 1 / n
+            dm = (mk - mp).abs()
+            share = (dm > 1e-5).float().mean().item()
+            assert dm.max().item() <= 2.0 / n + 1e-6 and share <= 1e-3, \
+                f"B9b sampled: mean diff {dm.max().item()}, share {share}"
+            tol = (f"means within 2 flipped draws of {n}, {share:.2g} of "
+                   "cells differing (at most 1e-3)")
+        print(f"B9b check: injected draws, B {B}, {dt}, mcmc_step {steps}, "
+              f"{'expected' if expected else 'sampled'}: max |kernel - "
+              f"plain| over mean and sd = {err:.3g} ({tol})")
+    args = serve_inputs(torch, dev, 64, seed=70)
+    Yc, mask = conditional_query(torch, dev, args, seed=71)
+    X, uidx, rest = args[0], args[1], args[2:]
+
+    def kern():
+        return tserve.serve_conditional(X, uidx, Yc, mask, *rest,
+                                        mcmc_step=steps, expected=True,
+                                        seed=3, offset=4)
+
+    a, b = kern(), kern()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), \
+        "B9b: two Philox runs differ"
+
+    g = torch.Generator(device=dev).manual_seed(72)
+    noise = {"eps_z": torch.randn((n, steps + 1, 64, ns), generator=g,
+                                  device=dev),
+             "u_z": torch.rand((n, steps + 1, 64, ns), generator=g,
+                               device=dev).clamp_min_(1e-38),
+             "eps_rows": torch.randn((n, steps, 64, nf), generator=g,
+                                     device=dev)}
+
+    def plain():                      # its draws injected, not timed
+        tserve._serve_conditional_plain(X, uidx, Yc, mask, *rest, steps,
+                                        True, noise, None)
+
+    ms = _kernel_ms(torch, kern, ("serve_conditional_kernel",
+                                  "combine_moments_kernel"))
+    plain_ms = device_ms(torch, plain, calls=3)
+    ev, plain_ev = event_ms(torch, kern, batch=5), event_ms(torch, plain,
+                                                            batch=2)
+    held = held_event_ms(torch, kern, calls=10)
+    nbytes = 4.0 * (n * (SERVE["nc"] * ns + ns + nf * ns + 64 * nf)
+                    + 64 * (SERVE["nc"] + 1 + 2 * ns) + 2 * 64 * ns)
+    b, by = bound_ms(nbytes, b9b_ops(n, 64, ns, mask.sum().item(),
+                                     SERVE["nc"], nf, steps))
+    print(f"B9b serve_conditional device time: {ms:.4f} ms (plain "
+          f"{plain_ms:.4f} ms, bound {b:.4f} ms by {by}; held stream "
+          f"{held:.5f} ms, with enqueue {ev:.4f} ms, plain {plain_ev:.4f} "
+          f"ms) at B 64, mcmc_step {steps}, {n} draws x {ns} species, 500 "
+          f"observed [{card}]")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=None, event_ms=ev,
+                plain_event_ms=plain_ev, held_ms=held,
+                shape=[n, 64, ns, steps])
+
+
 def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
                       cg_loop=(), updater=None):
     """Kernel launches the sweep schedule implies: Z once at start and once
@@ -1584,7 +1983,9 @@ def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
             "gpp_unit": sweeps * gpp,
             "gpp_knot": sweeps * gpp,
             "gpp_quad": sweeps * quads * gpp,
-            "truncnorm_da": sweeps * da}
+            "truncnorm_da": sweeps * da,
+            "serve_predict": 0, "serve_quantile": 0,
+            "serve_conditional": 0}
 
 
 def profile_sweeps(torch, ht, hM, card, label, n_chains, nf, sweeps=10,
@@ -1681,6 +2082,233 @@ def spatial_paths(torch, ht, K, card, by_path):
     return spatial
 
 
+def serve_path(torch, ht, K, card, post, hM):
+    """(i) the serve path on the headline posterior (800 draws): every
+    launch counter set to 0, then the engine's phases through the user's
+    entry points (``ServingEngine``, ``warmup``, ``predict`` / ``submit``,
+    ``reload``, ``make_server``) and offline ``predict``; the counters are
+    read, then the answers are held against their references.  Returns
+    the launches, the numbers printed, and the checks' worst errors."""
+    import threading
+    import urllib.request
+
+    from hmsc_tpu_torch.ops import serve as tserve
+    from hmsc_tpu_torch.predict.predict import OFFLINE_CHUNK
+    from hmsc_tpu_torch.serve.http import make_server
+
+    Xall = np.asarray(hM.X, dtype=np.float32)
+    ny, ns = Xall.shape[0], hM.ns
+    lvl = hM.rl_names[0]
+    labels = [str(v) for v in hM.df_pi[0]]
+    rows64 = np.arange(64)
+    X64, units64 = Xall[rows64], {lvl: [labels[i] for i in rows64]}
+    held = slice(ns // 2, ns)
+    Yc = hM.Y[rows64].astype(np.float32)
+    Yc[:, held] = np.nan
+    new_unit = np.array([["__new__"]])
+    rng = np.random.default_rng(17)
+    stats_at = {}
+    offline_chunks = 0
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    engine = ht.ServingEngine(post, coalesce_ms=2.0)
+    stage_s = time.perf_counter() - t0
+    built = engine.warmup()
+    # 2. fidelity: the 1000 training rows at their units, served and offline
+    served = engine.predict(Xall, units={lvl: labels})
+    stats_at["fidelity"] = engine.stats()["device_calls"]
+    offline = ht.predict(post, expected=True)
+    offline_chunks += -(-ny // OFFLINE_CHUNK)
+    off_mean, off_sd = offline.mean(axis=0), offline.std(axis=0)
+    del offline
+    # 3. sampled against expected on a 64-row query
+    sampled = engine.predict(X64, units=units64, expected=False)
+    expect = engine.predict(X64, units=units64)
+    # 4. quantiles through B9c
+    quant = engine.predict(X64, units=units64, quantiles=SERVE_Q)
+    # 5. conditional recovery: 64 training rows served as new units
+    marg = engine.predict(X64)
+    cond = engine.predict(X64, Yc=Yc, mcmc_step=3)
+    cond_calls = 1
+    # 6. micro-batching: 64 concurrent single-row submits
+    serial = [engine.predict(Xall[i:i + 1], units={lvl: [labels[i]]})
+              for i in rows64]
+    before = engine.stats()
+    futs = [engine.submit(Xall[i:i + 1], units={lvl: [labels[i]]})
+            for i in rows64]
+    coalesced = [f.result(timeout=120) for f in futs]
+    after = engine.stats()
+    # 7. random query sizes after warmup, then a same-shape flip
+    for q in rng.integers(1, 201, size=25):
+        idx = rng.integers(0, ny, size=int(q))
+        engine.predict(Xall[idx], units={lvl: [labels[i] for i in idx]})
+    flip = engine.reload()
+    engine.predict(X64, units=units64)
+    swept = engine.stats()
+    # 8. one HTTP POST /predict
+    server = make_server(engine, "127.0.0.1", 0)
+    host, port = server.server_address[:2]
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    body = json.dumps({"X": Xall[:3].tolist(),
+                       "units": {lvl: labels[:3]}}).encode()
+    req = urllib.request.Request(f"http://{host}:{port}/predict", data=body,
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        http_out = json.loads(r.read())
+    server.shutdown()
+    server.server_close()
+    th.join(timeout=10)
+    http_ref = engine.predict(Xall[:3], units={lvl: labels[:3]})
+    # 10. latencies (printed, not gated)
+    lat = []
+    for i in range(200):
+        t1 = time.perf_counter()
+        engine.predict(Xall[i % ny][None], units={lvl: [labels[i % ny]]})
+        lat.append((time.perf_counter() - t1) * 1e3)
+    xs = [Xall[i:i + 1] for i in range(64)]
+    coal_s = serial_s = np.inf
+    for _ in range(3):
+        t1 = time.perf_counter()
+        for f in [engine.submit(x) for x in xs]:
+            f.result(timeout=120)
+        coal_s = min(coal_s, time.perf_counter() - t1)
+    ht.predict(post, X=xs[0], study_design=new_unit, predict_eta_mean=True,
+               expected=True)
+    offline_chunks += 1
+    for _ in range(3):
+        t1 = time.perf_counter()
+        for x in xs:
+            ht.predict(post, X=x, study_design=new_unit,
+                       predict_eta_mean=True, expected=True)
+        serial_s = min(serial_s, time.perf_counter() - t1)
+    offline_chunks += 3 * len(xs)
+    cond_lat = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        engine.predict(X64, Yc=Yc, mcmc_step=3)
+        cond_lat.append((time.perf_counter() - t1) * 1e3)
+    cond_calls += 5
+    final = engine.stats()
+    torch.cuda.synchronize()
+    launches = dict(K.launches)
+    engine.close()
+
+    # the references (after the counters were read: their launches are
+    # not the path's)
+    # 9. launches: B9a = the predict-config device calls (the warmup's
+    # launches included) plus offline predict's chunks; B9b and B9c their
+    # own calls; every sampler kernel 0
+    want = {name: 0 for name in K.KERNELS}
+    want["serve_predict"] = (built + final["device_calls"] - cond_calls
+                             + offline_chunks)
+    want["serve_conditional"] = cond_calls
+    want["serve_quantile"] = 1
+    # 2. fidelity against a float64 recomputation on the card, no kernel
+    dev = engine.device
+    d64 = dict(device=dev, dtype=torch.float64)
+    Beta = torch.as_tensor(post.pooled("Beta"), **d64)
+    lam = torch.as_tensor(post.pooled("Lambda_0")[..., 0], **d64)
+    eta = torch.as_tensor(post.pooled("Eta_0"), **d64)
+    pi = torch.as_tensor(np.asarray(hM.Pi[:, 0]), device=dev).long()
+    Xd = torch.as_tensor(Xall, **d64)
+    ref_mean = np.empty((ny, ns))
+    ref_sd = np.empty((ny, ns))
+    for c0 in range(0, ny, 100):
+        sl = slice(c0, c0 + 100)
+        L = (torch.einsum("yc,ncj->nyj", Xd[sl], Beta)
+             + torch.einsum("nyf,nfj->nyj", eta[:, pi[sl]], lam))
+        p = torch.special.ndtr(L)
+        ref_mean[sl] = p.mean(dim=0).cpu().numpy()
+        ref_sd[sl] = p.std(dim=0, correction=0).cpu().numpy()
+    fid = {}
+    for name, (m, s) in {"served": (served["mean"], served["sd"]),
+                         "offline": (off_mean, off_sd)}.items():
+        fid[name] = max(np.abs(m - ref_mean).max(), np.abs(s - ref_sd).max())
+    fid["served_vs_offline"] = max(np.abs(served["mean"] - off_mean).max(),
+                                   np.abs(served["sd"] - off_sd).max())
+    # 3. each sampled mean, as a count of 1s over the draws, within the
+    # 1e-9 tails of Binomial(n, expected mean) (the draws' probabilities
+    # differ: the binomial is the widest law with that mean)
+    sampled_ok = binomial_inside(sampled["mean"], expect["mean"],
+                                 engine.n_draws)
+    # 4. quantiles against torch.quantile of the same draws
+    st = engine._staged
+    uidx = torch.as_tensor(np.array([[st.unit_lut[0][labels[i]]
+                                      for i in rows64]], dtype=np.int32),
+                           device=dev)
+    _, _, y = tserve.serve_predict(
+        torch.as_tensor(X64, device=dev), uidx, st.Beta, st.sigma,
+        list(st.lams), list(st.etas), st.fam_d, st.ym, st.ys, expected=True,
+        moments=False, draws=True)
+    q_ref = torch.quantile(y, torch.tensor(SERVE_Q, device=dev), dim=0)
+    q_err = np.abs(quant["quantiles"] - q_ref.cpu().numpy()).max()
+    # 5. conditional recovery on the held-out species
+    y_held = hM.Y[rows64][:, held]
+    brier_c = float(((cond["mean"][:, held] - y_held) ** 2).mean())
+    brier_m = float(((marg["mean"][:, held] - y_held) ** 2).mean())
+    # 6. coalescing
+    calls = after["device_calls"] - before["device_calls"]
+    mb_err = max(np.abs(c["mean"] - s["mean"]).max()
+                 for c, s in zip(coalesced, serial))
+    # 8. HTTP
+    http_err = np.abs(np.asarray(http_out["mean"]) - http_ref["mean"]).max()
+
+    lat = np.asarray(lat)
+    nums = dict(stage_s=stage_s, p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99)),
+                coalesced_s=coal_s, serial_s=serial_s,
+                ratio=serial_s / coal_s,
+                cond_ms=float(np.median(cond_lat)),
+                brier_cond=brier_c, brier_marg=brier_m,
+                coalesced_calls=calls, plans_built=built)
+    print(f"serve: headline posterior, {engine.n_draws} draws x {ns} "
+          f"species, staged in {stage_s:.3f} s, {built} plans at warmup; "
+          f"fidelity max |served - float64| {fid['served']:.3g}, |offline "
+          f"- float64| {fid['offline']:.3g}, |served - offline| "
+          f"{fid['served_vs_offline']:.3g} (2e-5); {ny} rows in "
+          f"{stats_at['fidelity']} calls; sampled means inside the "
+          f"binomial 1e-9 tails: {sampled_ok}; quantiles vs torch.quantile "
+          f"{q_err:.3g} (1e-6); conditional Brier {brier_c:.5f} vs "
+          f"marginal {brier_m:.5f} on 64 x {ns - ns // 2} held-out cells; "
+          f"64 concurrent queries in {calls} calls (max diff to serial "
+          f"{mb_err:.3g}); plan builds {swept['cache']['misses']} (warmup "
+          f"{built} + 3); HTTP max diff {http_err:.3g}; launches "
+          f"{ {k: v for k, v in launches.items() if v} } [{card}]")
+    print(f"serve latency: single-row expected p50 {nums['p50_ms']:.3f} ms,"
+          f" p99 {nums['p99_ms']:.3f} ms over 200 sync queries; 64 "
+          f"concurrent coalesced {coal_s * 1e3:.2f} ms vs 64 serial offline "
+          f"predict() {serial_s * 1e3:.2f} ms ({nums['ratio']:.2f}x); "
+          f"conditional B 64, mcmc_step 3: {nums['cond_ms']:.3f} ms [{card}]")
+
+    assert launches == want, (f"serve: launches {launches}, the path "
+                              f"implies {want}")
+    for k, v in fid.items():
+        assert v <= 2e-5, f"serve fidelity {k}: {v} > 2e-5"
+    assert stats_at["fidelity"] == -(-ny // 64), \
+        f"serve: {ny} rows in {stats_at['fidelity']} device calls"
+    assert sampled_ok, "serve sampled: a mean beyond the binomial 1e-9 tails"
+    assert q_err <= 1e-6, f"serve quantiles vs torch.quantile: {q_err}"
+    assert np.isfinite(cond["mean"]).all() and np.isfinite(cond["sd"]).all()
+    assert cond["mean"].min() >= 0 and cond["mean"].max() <= 1
+    assert brier_c < brier_m, (f"serve conditional: Brier {brier_c} not "
+                               f"below the marginal {brier_m}")
+    assert calls < 64, f"serve: 64 concurrent queries took {calls} calls"
+    assert mb_err <= 1e-6, f"serve coalesced vs serial: {mb_err}"
+    # 7. no plan built by the size sweep and the same-shape flip (the
+    # warmed expected config; phases 3-5 built the sampled, quantile and
+    # conditional plans)
+    assert swept["cache"]["misses"] == after["cache"]["misses"] \
+        == built + 3, f"serve: plan builds {swept['cache']}"
+    assert not flip["shapes_changed"] and flip["generation"] == 1
+    assert http_err <= 1e-6, f"serve HTTP vs engine: {http_err}"
+    for out in (served, sampled, expect, marg):
+        assert np.isfinite(out["mean"]).all() and np.isfinite(out["sd"]).all()
+    return launches, nums
+
+
 def main() -> int:
     import torch
 
@@ -1692,6 +2320,7 @@ def main() -> int:
     from hmsc_tpu_torch.ops import gram as tgram
     from hmsc_tpu_torch.ops import linalg as tlinalg
     from hmsc_tpu_torch.ops import rand as trand
+    from hmsc_tpu_torch.ops import serve as tserve
     from hmsc_tpu_torch.ops import spatial as tsp
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1713,7 +2342,10 @@ def main() -> int:
                "nngp_quad": check_b8b(torch, tsp, dev, card),
                "nngp_riw": check_b8c(torch, tsp, dev, card),
                **check_b8d(torch, tsp, dev, card),
-               "truncnorm_da": check_b7(torch, trand, dev, card)}
+               "truncnorm_da": check_b7(torch, trand, dev, card),
+               "serve_predict": check_b9a(torch, tserve, dev, card),
+               "serve_quantile": check_b9c(torch, tserve, dev, card),
+               "serve_conditional": check_b9b(torch, tserve, dev, card)}
     time_b4(torch, trand, dev, card)
 
     # recovery: posterior-mean slopes against the simulated ones
@@ -1731,8 +2363,9 @@ def main() -> int:
     h = HEADLINE
     X, Y, Beta_h = simulate_probit(h["ny"], h["ns"], seed=66)
     hM = probit_model(ht, X, Y, nf=h["nf"])
-    _, launches = run_path(torch, ht, K, card, "headline", hM, h["n_chains"],
-                           h["nf"], h["transient"], h["samples"], seed=1)
+    post_h, launches = run_path(torch, ht, K, card, "headline", hM,
+                                h["n_chains"], h["nf"], h["transient"],
+                                h["samples"], seed=1)
     by_path = {"headline": launches}
 
     # (b) config 5: normal / probit / lognormal-Poisson columns
@@ -1778,6 +2411,10 @@ def main() -> int:
 
     spatial = spatial_paths(torch, ht, K, card, by_path)
     check_alpha_planted(torch, ht, card)
+
+    # (i) serving the headline posterior
+    by_path["serve"], _ = serve_path(torch, ht, K, card, post_h, hM)
+    del post_h
 
     for label, m, n_chains, nf in (("headline", hM, h["n_chains"], h["nf"]),
                                    ("config5", hM5, c5["n_chains"], c5["nf"]),
@@ -1828,6 +2465,15 @@ def main() -> int:
         "truncnorm_da": ("B7 truncnorm_da",
                          "hmsc_tpu_torch/csrc/truncnorm_da.cu",
                          "hmsc_tpu/ops/rand.py:25", "da_headline"),
+        "serve_predict": ("B9a serve_predict",
+                          "hmsc_tpu_torch/csrc/serve_predict.cu",
+                          "hmsc_tpu/serve/kernels.py:140", "serve"),
+        "serve_quantile": ("B9c serve_quantile",
+                           "hmsc_tpu_torch/csrc/serve_quantile.cu",
+                           "hmsc_tpu/serve/kernels.py:181", "serve"),
+        "serve_conditional": ("B9b serve_conditional",
+                              "hmsc_tpu_torch/csrc/serve_conditional.cu",
+                              "hmsc_tpu/serve/kernels.py:255", "serve"),
     }
     assert set(meta) == set(K.KERNELS) == set(results)
     kernels = []

@@ -12,9 +12,12 @@ This slice samples normal, probit, Poisson and lognormal-Poisson JSDMs
 (any mix of them across species), with missing values in Y, a design
 matrix, optional traits, and unstructured or spatial (``Full``, ``NNGP``
 and ``GPP``) random levels (``sample_mcmc``), with the opt-in probit-DA
-intercept interweave (``updater={"InterweaveDA": True}``).  Entry points run
-on the CUDA card unless the caller passes ``device="cpu"``; features of
-later slices raise ``NotImplementedError`` naming their ROADMAP item.
+intercept interweave (``updater={"InterweaveDA": True}``), and predicts from
+and serves the fitted posterior (``predict``, ``ServingEngine``, compacted
+serving artifacts in the JAX package's format, ``python -m hmsc_tpu_torch
+serve <artifact>``).  Entry points run on the CUDA card unless the caller
+passes ``device="cpu"``; features of later slices raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from .model import Hmsc
@@ -22,9 +25,13 @@ from .random_level import HmscRandomLevel, set_priors_random_level
 from .precompute import construct_knots
 from .mcmc.sampler import sample_mcmc
 from .post import Posterior
+from .predict import construct_gradient, predict
+from .serve import ServingEngine, compact_posterior, load_artifact
 
 # reference-style camelCase alias
 constructKnots = construct_knots
 
 __all__ = ["Hmsc", "HmscRandomLevel", "set_priors_random_level",
-           "construct_knots", "constructKnots", "sample_mcmc", "Posterior"]
+           "construct_knots", "constructKnots", "sample_mcmc", "Posterior",
+           "predict", "construct_gradient", "ServingEngine",
+           "compact_posterior", "load_artifact"]

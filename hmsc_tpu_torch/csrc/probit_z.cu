@@ -11,16 +11,15 @@
 // one Philox call feeds four uniforms; thread g takes cells g, g + G,
 // g + 2G and g + 3G (G = ceil(n/4) threads in all), so each of its four
 // loads and stores is to consecutive floats across a warp.  The arithmetic
-// is the JAX op's formula step by step, including its f32 guards: the
-// survival probability is clipped to [1e-30, 1 - 2^-24] before the inverse
-// CDF (normcdfinvf(1) is +inf), and past 9 sigma the exponential tail
-// t - log1p(-u)/max(t,1) (Robert 1995) replaces the quantile.  An optional
+// is the JAX op's formula step by step, including its f32 guards
+// (truncnorm.cuh, which B9b shares).  An optional
 // tensor of uniforms replaces the in-kernel draw, so the kernel can be
 // compared with its plain version on identical inputs.
 
 #include <cuda_runtime.h>
 
 #include "philox.cuh"
+#include "truncnorm.cuh"
 
 namespace {
 
@@ -55,17 +54,7 @@ __global__ void probit_z_kernel(const float* __restrict__ E,
     const float u = (U == nullptr) ? u4[k] : U[i];
     const float e = E[i];
     const float s = sd[c * ns + cell % ns];
-    const bool lower = Y[cell] > 0.5f;
-    float t = (0.0f - e) / s;                 // standardised bound
-    t = lower ? t : -t;                       // reflect into X > t
-    const float sa = normcdff(-t);            // P(W > t)
-    const float p = fminf(fmaxf(u * sa, 1e-30f), 0.99999994f);
-    const float x_r = -normcdfinvf(p);
-    const float x_far = t - log1pf(-u) / fmaxf(t, 1.0f);
-    float x = (t > 9.0f) ? x_far : x_r;
-    x = fmaxf(x, t);                          // clipped-quantile edge
-    x = lower ? x : -x;
-    Z[i] = e + s * x;
+    Z[i] = hmsc::probit_z_draw(e, s, Y[cell] > 0.5f, u);
   }
 }
 

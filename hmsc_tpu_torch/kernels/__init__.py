@@ -41,7 +41,10 @@ KERNELS = {"probit_z": "probit_z.cu",
            "gpp_unit": "gpp_unit.cu",
            "gpp_knot": "gpp_knot.cu",
            "gpp_quad": "gpp_quad.cu",
-           "truncnorm_da": "truncnorm_da.cu"}
+           "truncnorm_da": "truncnorm_da.cu",
+           "serve_predict": "serve_predict.cu",
+           "serve_quantile": "serve_quantile.cu",
+           "serve_conditional": "serve_conditional.cu"}
 
 launches = {name: 0 for name in KERNELS}
 
@@ -150,6 +153,11 @@ def library():
                                              i, i, p]
             lib.hmsc_truncnorm_da.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                               i, i, i, i, i, u64, u32, p]
+            lib.hmsc_serve_predict.argtypes = [p] * 8 + [i] + [p] * 8 + [
+                i] * 9 + [u64, u32, p]
+            lib.hmsc_serve_quantile.argtypes = [p, ll, i, i, i, p, i, p, p]
+            lib.hmsc_serve_conditional.argtypes = [p] * 10 + [i] + [p] * 11 + [
+                i] * 10 + [u64, u32, p]
             for fn in (lib.hmsc_probit_z, lib.hmsc_mvn_prec_small,
                        lib.hmsc_standard_gamma, lib.hmsc_poisson_z,
                        lib.hmsc_masked_gram, lib.hmsc_vecchia_fwd,
@@ -157,7 +165,8 @@ def library():
                        lib.hmsc_nngp_quad_at, lib.hmsc_nngp_riw,
                        lib.hmsc_gpp_unit, lib.hmsc_gpp_knot,
                        lib.hmsc_gpp_quad_grid, lib.hmsc_gpp_quad_at,
-                       lib.hmsc_truncnorm_da):
+                       lib.hmsc_truncnorm_da, lib.hmsc_serve_predict,
+                       lib.hmsc_serve_quantile, lib.hmsc_serve_conditional):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -1,0 +1,505 @@
+"""The serving kernels (port of the compute in ``hmsc_tpu/serve/kernels.py``),
+each written by hand for Hopper (``csrc/``) with its plain PyTorch version
+beside it:
+
+- B9a :func:`serve_predict` — the fused marginal prediction: linear
+  predictor, link (expected or sampled), back-scaling, then the mean and
+  population sd over the draws, or the (n, B, ns) draws themselves
+  (``csrc/serve_predict.cu``);
+- B9c :func:`draw_quantiles` — full-draw quantiles with ``jnp.quantile``'s
+  linear interpolation (``csrc/serve_quantile.cu``);
+- B9b :func:`serve_conditional` — the per-draw Gibbs refinement of each
+  query row's latent factors against its observed cells, the link and the
+  moments (``csrc/serve_conditional.cu``).
+
+Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
+plain version only for tensors on the CPU.  The posterior draws (Beta,
+sigma, each level's Lambda and Eta, the last Eta row all zero for the
+mean-field new unit) are float32 or bfloat16; the kernels widen them in
+registers, the plain versions at entry.  Sampled draws come from Philox
+keyed by ``seed`` / ``offset`` in the kernels, from a ``torch.Generator``
+seeded with ``seed`` in the plain versions: the two streams differ, so the
+card compares them by distribution and the tests inject noise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import kernels as K
+from .rand import _TINY, _ndtr, _truncated_normal_onesided_plain
+
+__all__ = ["serve_predict", "draw_quantiles", "serve_conditional",
+           "poisson_plain", "quantile_layout", "MAX_QUANTILE_DRAWS"]
+
+FAM_NORMAL, FAM_PROBIT, FAM_POISSON = 1, 2, 3
+# csrc/serve_predict.cu: species a block, query rows a thread
+_PREDICT_THREADS = 128
+_PREDICT_ROWS = (1, 2, 4, 8)
+# blocks for the H100's 132 SMs, the fastest of scripts/serve_kernel_sweep.py
+# at B 64: ~4 resident B9a blocks an SM; B9b (256 threads, ~25 KB of shared
+# memory a block, ~8 resident an SM) gains from ~4 waves of short chunks
+_PREDICT_TARGET_BLOCKS = 528
+_COND_TARGET_BLOCKS = 4224
+_PREDICT_MIN_CHUNK = 16
+# csrc/serve_predict.cu / serve_conditional.cu limits
+_MAX_LEVELS, _MAX_NC, _MAX_NF_TOTAL = 8, 64, 64
+_COND_NF = (4, 8, 16)
+_COND_MAX_SPECIES = 200 * 1024 // 20
+# csrc/serve_quantile.cu: one column of P floats in shared memory at most
+MAX_QUANTILE_DRAWS = 32768
+
+
+# ---------------------------------------------------------------------------
+# launch geometry
+# ---------------------------------------------------------------------------
+
+def predict_chunks(n: int, B: int, ns: int):
+    """B9a's (rows a thread, draws a chunk, chunks): enough blocks to fill
+    the card at any query size, chunks of at least 16 draws."""
+    rb = next(r for r in _PREDICT_ROWS[::-1] if r <= max(B, 1))
+    tiles = -(-ns // _PREDICT_THREADS) * -(-B // rb)
+    S = max(1, min(-(-n // _PREDICT_MIN_CHUNK),
+                   -(-_PREDICT_TARGET_BLOCKS // max(tiles, 1))))
+    D = -(-n // S)
+    return rb, D, -(-n // D)
+
+
+def conditional_chunks(n: int, B: int):
+    """B9b's (draws a chunk, chunks): one block per (row, chunk)."""
+    S = max(1, min(n, -(-_COND_TARGET_BLOCKS // max(B, 1))))
+    D = -(-n // S)
+    return D, -(-n // D)
+
+
+def quantile_layout(n: int):
+    """B9c's (P, columns a block): the power of two P >= n the bitonic sort
+    pads to, and up to 8 columns within 48 KB of shared memory."""
+    if n > MAX_QUANTILE_DRAWS:
+        raise ValueError(
+            f"draw_quantiles: {n} draws exceed the kernel's limit of "
+            f"{MAX_QUANTILE_DRAWS} (a bitonic sort of one column in shared "
+            "memory); thin the posterior")
+    P = 1 << max(0, (n - 1).bit_length())
+    cpb = 8
+    while cpb > 1 and P * cpb * 4 > 48 * 1024:
+        cpb //= 2
+    return P, cpb
+
+
+# ---------------------------------------------------------------------------
+# shared argument checks
+# ---------------------------------------------------------------------------
+
+def _draw_dtype(Beta, sigma, lams, etas):
+    dt = Beta.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"posterior draws must be float32 or bfloat16, got "
+                         f"{dt}")
+    for t in (sigma, *lams, *etas):
+        if t.dtype != dt:
+            raise ValueError("Beta, sigma, Lambda and Eta must share one "
+                             "dtype")
+    return dt
+
+
+def _check_cuda(name, dev, tensors):
+    for label, t in tensors:
+        if t is None:
+            continue
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError(f"{name}: {label} must be a contiguous tensor "
+                             f"on {dev}")
+
+
+def _level_args(lams, etas):
+    nr = len(lams)
+    if nr > _MAX_LEVELS:
+        raise ValueError(f"the serving kernels take at most {_MAX_LEVELS} "
+                         f"random levels, got {nr}")
+    lam_p = (ctypes.c_ulonglong * max(nr, 1))(*[t.data_ptr() for t in lams])
+    eta_p = (ctypes.c_ulonglong * max(nr, 1))(*[t.data_ptr() for t in etas])
+    nf = (ctypes.c_int * max(nr, 1))(*[int(t.shape[1]) for t in lams])
+    npr = (ctypes.c_int * max(nr, 1))(*[int(t.shape[1]) for t in etas])
+    return (lam_p, eta_p, nf, npr), nr
+
+
+def _check_shapes(name, X, uidx, Beta, sigma, lams, etas, fam, ym, ys):
+    n, nc, ns = Beta.shape
+    B = X.shape[0]
+    if X.shape != (B, nc) or sigma.shape != (n, ns) or fam.shape != (ns,) \
+            or ym.shape != (ns,) or ys.shape != (ns,) \
+            or uidx.shape != (len(lams), B) or len(etas) != len(lams):
+        raise ValueError(f"{name}: shapes X {tuple(X.shape)}, uidx "
+                         f"{tuple(uidx.shape)}, Beta {tuple(Beta.shape)}, "
+                         f"sigma {tuple(sigma.shape)}, fam {tuple(fam.shape)}")
+    for lam, eta in zip(lams, etas):
+        if lam.shape[0] != n or lam.shape[2] != ns or eta.shape[0] != n \
+                or eta.shape[2] != lam.shape[1]:
+            raise ValueError(f"{name}: Lambda {tuple(lam.shape)} and Eta "
+                             f"{tuple(eta.shape)} do not match the draws")
+    if nc > _MAX_NC or sum(int(l.shape[1]) for l in lams) > _MAX_NF_TOTAL:
+        raise ValueError(f"{name}: at most {_MAX_NC} covariates and "
+                         f"{_MAX_NF_TOTAL} factors over all levels")
+    return n, B, ns, nc
+
+
+# ---------------------------------------------------------------------------
+# B9a: fused marginal prediction
+# ---------------------------------------------------------------------------
+
+def serve_predict(X, uidx, Beta, sigma, lams, etas, fam, ym, ys, *,
+                  expected: bool, moments: bool = True, draws: bool = False,
+                  seed: int = 0, offset: int = 0, out=None):
+    """Predicted responses at query rows ``X`` (B, nc) with unit rows
+    ``uidx`` (nr, B) int32 into each level's Eta.
+
+    Returns ``(mean, sd, y)``: the (B, ns) mean and population sd over the
+    draws when ``moments`` (else None), and the (n, B, ns) responses when
+    ``draws`` (else None).  ``expected`` returns each family's location
+    (ndtr for probit, exp(L + sigma / 2) for Poisson), else sampled
+    responses.  ``out`` optionally holds preallocated (mean, sd) tensors."""
+    if not (moments or draws):
+        raise ValueError("serve_predict: ask for moments, draws or both")
+    _draw_dtype(Beta, sigma, lams, etas)
+    n, B, ns, nc = _check_shapes("serve_predict", X, uidx, Beta, sigma,
+                                 lams, etas, fam, ym, ys)
+    if not Beta.is_cuda:
+        gen = torch.Generator().manual_seed(int(seed) ^ int(offset))
+        y = _serve_predict_plain(X, uidx, Beta, sigma, lams, etas, fam, ym,
+                                 ys, expected, gen)
+        mean = sd = None
+        if moments:
+            mean, sd = y.mean(dim=0), y.std(dim=0, correction=0)
+            if out is not None:
+                out[0].copy_(mean)
+                out[1].copy_(sd)
+                mean, sd = out
+        return mean, sd, (y if draws else None)
+    dev = Beta.device
+    _check_cuda("serve_predict", dev, [
+        ("X", X), ("uidx", uidx), ("Beta", Beta), ("sigma", sigma),
+        ("fam", fam), ("ym", ym), ("ys", ys)]
+        + [("Lambda", t) for t in lams] + [("Eta", t) for t in etas])
+    if X.dtype != torch.float32 or uidx.dtype != torch.int32 \
+            or fam.dtype != torch.int32 or ym.dtype != torch.float32 \
+            or ys.dtype != torch.float32:
+        raise ValueError("serve_predict: X, ym, ys float32; uidx, fam int32")
+    rb, D, S = predict_chunks(n, B, ns)
+    f32 = dict(device=dev, dtype=torch.float32)
+    y = torch.empty((n, B, ns), **f32) if draws else None
+    mean = sd = pmean = pm2 = None
+    if moments:
+        mean, sd = out if out is not None else (
+            torch.empty((B, ns), **f32), torch.empty((B, ns), **f32))
+        _check_cuda("serve_predict", dev, [("out mean", mean),
+                                           ("out sd", sd)])
+        pmean = torch.empty((S, B, ns), **f32)
+        pm2 = torch.empty((S, B, ns), **f32)
+    lv, nr = _level_args(lams, etas)
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    with torch.cuda.device(dev):
+        code = K.library().hmsc_serve_predict(
+            X.data_ptr(), uidx.data_ptr(), Beta.data_ptr(), sigma.data_ptr(),
+            *(ctypes.addressof(a) for a in lv), nr, fam.data_ptr(),
+            ym.data_ptr(), ys.data_ptr(), ptr(y), ptr(pmean), ptr(pm2),
+            ptr(mean), ptr(sd), n, B, ns, nc, rb, D, S,
+            int(Beta.dtype == torch.bfloat16), int(bool(expected)),
+            int(seed), int(offset) & 0xFFFFFFFF, K.stream_of(Beta))
+    K.check(code, "serve_predict")
+    K.launches["serve_predict"] += 1
+    return mean, sd, y
+
+
+def _widen(*ts):
+    return [t.float() for t in ts]
+
+
+def _serve_predict_plain(X, uidx, Beta, sigma, lams, etas, fam, ym, ys,
+                         expected, gen):
+    """The JAX kernel (``hmsc_tpu/serve/kernels.py:160-183``) step by step:
+    the (n, B, ns) linear predictor, the link, the back-scaling."""
+    Beta, sigma = _widen(Beta, sigma)
+    L = torch.einsum("yc,ncj->nyj", X, Beta)
+    for r, (lam, eta) in enumerate(zip(lams, etas)):
+        rows = eta.float()[:, uidx[r].long(), :]
+        L = L + torch.einsum("nyf,nfj->nyj", rows, lam.float())
+    if expected:
+        out = torch.where(fam == FAM_PROBIT, _ndtr(L), L)
+        out = torch.where(fam == FAM_POISSON,
+                          torch.exp(L + sigma[:, None, :] / 2), out)
+    else:
+        eps = torch.randn(L.shape, generator=gen, dtype=L.dtype,
+                          device=L.device)
+        Z = L + torch.sqrt(sigma)[:, None, :] * eps
+        out = torch.where(fam == FAM_PROBIT, (Z > 0).to(Z.dtype), Z)
+        pois = fam == FAM_POISSON
+        if bool(pois.any()):
+            draws = poisson_plain(torch.exp(torch.clamp(Z[..., pois],
+                                                        max=30.0)), gen)
+            out[..., pois] = draws.to(out.dtype)
+    return out * ys + ym
+
+
+def poisson_plain(lam, gen):
+    """Poisson draws at rates ``lam`` (any shape, float64 arithmetic) by
+    the kernel's algorithm: Knuth's product of uniforms below a rate of 10,
+    Hormann's transformed rejection with squeeze (PTRS, numpy's
+    ``random_poisson_ptrs``) above; NaN where the rate is NaN, 0 at 0."""
+    flat = lam.reshape(-1).double()
+    out = torch.zeros_like(flat)
+    out[torch.isnan(flat)] = float("nan")
+
+    def uniform(m):
+        return torch.rand(m, generator=gen, dtype=torch.float64,
+                          device=flat.device).clamp_min_(
+            _TINY)
+
+    small = torch.nonzero((flat > 0) & (flat < 10)).flatten()
+    if small.numel():
+        floor_p = torch.exp(-flat[small])
+        p = torch.ones_like(floor_p)
+        k = torch.zeros_like(floor_p)
+        live = torch.arange(small.numel())
+        while live.numel():
+            p[live] *= uniform(live.numel())
+            done = p[live] <= floor_p[live]
+            live = live[~done]
+            k[live] += 1
+        out[small] = k
+    big = torch.nonzero(flat >= 10).flatten()
+    if big.numel():
+        L = flat[big]
+        slam, loglam = torch.sqrt(L), torch.log(L)
+        b = 0.931 + 2.53 * slam
+        a = -0.059 + 0.02483 * b
+        invalpha = 1.1239 + 1.1328 / (b - 3.4)
+        vr = 0.9277 - 3.6224 / (b - 2.0)
+        res = torch.empty_like(L)
+        live = torch.arange(L.numel())
+        while live.numel():
+            m = live.numel()
+            U = uniform(m) - 0.5
+            V = uniform(m)
+            us = 0.5 - U.abs()
+            al, bl = a[live], b[live]
+            k = torch.floor((2.0 * al / us + bl) * U + L[live] + 0.43)
+            quick = (us >= 0.07) & (V <= vr[live])
+            reject = (k < 0) | ((us < 0.013) & (V > us))
+            slow = (torch.log(V) + torch.log(invalpha[live])
+                    - torch.log(al / (us * us) + bl)
+                    <= -L[live] + k * loglam[live]
+                    - torch.lgamma(k.clamp_min(0) + 1.0))
+            acc = quick | (~reject & slow)
+            res[live[acc]] = k[acc]
+            live = live[~acc]
+        out[big] = res
+    return out.reshape(lam.shape)
+
+
+# ---------------------------------------------------------------------------
+# B9c: full-draw quantiles
+# ---------------------------------------------------------------------------
+
+def draw_quantiles(y, q, out=None):
+    """Quantiles over the leading (draw) axis of ``y`` (n, ...) at the
+    probabilities ``q`` (nq,), ``jnp.quantile``'s linear interpolation;
+    returns (nq, ...).  NaN for a column holding a NaN."""
+    n = y.shape[0]
+    q = torch.as_tensor(q, dtype=torch.float32, device=y.device)
+    if not y.is_cuda:
+        res = _draw_quantiles_plain(y, q)
+        return res if out is None else out.copy_(res)
+    if y.dtype != torch.float32 or not y.is_contiguous():
+        raise ValueError("draw_quantiles: y must be a contiguous float32 "
+                         "tensor")
+    P, cpb = quantile_layout(n)
+    cols = y[0].numel()
+    res = out if out is not None else torch.empty(
+        (q.numel(),) + tuple(y.shape[1:]), device=y.device,
+        dtype=torch.float32)
+    _check_cuda("draw_quantiles", y.device, [("out", res)])
+    with torch.cuda.device(y.device):
+        code = K.library().hmsc_serve_quantile(
+            y.data_ptr(), cols, n, P, cpb, q.data_ptr(), q.numel(),
+            res.data_ptr(), K.stream_of(y))
+    K.check(code, "serve_quantile")
+    K.launches["serve_quantile"] += 1
+    return res
+
+
+def _draw_quantiles_plain(y, q):
+    """``jnp.quantile(y, q, axis=0)`` (method "linear") step by step in
+    float32: sort, position q (n - 1), the two neighbours weighted."""
+    n = y.shape[0]
+    srt = torch.sort(y.float(), dim=0).values
+    pos = q * (float(n) - 1.0)
+    lo, hi = torch.floor(pos), torch.ceil(pos)
+    w_hi = pos - lo
+    w_lo = 1.0 - w_hi
+    shape = (-1,) + (1,) * (y.dim() - 1)
+    lo_i = lo.long().clamp(0, n - 1)
+    hi_i = hi.long().clamp(0, n - 1)
+    res = srt[lo_i] * w_lo.reshape(shape) + srt[hi_i] * w_hi.reshape(shape)
+    return torch.where(torch.isnan(y).any(dim=0), float("nan"), res)
+
+
+# ---------------------------------------------------------------------------
+# B9b: conditional prediction
+# ---------------------------------------------------------------------------
+
+def serve_conditional(X, uidx, Yc, mask, Beta, sigma, lams, etas, fam, ym,
+                      ys, *, mcmc_step: int, expected: bool, seed: int = 0,
+                      offset: int = 0, noise=None, out=None):
+    """Conditional prediction (the JAX ``make_conditional_kernel``): each
+    query row is its own unit, its factors start from the gathered Eta rows
+    and are refreshed by ``mcmc_step`` Gibbs iterations of (Eta, Z) against
+    its observed cells (``mask`` 1, ``Yc`` on the model's y-scaled Z scale,
+    0 where unobserved), under the N(0, 1) prior.  Returns the (B, ns) mean
+    and population sd of the responses over the draws.
+
+    ``noise`` injects every draw: a dict with ``eps_z`` and ``u_z`` (n,
+    mcmc_step + 1, B, ns), ``eps_rows`` (n, mcmc_step, B, nf_total) and, when
+    sampled, ``eps_out`` (n, B, ns)."""
+    _draw_dtype(Beta, sigma, lams, etas)
+    n, B, ns, nc = _check_shapes("serve_conditional", X, uidx, Beta, sigma,
+                                 lams, etas, fam, ym, ys)
+    if Yc.shape != (B, ns) or mask.shape != (B, ns):
+        raise ValueError("serve_conditional: Yc and mask must be (B, ns)")
+    steps = int(mcmc_step)
+    if steps < 0:
+        raise ValueError("serve_conditional: mcmc_step must be >= 0")
+    nft = sum(int(l.shape[1]) for l in lams)
+    if noise is not None:
+        want = {"eps_z": (n, steps + 1, B, ns), "u_z": (n, steps + 1, B, ns),
+                "eps_rows": (n, steps, B, nft)}
+        if not expected:
+            want["eps_out"] = (n, B, ns)
+        for k, shape in want.items():
+            if k not in noise or tuple(noise[k].shape) != shape:
+                raise ValueError(f"serve_conditional: noise[{k!r}] must be "
+                                 f"{shape}")
+    if not Beta.is_cuda:
+        gen = torch.Generator().manual_seed(int(seed) ^ int(offset))
+        mean, sd = _serve_conditional_plain(X, uidx, Yc, mask, Beta, sigma,
+                                            lams, etas, fam, ym, ys, steps,
+                                            expected, noise, gen)
+        if out is not None:
+            out[0].copy_(mean)
+            out[1].copy_(sd)
+            return out
+        return mean, sd
+    dev = Beta.device
+    nz = noise or {}
+    _check_cuda("serve_conditional", dev, [
+        ("X", X), ("uidx", uidx), ("Yc", Yc), ("mask", mask),
+        ("Beta", Beta), ("sigma", sigma), ("fam", fam), ("ym", ym),
+        ("ys", ys)] + [("Lambda", t) for t in lams]
+        + [("Eta", t) for t in etas] + [(k, v) for k, v in nz.items()])
+    nf_max = max((int(l.shape[1]) for l in lams), default=1)
+    nfm = next((m for m in _COND_NF if m >= nf_max), None)
+    if nfm is None:
+        raise ValueError(f"serve_conditional: at most {_COND_NF[-1]} factors "
+                         f"a level, got {nf_max}")
+    if ns > _COND_MAX_SPECIES:
+        raise ValueError(f"serve_conditional: at most {_COND_MAX_SPECIES} "
+                         "species (five float rows in shared memory)")
+    D, S = conditional_chunks(n, B)
+    f32 = dict(device=dev, dtype=torch.float32)
+    mean, sd = out if out is not None else (
+        torch.empty((B, ns), **f32), torch.empty((B, ns), **f32))
+    pmean = torch.empty((S, B, ns), **f32)
+    pm2 = torch.empty((S, B, ns), **f32)
+    lv, nr = _level_args(lams, etas)
+    ptr = lambda k: None if k not in nz else nz[k].data_ptr()  # noqa: E731
+    with torch.cuda.device(dev):
+        code = K.library().hmsc_serve_conditional(
+            X.data_ptr(), uidx.data_ptr(), Yc.data_ptr(), mask.data_ptr(),
+            Beta.data_ptr(), sigma.data_ptr(),
+            *(ctypes.addressof(a) for a in lv), nr, fam.data_ptr(),
+            ym.data_ptr(), ys.data_ptr(), ptr("eps_z"), ptr("u_z"),
+            ptr("eps_rows"), ptr("eps_out"), pmean.data_ptr(),
+            pm2.data_ptr(), mean.data_ptr(), sd.data_ptr(), n, B, ns, nc,
+            steps, nfm, D, S, int(Beta.dtype == torch.bfloat16),
+            int(bool(expected)), int(seed), int(offset) & 0xFFFFFFFF,
+            K.stream_of(Beta))
+    K.check(code, "serve_conditional")
+    K.launches["serve_conditional"] += 1
+    return mean, sd
+
+
+def _serve_conditional_plain(X, uidx, Yc, mask, Beta, sigma, lams, etas,
+                             fam, ym, ys, steps, expected, noise, gen):
+    """``_cond_one_draw`` (``hmsc_tpu/serve/kernels.py:255-328``) batched
+    over the draws: the per-level grams and Cholesky factors, the initial
+    Z, ``steps`` sweeps of (each level's rows, Z), the link."""
+    Beta, sigma = _widen(Beta, sigma)
+    lams = [l.float() for l in lams]
+    n, B = Beta.shape[0], X.shape[0]
+    LFix = torch.einsum("yc,ncj->nyj", X, Beta)
+    isig = 1.0 / sigma
+    rows = [eta.float()[:, uidx[r].long(), :] for r, eta in enumerate(etas)]
+    offs = [0]
+    for lam in lams:
+        offs.append(offs[-1] + lam.shape[1])
+    chol = []
+    for lam in lams:
+        U = torch.einsum("nfj,ngj,nj,yj->nyfg", lam, lam, isig, mask)
+        eye = torch.eye(lam.shape[1], dtype=U.dtype, device=U.device)
+        Lc, info = torch.linalg.cholesky_ex(U + eye)
+        chol.append(torch.where((info != 0)[..., None, None],
+                                float("nan"), Lc))
+
+    def loading(skip=None):
+        acc = 0.0
+        for r, lam in enumerate(lams):
+            if r != skip:
+                acc = acc + torch.einsum("nyf,nfj->nyj", rows[r], lam)
+        return acc
+
+    std = isig ** -0.5
+
+    def z_given_yc(E, t):
+        if noise is not None:
+            eps, u = noise["eps_z"][:, t].float(), noise["u_z"][:, t].float()
+        else:
+            eps = torch.randn(E.shape, generator=gen, dtype=E.dtype,
+                              device=E.device)
+            u = torch.rand(E.shape, generator=gen, dtype=E.dtype,
+                           device=E.device).clamp_min_(_TINY)
+        z = E + std[:, None, :] * eps
+        obs = mask > 0
+        z = torch.where((fam == FAM_NORMAL) & obs, Yc, z)
+        ztn = _truncated_normal_onesided_plain(E, std, Yc, u)
+        return torch.where((fam == FAM_PROBIT) & obs, ztn, z)
+
+    z = z_given_yc(LFix + loading(), 0)
+    for s in range(steps):
+        for r, lam in enumerate(lams):
+            others = loading(skip=r) if len(lams) > 1 else 0.0
+            S = z - LFix - others
+            F = torch.einsum("nyj,nfj->nyf", S * isig[:, None, :] * mask, lam)
+            Lc = chol[r]
+            mean = torch.cholesky_solve(F[..., None], Lc)[..., 0]
+            if noise is not None:
+                eps = noise["eps_rows"][:, s, :, offs[r]:offs[r + 1]].float()
+            else:
+                eps = torch.randn(mean.shape, generator=gen,
+                                  dtype=mean.dtype, device=mean.device)
+            nz = torch.linalg.solve_triangular(Lc.mT, eps[..., None],
+                                               upper=True)[..., 0]
+            rows[r] = mean + nz
+        z = z_given_yc(LFix + loading(), s + 1)
+    E = LFix + loading()
+    if expected:
+        out = torch.where(fam == FAM_PROBIT, _ndtr(E), E)
+    else:
+        eps = (noise["eps_out"].float() if noise is not None else
+               torch.randn(E.shape, generator=gen, dtype=E.dtype,
+                           device=E.device))
+        Z = E + torch.sqrt(sigma)[:, None, :] * eps
+        out = torch.where(fam == FAM_PROBIT, (Z > 0).to(Z.dtype), Z)
+    y = out * ys + ym
+    return y.mean(dim=0), y.std(dim=0, correction=0)

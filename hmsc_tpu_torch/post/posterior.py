@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["Posterior", "pool_mcmc_chains"]
+__all__ = ["Posterior", "pool_mcmc_chains", "posterior_from_numpy"]
 
 
 class Posterior:
@@ -255,3 +255,19 @@ def pool_mcmc_chains(post: Posterior, start: int = 0, thin: int = 1) -> list[dic
         if good[c]:
             out.extend(chain[start::thin])
     return out
+
+
+def posterior_from_numpy(hM, arrays: dict, *, samples: int, transient: int,
+                         thin: int) -> Posterior:
+    """The port's :class:`Posterior` over recorded arrays given as numpy
+    (``name -> (chains, samples, ...)``, e.g. a JAX package ``Posterior``'s
+    ``arrays``), with the port's model spec (``build_spec(hM)`` at the
+    recorded factor count), so both packages predict from identical
+    draws."""
+    from ..mcmc.structs import DEFAULT_NF_CAP, build_spec
+
+    nf = [np.shape(arrays[f"Lambda_{r}"])[2] for r in range(hM.nr)
+          if f"Lambda_{r}" in arrays]
+    spec = build_spec(hM, max(nf) if nf else DEFAULT_NF_CAP)
+    return Posterior(hM, spec, {k: np.asarray(v) for k, v in arrays.items()},
+                     samples=samples, transient=transient, thin=thin)

@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``hmsc_tpu_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package, its entry point refuses
+``chip_smoke.py`` imports JAX, the JAX package or ``ml_dtypes`` (which the
+card's machine does not have), its entry point refuses
 to fall back to the CPU when no card is present, and ``chip_smoke.py``
 fails (prints no result) without a card or without the repository."""
 
@@ -22,7 +23,7 @@ PORT_FILES = sorted((REPO / "hmsc_tpu_torch").rglob("*.py")) + [
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "hmsc_tpu")
+    return top in ("jax", "jaxlib", "flax", "hmsc_tpu", "ml_dtypes")
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
