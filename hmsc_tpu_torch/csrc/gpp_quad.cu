@@ -18,18 +18,20 @@
 // float32, it is off by up to its own size there (the JAX package's float32
 // form is), and the alpha sampler then jumps to the grid's top.  So iFg is
 // held in float64 on the device, and the knot sums Et, the quadratic and
-// the unit sums are accumulated in double; eta and the (G, np, nK) grid
+// the unit sums are accumulated in double; so is the (G, np, nK) grid
+// idDW12g, whose float32 rounding moves the ones-form 1' iW 1 by ~2e-5 of
+// itself at the grid's top (mcmc/structs.py · _F64_FIELDS); eta and idDg
 // stay float32.  The result is rounded to float32 once, at the end.
 //
-// What bounds it on the H100: in grid mode, bytes: the float32 grid
-// idDW12g (40.4 MB at config 3c: G 101, np 1000, nK 100) is the block's
+// What bounds it on the H100: in grid mode, bytes: the float64 grid
+// idDW12g (80.8 MB at config 3c: G 101, np 1000, nK 100) is the block's
 // dominant byte stream and is read ONCE for all chains and factors; iFg
-// (8.1 MB in float64) and idDg (0.4 MB) once too.  In at-alpha mode, one
-// grid slice per (chain, factor): launch latency and the slices' 400 KB
-// each.  Design:
+// (8.1 MB) and idDg (0.4 MB) once too.  In at-alpha mode, one grid slice
+// per (chain, factor): launch latency and the slices' 800 KB each.
+// Design:
 //   - grid mode: one block per grid point; the block's warps take units u =
 //     warp, warp + 8, ...; each lane holds one knot of each of 2 chunks of
-//     32 (64 knots a pass), so a warp reads 2 x 32 consecutive floats of one
+//     32 (64 knots a pass), so a warp reads 2 x 32 consecutive doubles of one
 //     unit's row of the grid for one read of the unit's eta values, and
 //     every thread carries up to 8 (chain, factor) columns; the warps'
 //     partial knot sums Et are then added in warp order and written to a
@@ -69,7 +71,7 @@ __device__ __forceinline__ long long eta_at(int col, int u, int np, int nf) {
 
 __global__ void gpp_quad_grid_kernel(const float* __restrict__ eta,
                                      const float* __restrict__ idDg,
-                                     const float* __restrict__ W,
+                                     const double* __restrict__ W,
                                      const double* __restrict__ iFg,
                                      const float* __restrict__ alphapw,
                                      double* Et, float* __restrict__ out,
@@ -92,7 +94,7 @@ __global__ void gpp_quad_grid_kernel(const float* __restrict__ eta,
     }
     return;
   }
-  const float* Wg = W + static_cast<long long>(g) * np * nK;
+  const double* Wg = W + static_cast<long long>(g) * np * nK;
   const float* dg = idDg + static_cast<long long>(g) * np;
   const double* iF = iFg + static_cast<long long>(g) * nK * nK;
   double* Etg = Et + static_cast<long long>(g) * ncol * nK;
@@ -127,11 +129,11 @@ __global__ void gpp_quad_grid_kernel(const float* __restrict__ eta,
 #pragma unroll
         for (int q = 0; q < kCols; ++q)
           e[q] = eta[base[q] + static_cast<long long>(u) * nf];
-        const float* Wu = Wg + static_cast<long long>(u) * nK;
+        const double* Wu = Wg + static_cast<long long>(u) * nK;
 #pragma unroll
         for (int k = 0; k < kChunks; ++k) {
           const int m = m0 + 32 * k + lane;
-          const double w = m < nK ? Wu[m] : 0.0f;
+          const double w = m < nK ? Wu[m] : 0.0;
 #pragma unroll
           for (int q = 0; q < kCols; ++q) acc[k][q] += e[q] * w;
         }
@@ -182,7 +184,7 @@ __global__ void gpp_quad_grid_kernel(const float* __restrict__ eta,
 
 __global__ void gpp_quad_at_kernel(const float* __restrict__ eta,
                                    const float* __restrict__ idDg,
-                                   const float* __restrict__ W,
+                                   const double* __restrict__ W,
                                    const double* __restrict__ iFg,
                                    const float* __restrict__ alphapw,
                                    const int* __restrict__ alpha, double* Es,
@@ -210,7 +212,7 @@ __global__ void gpp_quad_at_kernel(const float* __restrict__ eta,
     }
     return;
   }
-  const float* Wa = W + a * np * nK;
+  const double* Wa = W + a * np * nK;
   const float* da = idDg + a * np;
   const double* iF = iFg + a * nK * nK;
   double* E1 = Es + static_cast<long long>(col) * 2 * nK;
@@ -230,11 +232,11 @@ __global__ void gpp_quad_at_kernel(const float* __restrict__ eta,
 #pragma unroll 2
     for (int u = warp; u < np; u += kWarps) {
       const double e = E[static_cast<long long>(u) * nf];
-      const float* Wu = Wa + static_cast<long long>(u) * nK;
+      const double* Wu = Wa + static_cast<long long>(u) * nK;
 #pragma unroll
       for (int k = 0; k < kChunks; ++k) {
         const int m = m0 + 32 * k + lane;
-        const double w = m < nK ? Wu[m] : 0.0f;
+        const double w = m < nK ? Wu[m] : 0.0;
         a1[k] += w;
         ae[k] += e * w;
       }
@@ -282,7 +284,7 @@ __global__ void gpp_quad_at_kernel(const float* __restrict__ eta,
 }  // namespace
 
 extern "C" int hmsc_gpp_quad_grid(const float* eta, const float* idDg,
-                                  const float* idDW12g, const double* iFg,
+                                  const double* idDW12g, const double* iFg,
                                   const float* alphapw, double* scratch,
                                   float* out, int C, int np, int nf, int nK,
                                   int G, void* stream) {
@@ -293,7 +295,7 @@ extern "C" int hmsc_gpp_quad_grid(const float* eta, const float* idDg,
 }
 
 extern "C" int hmsc_gpp_quad_at(const float* eta, const float* idDg,
-                                const float* idDW12g, const double* iFg,
+                                const double* idDW12g, const double* iFg,
                                 const float* alphapw, const int* alpha,
                                 double* scratch, float* out, int C, int np,
                                 int nf, int nK, void* stream) {

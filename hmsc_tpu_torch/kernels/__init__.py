@@ -133,8 +133,8 @@ def library():
             lib.hmsc_poisson_z.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
                                            u64, u32, p]
             lib.hmsc_masked_gram.argtypes = [p, ll, ll, ll, p, ll, ll, p, ll,
-                                             ll, p, ll, ll, ll, p, p, i, i, i,
-                                             i, p]
+                                             ll, p, ll, ll, ll, p, p, p, p, p,
+                                             p, i, i, i, i, i, i, i, i, p]
             lib.hmsc_vecchia_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                              p]
             lib.hmsc_vecchia_adj.argtypes = [p, p, p, p, p, p, p, p, p, i, i,
@@ -146,7 +146,7 @@ def library():
             lib.hmsc_nngp_riw.argtypes = [p, p, p, p, p, i, i, i, i, p]
             lib.hmsc_gpp_unit.argtypes = [p, p, p, p, p, p, i, i, i, p]
             lib.hmsc_gpp_knot.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
-                                          i, p]
+                                          i, i, p]
             lib.hmsc_gpp_quad_grid.argtypes = [p, p, p, p, p, p, p, i, i, i,
                                                i, i, p]
             lib.hmsc_gpp_quad_at.argtypes = [p, p, p, p, p, p, p, p, i, i,

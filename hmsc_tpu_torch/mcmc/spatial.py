@@ -159,13 +159,14 @@ def gpp_factor(lvd, alpha_idx, LiSL):
     F_blk^{-1} M'`` with ``A = LiSL + unitdiag(idD)`` (the JAX package's
     ``gpp_factor`` with ``_eta_gpp``'s alpha-0 overrides), per chain:
     ``(M1 (C, nf, np, nK), iA, LiA (C, np, nf, nf), LH (C, nf nK, nf
-    nK))``.  B8d-1 writes ``iA`` and ``LiA``, B8d-2 ``H`` (float64); ``LH
+    nK))``, ``M1`` in ``LiSL``'s type (the grid is float64).  B8d-1 writes
+    ``iA`` and ``LiA``, B8d-2 ``H`` (float64); ``LH
     = chol_spd(H)`` in float64 (jittered, as ``A``'s factor in B8d-1 is;
     ``LiA`` is the plain Cholesky of ``iA``)."""
     alpha = alpha_idx.contiguous()
     iA, LiA = gpp_unit(lvd, alpha, LiSL.contiguous())
     LH = chol_spd(gpp_knot(lvd, alpha, iA))
-    return gpp_m1_at(lvd, alpha), iA, LiA, LH
+    return gpp_m1_at(lvd, alpha).to(LiSL.dtype), iA, LiA, LH
 
 
 def gpp_draw(payload, F, eps1, eps2):

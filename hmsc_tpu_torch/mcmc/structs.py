@@ -116,9 +116,9 @@ class LevelData(_Replace):
     rev_pos: Any = None          # (nnz,) int32
     # spatial 'GPP'
     idDg: Any = None             # (G, np)
-    idDW12g: Any = None          # (G, np, nK)
-    Fg: Any = None               # (G, nK, nK)
-    iFg: Any = None              # (G, nK, nK) float64 (see _F64_FIELDS)
+    idDW12g: Any = None          # (G, np, nK) float64 (see _F64_FIELDS)
+    Fg: Any = None               # (G, nK, nK) float64
+    iFg: Any = None              # (G, nK, nK) float64
     detDg: Any = None            # (G,)
 
 
@@ -352,8 +352,12 @@ _INT_FIELDS = {"pi_row": torch.int64, "distr_family": torch.int32,
 _INDEX_FIELDS = {"x_intercept_ind", "tr_intercept_ind", "x_ones_ind"}
 # held in float64 whatever the working type: the GPP grid's F^-1 reaches
 # cond(F) ~ 3e7 at large alpha, where its float32 rounding alone moves the
-# prior quadratic Et' F^-1 Et by up to its own size (csrc/gpp_quad.cu)
-_F64_FIELDS = {"iFg"}
+# prior quadratic Et' F^-1 Et by up to its own size (csrc/gpp_quad.cu); F
+# rounded to float32 moves the Eta draw's knot correction H = F - M' iA M
+# by 4.6% of the draw's sd at config 3c's largest alpha, and idD W12 the
+# location move's 1' iW 1 by 2e-5 of itself (csrc/gpp_knot.cu; idDg in
+# float32 moves neither by more than 1e-6)
+_F64_FIELDS = {"iFg", "Fg", "idDW12g"}
 
 
 def _tensor(name, a, device, dtype):

@@ -430,17 +430,18 @@ def serve_conditional(X, uidx, Yc, mask, Beta, sigma, lams, etas, fam, ym,
     return mean, sd
 
 
-def _serve_conditional_plain(X, uidx, Yc, mask, Beta, sigma, lams, etas,
-                             fam, ym, ys, steps, expected, noise, gen):
-    """``_cond_one_draw`` (``hmsc_tpu/serve/kernels.py:255-328``) batched
-    over the draws: the per-level grams and Cholesky factors, the initial
-    Z, ``steps`` sweeps of (each level's rows, Z), the link."""
-    Beta, sigma = _widen(Beta, sigma)
-    lams = [l.float() for l in lams]
-    n, B = Beta.shape[0], X.shape[0]
+def _conditional_predictor(X, uidx, Yc, mask, Beta, sigma, lams, etas, fam,
+                           steps, noise, gen, dtype=torch.float32):
+    """B9b's per-draw linear predictor after ``steps`` sweeps of (each
+    level's rows, Z) given the observed cells, computed in ``dtype``:
+    ``(E (n, B, ns), LFix (n, B, ns), rows)``, ``rows[r]`` (n, B, nf_r) the
+    rows' final latent factors."""
+    Beta, sigma, X = Beta.to(dtype), sigma.to(dtype), X.to(dtype)
+    Yc, mask = Yc.to(dtype), mask.to(dtype)
+    lams = [l.to(dtype) for l in lams]
     LFix = torch.einsum("yc,ncj->nyj", X, Beta)
     isig = 1.0 / sigma
-    rows = [eta.float()[:, uidx[r].long(), :] for r, eta in enumerate(etas)]
+    rows = [eta.to(dtype)[:, uidx[r].long(), :] for r, eta in enumerate(etas)]
     offs = [0]
     for lam in lams:
         offs.append(offs[-1] + lam.shape[1])
@@ -463,7 +464,8 @@ def _serve_conditional_plain(X, uidx, Yc, mask, Beta, sigma, lams, etas,
 
     def z_given_yc(E, t):
         if noise is not None:
-            eps, u = noise["eps_z"][:, t].float(), noise["u_z"][:, t].float()
+            eps = noise["eps_z"][:, t].to(dtype)
+            u = noise["u_z"][:, t].to(dtype)
         else:
             eps = torch.randn(E.shape, generator=gen, dtype=E.dtype,
                               device=E.device)
@@ -484,7 +486,8 @@ def _serve_conditional_plain(X, uidx, Yc, mask, Beta, sigma, lams, etas,
             Lc = chol[r]
             mean = torch.cholesky_solve(F[..., None], Lc)[..., 0]
             if noise is not None:
-                eps = noise["eps_rows"][:, s, :, offs[r]:offs[r + 1]].float()
+                eps = noise["eps_rows"][:, s, :, offs[r]:offs[r + 1]].to(
+                    dtype)
             else:
                 eps = torch.randn(mean.shape, generator=gen,
                                   dtype=mean.dtype, device=mean.device)
@@ -492,7 +495,17 @@ def _serve_conditional_plain(X, uidx, Yc, mask, Beta, sigma, lams, etas,
                                                upper=True)[..., 0]
             rows[r] = mean + nz
         z = z_given_yc(LFix + loading(), s + 1)
-    E = LFix + loading()
+    return LFix + loading(), LFix, rows
+
+
+def _serve_conditional_plain(X, uidx, Yc, mask, Beta, sigma, lams, etas,
+                             fam, ym, ys, steps, expected, noise, gen):
+    """``_cond_one_draw`` (``hmsc_tpu/serve/kernels.py:255-328``) batched
+    over the draws: the per-level grams and Cholesky factors, the initial
+    Z, ``steps`` sweeps of (each level's rows, Z), the link."""
+    E, _, _ = _conditional_predictor(X, uidx, Yc, mask, Beta, sigma, lams,
+                                     etas, fam, steps, noise, gen)
+    sigma = sigma.float()
     if expected:
         out = torch.where(fam == FAM_PROBIT, _ndtr(E), E)
     else:

@@ -24,7 +24,7 @@ wrappers:
 ``lvd`` is a level's ``LevelData``: for NNGP ``nn_idx`` (np, k),
 ``nn_coef`` (G, np, k), ``nn_D`` (G, np), ``nn_n`` and the
 reverse-neighbour CSR (``rev_ptr``, ``rev_pos``); for GPP ``idDg`` (G, np),
-``idDW12g`` (G, np, nK), ``Fg`` and ``iFg`` (G, nK, nK; ``iFg`` in
+``idDW12g`` (G, np, nK), ``Fg`` and ``iFg`` (G, nK, nK; all but ``idDg`` in
 float64) and ``alphapw`` (G, 2), whose grid points at alpha 0 switch the
 knot algebra off (``W = I``).  ``alpha_idx`` (C, nf) picks each chain's factor's grid point, and
 iterates are (C, np, nf).  The kernels read the grids in place at those
@@ -267,8 +267,8 @@ def _check_gpp(name, lvd, alpha_idx, *tensors):
     """Device, type and layout checks of a GPP level before a launch."""
     dev = lvd.idDW12g.device
     for label, t, dtype in ((("idDg", lvd.idDg, torch.float32),
-                             ("idDW12g", lvd.idDW12g, torch.float32),
-                             ("Fg", lvd.Fg, torch.float32),
+                             ("idDW12g", lvd.idDW12g, torch.float64),
+                             ("Fg", lvd.Fg, torch.float64),
                              ("iFg", lvd.iFg, torch.float64),
                              ("alphapw", lvd.alphapw, torch.float32))
                             + ((("alpha_idx", alpha_idx, torch.int32),)
@@ -337,9 +337,12 @@ def gpp_knot(lvd, alpha_idx, iA):
     (zero at alpha 0): ``H[c, h nK + m, g nK + n] = [h = g] F[m, n] - sum_u
     M1[h,u,m] iA[u,h,g] M1[g,u,n]``, (C, nf nK, nf nK) in float64: H's
     condition number reaches ~2e7 at a large alpha, so the sums are taken
-    in double and the knot-space factorisation runs in float64 (see
-    ``csrc/gpp_knot.cu``).  The unit sum runs in a fixed
-    order, so two runs give the same bits."""
+    in double from the float64 grids and the knot-space factorisation runs
+    in float64 (see ``csrc/gpp_knot.cu``).  The kernel sums the lower
+    triangle over the unit ranges of :func:`_knot_splits`, then adds the
+    ranges in order and mirrors, so H is exactly symmetric and two runs
+    give the same bits; it reads ``iA[u, h, g]`` for ``h >= g`` only (iA is
+    symmetric: :func:`gpp_unit`'s kernel writes it so)."""
     C, npr, nf, _ = iA.shape
     nK = lvd.idDW12g.shape[2]
     if not iA.is_cuda:
@@ -348,25 +351,37 @@ def gpp_knot(lvd, alpha_idx, iA):
         raise ValueError(f"gpp_knot: iA {tuple(iA.shape)}, alpha_idx "
                          f"{tuple(alpha_idx.shape)}")
     _check_gpp("gpp_knot", lvd, alpha_idx, ("iA", iA, torch.float32))
-    splits = _knot_splits(npr)
-    n = nf * nK
-    partial = iA.new_empty((C, splits, n, n), dtype=torch.float64)
-    H = iA.new_empty((C, n, n), dtype=torch.float64)
+    S, chunk = _knot_splits(C, npr, nf, nK)
+    partial = iA.new_empty((C, S, nf * (nf + 1) // 2, nK, nK),
+                           dtype=torch.float64)
+    H = iA.new_empty((C, nf * nK, nf * nK), dtype=torch.float64)
     with torch.cuda.device(iA.device):
         code = K.library().hmsc_gpp_knot(
             iA.data_ptr(), lvd.idDW12g.data_ptr(), lvd.Fg.data_ptr(),
             lvd.alphapw.data_ptr(), alpha_idx.data_ptr(), partial.data_ptr(),
-            H.data_ptr(), C, npr, nf, nK, splits, K.stream_of(iA))
+            H.data_ptr(), C, npr, nf, nK, S, chunk, K.stream_of(iA))
     K.check(code, "gpp_knot")
     K.launches["gpp_knot"] += 1
     return H
 
 
-def _knot_splits(npr):
-    """Unit ranges B8d-2 splits the sum into (blocks of at least 128 units,
-    at most 8 ranges): a function of the shape only, so the order of the
-    final sum never changes from run to run."""
-    return max(1, min(8, npr // 128))
+# csrc/gpp_knot.cu's block: one factor pair's band of up to 128 rows x 104
+# columns of H, 16 units a stage; launches aim at ~one block an H100 SM
+_KNOT_BAND_ROWS, _KNOT_BAND_COLS, _KNOT_UNITS, _KNOT_BLOCKS = 128, 104, 16, 132
+
+
+def _knot_splits(C, npr, nf, nK):
+    """``(S, chunk)``: the unit range B8d-2 splits its sums into, ``S``
+    consecutive ranges of ``chunk`` units (a multiple of the 16-unit stage;
+    none empty, at least 64 units each), enough that a launch has about
+    ``_KNOT_BLOCKS`` blocks.  A function of the shape only, so the order
+    of the final sum never changes from run to run."""
+    items = (nf * (nf + 1) // 2 * -(-nK // _KNOT_BAND_ROWS)
+             * -(-nK // _KNOT_BAND_COLS))
+    S = max(1, min(npr // 64, -(-_KNOT_BLOCKS // max(1, C * items))))
+    chunk = -(-max(npr, 1) // S)
+    chunk = -(-chunk // _KNOT_UNITS) * _KNOT_UNITS
+    return -(-max(npr, 1) // chunk), chunk
 
 
 def _gpp_knot_plain(lvd, alpha_idx, iA):

@@ -246,11 +246,13 @@ def test_knots_grids_and_level_data_match_jax(b):
     data_t = tstructs.build_model_data(b["mt"], dp, b["spec_t"], "cpu")
     flat = flatten(b["data_j"])
     for k in ("alphapw", "idDg", "idDW12g", "Fg", "iFg", "detDg"):
-        # iFg is held in float64 (the JAX package's is float32)
+        # iFg, Fg and idDW12g are held in float64 (the JAX package's are
+        # float32)
         np.testing.assert_array_equal(
             getattr(data_t.levels[0], k).numpy().astype(np.float32),
             flat[f"levels.0.{k}"], err_msg=k)
-    assert data_t.levels[0].iFg.dtype == torch.float64
+    for k in ("iFg", "Fg", "idDW12g"):
+        assert getattr(data_t.levels[0], k).dtype == torch.float64, k
 
 
 # --- B8d-1, B8d-2, B8d-3: the plain versions --------------------------------
@@ -291,6 +293,87 @@ def test_b8d1_b8d2_plain_match_gpp_factor(b):
         if ALPHA[c][0] == 0:
             np.testing.assert_array_equal(H[:nK, :nK], np.eye(nK))
             assert not H[:nK, nK:].any() and not H[nK:, :nK].any()
+
+
+@pytest.mark.parametrize("shape", [(4, 1000, 2, 100), (2, 300, 3, 9),
+                                   (1, 40, 2, 9), (4, 5000, 4, 150),
+                                   (2, 0, 2, 9)])
+def test_b8d2_unit_splits_depend_on_the_shape_only(shape):
+    """The unit range is cut into S consecutive ranges of ``chunk`` units,
+    a multiple of the 16-unit stage, none empty, at least 64 units each
+    where there are 64, the same on every call; at config 3c's shape the
+    launch has one block for each of an H100's 132 SMs."""
+    C, npr, nf, nK = shape
+    S, chunk = tops._knot_splits(C, npr, nf, nK)
+    assert (S, chunk) == tops._knot_splits(C, npr, nf, nK)
+    assert S >= 1 and chunk % 16 == 0 and chunk >= min(64, max(npr, 1))
+    assert S * chunk >= npr and (S - 1) * chunk < max(npr, 1)
+    if shape == (4, 1000, 2, 100):
+        assert C * 3 * S == 132
+
+
+def _gpp_knot_as_kernel(lvd, alpha_idx, iA):
+    """csrc/gpp_knot.cu's summation in plain PyTorch (float64): for each
+    factor pair h >= g, the unit ranges of ``_knot_splits`` summed
+    separately and added in split order, negated, F added on a diagonal
+    pair at the lower position, and each lower entry (m >= n on a diagonal
+    pair) written to both of its places."""
+    C, npr, nf, _ = iA.shape
+    M1 = tops.gpp_m1_at(lvd, alpha_idx).double()         # (C, nf, np, nK)
+    nK = M1.shape[3]
+    S, chunk = tops._knot_splits(C, npr, nf, nK)
+    iA = iA.double()
+    H = torch.empty((C, nf * nK, nf * nK), dtype=torch.float64)
+    low = torch.tril(torch.ones((nK, nK), dtype=torch.bool))
+    for h in range(nf):
+        for g in range(h + 1):
+            total = torch.zeros((C, nK, nK), dtype=torch.float64)
+            for sp in range(S):
+                u = slice(sp * chunk, min(npr, (sp + 1) * chunk))
+                total = total + torch.einsum(
+                    "cum,cu,cun->cmn", M1[:, h, u], iA[:, u, h, g],
+                    M1[:, g, u])
+            blk = -total
+            if h == g:
+                F = lvd.Fg[alpha_idx[:, h].long()].double()
+                blk = torch.where(low, blk + F, (blk + F).transpose(1, 2))
+                blk = torch.where(low, blk, blk.transpose(1, 2))
+            H[:, h * nK:(h + 1) * nK, g * nK:(g + 1) * nK] = blk
+            H[:, g * nK:(g + 1) * nK, h * nK:(h + 1) * nK] = \
+                blk.transpose(1, 2)
+    return H
+
+
+def test_b8d2_kernel_summation_order_matches_plain():
+    """The kernel's order of summation (the lower triangle by factor pair,
+    unit ranges in split order, mirrored) gives the plain version's H to
+    1e-12 of each chain's max|H| in float64, and an exactly symmetric H,
+    on 300 units in 4 ranges (the last ragged), 9 knots, 3 factors at
+    alpha indices 0, 50 and 100.  The kernel reads iA[u, h, g] for h >= g
+    only, so iA is made exactly symmetric, as B8d-1's kernel writes it
+    (the plain B8d-1's triangular solves leave ~1e-7 of asymmetry)."""
+    rng = np.random.default_rng(11)
+    xy = rng.uniform(size=(300, 2)) * 10
+    alphas = float(np.sqrt(200.0)) * np.arange(101) / 100
+    lp = t_gpp_grids(xy, ht.construct_knots(xy, n_knots=3), alphas)
+    lvd = tstructs.LevelData(
+        pi_row=None, unit_count=None, x_row=None, x_unit=None, nu=None,
+        a1=None, b1=None, a2=None, b2=None,
+        alphapw=_t(np.column_stack([alphas, np.full(101, 1 / 101)])).float(),
+        **{k: tstructs._tensor(k, getattr(lp, k), "cpu", torch.float32)
+           for k in ("idDg", "idDW12g", "Fg", "iFg", "detDg")})
+    alpha = torch.tensor([[0, 50, 100], [100, 0, 50]], dtype=torch.int32)
+    M = rng.standard_normal((2, 300, 3, 3))
+    LiSL = _t((M @ M.transpose(0, 1, 3, 2) * 20.0).astype(np.float32))
+    iA, _ = tops.gpp_unit(lvd, alpha, LiSL)
+    iA = (iA + iA.transpose(2, 3)) / 2      # exactly symmetric, as B8d-1's
+    S, chunk = tops._knot_splits(2, 300, 3, 9)
+    assert S == 4 and 300 % chunk != 0
+    H = _gpp_knot_as_kernel(lvd, alpha, iA)
+    Hp = tops._gpp_knot_plain(lvd, alpha, iA)
+    scale = Hp.abs().amax(dim=(1, 2), keepdim=True)
+    assert ((H - Hp).abs() / scale).max() <= 1e-12
+    assert torch.equal(H, H.transpose(1, 2))
 
 
 def test_b8d1_plain_indefinite_block_is_nan(b):
@@ -408,6 +491,47 @@ def test_gpp_quadratic_is_accurate_at_large_alpha():
     vj = np.asarray(JS.eta_quad_grid(lvj, SimpleNamespace(spatial="GPP"),
                                      jnp.asarray(eta))[0])[:, 1:]
     assert (np.abs(vj - ref) / np.abs(ref)).max() > 1e-2
+
+
+def test_gpp_ones_forms_are_accurate_at_large_alpha():
+    """The location move's ones-forms (1' iW 1, 1' iW eta) of the
+    large-alpha level at grid indices 14, 50 and 100, through
+    ``eta_ones_forms_at`` on the level as the port loads it (idDW12g, Fg
+    and iFg in float64): within 1e-6 of the float64 values from the
+    float64 grids (1' iW 1 relative, 1' iW eta of the sum of its terms'
+    magnitudes).  With idDW12g rounded to float32, 1' iW 1 is off by more
+    than that at the last index (1.3e-5 when this test was written, 3.6e-7
+    from the float64 grids; ROADMAP Queue C, C1)."""
+    from types import SimpleNamespace
+
+    rng, xy, lp, alphapw = _large_alpha_level()
+    d = np.sqrt(((xy[:, None] - xy[None]) ** 2).sum(-1))
+    eta = (np.linalg.cholesky(np.exp(-d / 4.0))
+           @ rng.standard_normal((40, 2))).astype(np.float32)
+    e64 = eta.astype(np.float64)
+    fields = ("idDg", "idDW12g", "Fg", "iFg", "detDg")
+    lvd = SimpleNamespace(
+        alphapw=_t(alphapw).float(),
+        **{k: tstructs._tensor(k, getattr(lp, k), "cpu", torch.float32)
+           for k in fields})
+    lvd32 = SimpleNamespace(**vars(lvd))
+    lvd32.idDW12g = lvd.idDW12g.float()
+    gpp = SimpleNamespace(spatial="GPP")
+    for g in (14, 50, 100):
+        idD, W, iF = lp.idDg[g], lp.idDW12g[g], lp.iFg[g]
+        E1, Ee = W.sum(axis=0), e64.T @ W
+        q1 = idD.sum() - E1 @ iF @ E1
+        s = idD @ e64 - np.einsum("m,mn,hn->h", E1, iF, Ee)
+        s_mag = (idD @ np.abs(e64)
+                 + np.einsum("m,mn,hn->h", np.abs(E1), np.abs(iF),
+                             np.abs(Ee)))
+        alpha = torch.full((1, 2), g, dtype=torch.int32)
+        got1, gots = TS.eta_ones_forms_at(lvd, gpp, _t(eta)[None], alpha)
+        assert (np.abs(got1.numpy()[0] - q1) <= 1e-6 * abs(q1)).all(), g
+        assert (np.abs(gots.numpy()[0] - s) <= 1e-6 * s_mag).all(), g
+        if g == 100:
+            f32 = TS.eta_ones_forms_at(lvd32, gpp, _t(eta)[None], alpha)[0]
+            assert (np.abs(f32.numpy()[0] - q1) > 1e-6 * abs(q1)).all()
 
 
 def test_gpp_draw_is_accurate_at_large_alpha():

@@ -186,6 +186,95 @@ def test_b6_plain_matches_jax_einsums(P):
     assert not G[:, 0].any() and not R[:, 0].any()      # all-missing row
 
 
+# --- B6's host-side layout: packed columns, column tiles, k splits ---------
+
+@pytest.mark.parametrize("P", [1, 4, 8, 10, 16, 18, 50])
+def test_b6_packed_columns_and_tiles(P):
+    """The packed column map is G's upper-triangle pairs (p <= q) row by
+    row, each once, then R's P entries as (p, -1); the column tiles carry
+    at most 8 gram slots of 16 and together cover every gram and
+    right-hand-side slot."""
+    colp, colq = (t.numpy() for t in tgram.gram_columns(P))
+    n_pair = P * (P + 1) // 2
+    assert colp.dtype == colq.dtype == np.int32
+    assert len(colp) == len(colq) == n_pair + P
+    pairs = list(zip(colp[:n_pair].tolist(), colq[:n_pair].tolist()))
+    assert pairs == [(p, q) for p in range(P) for q in range(p, P)]
+    np.testing.assert_array_equal(colp[n_pair:], np.arange(P))
+    assert (colq[n_pair:] == -1).all()
+    NG, T = tgram.gram_tiles(P)
+    assert 1 <= NG <= 8 and T >= 1
+    assert T * NG * 16 >= n_pair and T * 16 >= P
+    assert (T - 1) * NG * 16 < n_pair or (T - 1) * 16 < P   # no idle tile
+
+
+@pytest.mark.parametrize("shape", [(4, 1000, 1000, 10), (4, 1000, 1000, 8),
+                                   (2, 33, 21, 4), (1, 5, 0, 3),
+                                   (4, 300, 90, 18), (3, 7, 4000, 2)])
+def test_b6_k_splits_depend_on_the_shape_only(shape):
+    """K is cut into S consecutive ranges of ``chunk`` rows, a multiple of
+    the 16-row k tile, none empty, the same on every call; at the NA
+    headline's two forms a launch of 64-output blocks has 7 to 9 blocks
+    on each of an H100's 132 SMs."""
+    C, O, Kd, P = shape
+    S, chunk = tgram.gram_splits(C, O, Kd, P)
+    assert (S, chunk) == tgram.gram_splits(C, O, Kd, P)
+    assert S >= 1 and chunk >= 16 and chunk % 16 == 0
+    assert S * chunk >= Kd and (S - 1) * chunk < max(Kd, 1)
+    if (O, Kd) == (1000, 1000):
+        blocks = -(-O // 64) * S * C * tgram.gram_tiles(P)[1]
+        assert 7 * 132 <= blocks < 9 * 132
+
+
+def _masked_gram_as_kernel(v, w, s, a):
+    """csrc/masked_gram.cu's summation in plain PyTorch: each k range of
+    ``gram_splits`` summed into the packed columns (``gram_columns``), the
+    ranges added in split order, then G's pairs written to both halves and
+    R's entries to R."""
+    C, Kd, P = v.shape
+    O = w.shape[0]
+    colp, colq = (t.long() for t in tgram.gram_columns(P))
+    n_pair = P * (P + 1) // 2
+    S, chunk = tgram.gram_splits(C, O, Kd, P)
+    a = torch.ones((C, Kd)) if a is None else a
+    total = torch.zeros((C, O, n_pair + P))
+    for sp in range(S):
+        k = slice(sp * chunk, min(Kd, (sp + 1) * chunk))
+        vk, ak = v[:, k], a[:, k]
+        bg = ak[..., None] * vk[..., colp[:n_pair]] * vk[..., colq[:n_pair]]
+        br = ak[..., None] * vk
+        part = torch.cat([torch.einsum("ok,ckn->con", w[:, k], bg),
+                          torch.einsum("cok,ckp->cop", w[None, :, k]
+                                       * s[:, :, k], br)], dim=2)
+        total = total + part
+    G = torch.empty((C, O, P, P))
+    G[:, :, colp[:n_pair], colq[:n_pair]] = total[..., :n_pair]
+    G[:, :, colq[:n_pair], colp[:n_pair]] = total[..., :n_pair]
+    return G, total[..., n_pair:]
+
+
+@pytest.mark.parametrize("P", [3, 10, 18])
+def test_b6_kernel_summation_order_matches_plain(P):
+    """The kernel's order of summation (k ranges in split order over the
+    packed columns, G mirrored) gives the plain version's G and R to rtol
+    1e-5, in both forms; the inputs cut K into several splits, with a
+    ragged last range, and include an all-missing species and row."""
+    XE, mask, Z, lam, iSigma = _gram_inputs(P, C=2, ny=150, ns=111)
+    for v, w, s, a in ((_t(XE), _t(mask).T, _t(Z).transpose(1, 2), None),
+                       (_t(lam).transpose(1, 2), _t(mask), _t(Z),
+                        _t(iSigma))):
+        S, chunk = tgram.gram_splits(v.shape[0], w.shape[0], v.shape[1], P)
+        assert S >= 3 and v.shape[1] % chunk != 0
+        G, R = _masked_gram_as_kernel(v, w, s, a)
+        Gp, Rp = tgram._masked_gram_plain(v, w, s, a)
+        np.testing.assert_allclose(G.numpy(), Gp.numpy(), rtol=1e-5,
+                                   atol=1e-5 * Gp.abs().max().item())
+        np.testing.assert_allclose(R.numpy(), Rp.numpy(), rtol=1e-5,
+                                   atol=1e-5 * Rp.abs().max().item())
+        assert torch.equal(G, G.transpose(2, 3))
+        assert not G[:, 0].any() and not R[:, 0].any()
+
+
 # --- divergence containment ------------------------------------------------
 
 def test_poisson_na_divergence_is_contained():
