@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py
 
+(``scripts/kernel_checks.py`` runs chosen kernels' checks and times
+alone.)
+
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. Device: the card's name and power limit (nvidia-smi), then the build of
@@ -25,7 +28,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    67 TFLOP/s, the larger).  Beside them, the CUDA-event time of a batch of
    calls per call, which includes the host's enqueue where that is slower,
    and the same with the stream held until the batch is enqueued (the
-   stand-in where the profiler keeps no record of a kernel).
+   stand-in where the profiler keeps no record of a kernel).  For B9a also
+   its issue-rate floor: the instructions a cell of the built kernel's
+   per-draw loop (``cuobjdump -sass``) times the cells, over the card's
+   issue rate (4 warp instructions a clock on each SM).
 4. Recovery: a 200 x 30 probit model; posterior-mean slopes must correlate
    > 0.9 with the simulated ones.
 5. The main paths through ``sample_mcmc``, each with every kernel's launch
@@ -1195,12 +1201,15 @@ def _gpp_alpha(torch, dev, C, nf):
     return torch.tensor(a, dtype=torch.int32, device=dev)
 
 
-def _gpp_used_bytes(lvd, alpha):
+def _gpp_used_bytes(lvd, alpha, skip_zero=False):
     """Bytes of the grid slices at the distinct alpha indices in use: idD
-    (float32), idD W12 and F or iF (float64)."""
+    (float32), idD W12 and F or iF (float64); with ``skip_zero``, only
+    those off alpha 0 (W = I, where B8d-3 reads no slice)."""
     _, n, nK = lvd.idDW12g.shape
-    used = int(alpha.unique().numel())
-    return used * (4.0 * n + 8.0 * (n * nK + nK * nK))
+    a = alpha.unique().long()
+    if skip_zero:
+        a = a[lvd.alphapw[a, 0] != 0]
+    return int(a.numel()) * (4.0 * n + 8.0 * (n * nK + nK * nK))
 
 
 def _gpp_quad_grid_f32(torch, lvd, eta):
@@ -1452,7 +1461,9 @@ def check_b8d(torch, tsp, dev, card):
                 ("gpp_unit", unit, unit_plain, ("gpp_unit_kernel",)),
                 ("gpp_knot", knot, knot_plain,
                  ("gpp_knot_partial_kernel", "gpp_knot_sum_kernel")),
-                ("gpp_quad", grid, grid_plain, ("gpp_quad_grid_kernel",))):
+                ("gpp_quad", grid, grid_plain,
+                 ("gpp_quad_grid_partial_kernel",
+                  "gpp_quad_grid_final_kernel"))):
             ms_parts = [device_ms(torch, kern, m) for m in match]
             t[name] = dict(
                 ms=sum(ms_parts), parts_ms=ms_parts,
@@ -1470,27 +1481,36 @@ def check_b8d(torch, tsp, dev, card):
         # rate)
         b2 = bound_ms(used + 4.0 * C * n * nf * nf + 8.0 * C * (nf * nK) ** 2,
                       C * n * (nf * nK) * (nf * nK + 1.0))
-        # grid mode: idD, (float64) idD W12 and iF grids once, eta in, C nf
-        # G out; operations per (column, grid point): 2 np nK (Et), 3 nK^2,
-        # 3 np
-        b3 = bound_ms(4.0 * (G * n + C * n * nf + C * nf * G)
-                      + 8.0 * G * (n * nK + nK * nK),
-                      C * nf * G * (2.0 * n * nK + 3.0 * nK * nK + 3.0 * n))
+        # grid mode: the idD, (float64) idD W12 and iF slices of the grid
+        # points off alpha 0 (the kernel reads no slice where W = I) once,
+        # eta in, C nf G out; operations per (column, grid point): 2 np nK
+        # (Et), 3 nK^2, 3 np
+        Gk = int((lvd.alphapw[:, 0] != 0).sum().item())
+        b3 = bound_ms(4.0 * (Gk * n + C * n * nf + C * nf * G)
+                      + 8.0 * Gk * (n * nK + nK * nK),
+                      C * nf * Gk * (2.0 * n * nK + 3.0 * nK * nK + 3.0 * n))
         t["gpp_knot"]["library_ms"] = device_ms(torch, knot_library, calls=10)
         t["gpp_knot"]["library64_ms"] = device_ms(torch, knot_library64,
                                                   calls=10)
         t["gpp_unit"]["library_ms"] = t["gpp_quad"]["library_ms"] = None
-        at_ms = device_ms(torch, at, "gpp_quad_at_kernel")
+        at_parts = [device_ms(torch, at, m) for m in (
+            "gpp_quad_at_partial_kernel", "gpp_quad_at_final_kernel")]
+        at_ms = sum(at_parts)
         at_plain_ms = device_ms(torch, at_plain, calls=10)
-        b_at = bound_ms(_gpp_used_bytes(lvd, alpha)
+        # at alpha: the float64 slices at the distinct alpha indices off 0
+        # once (the kernel reads none where W = I), eta in, (q, q1, s) out;
+        # operations per column off alpha 0
+        cols = int((~tsp.gpp_alpha_zero(lvd, alpha)).sum().item())
+        b_at = bound_ms(_gpp_used_bytes(lvd, alpha, skip_zero=True)
                         + 4.0 * (C * n * nf + 3 * C * nf),
-                        C * nf * (4.0 * n * nK + 9.0 * nK * nK + 5.0 * n))
+                        cols * (4.0 * n * nK + 9.0 * nK * nK + 5.0 * n))
         for name, (bb, by) in (("gpp_unit", b1), ("gpp_knot", b2),
                                ("gpp_quad", b3)):
             t[name].update(bound_ms=bb, bound_by=by,
                            max_abs_err=abs_err[name], shape=[C, n, nK, nf])
-        t["gpp_quad"].update(at_ms=at_ms, at_plain_ms=at_plain_ms,
-                             at_bound_ms=b_at[0])
+        t["gpp_quad"].update(at_ms=at_ms, at_parts_ms=at_parts,
+                             at_plain_ms=at_plain_ms, at_bound_ms=b_at[0],
+                             at_bound_by=b_at[1])
         for name, label in (("gpp_unit", "B8d-1 gpp_unit"),
                             ("gpp_knot", "B8d-2 gpp_knot"),
                             ("gpp_quad", "B8d-3 gpp_quad grid")):
@@ -1499,13 +1519,15 @@ def check_b8d(torch, tsp, dev, card):
                    f", one float32 torch.einsum of the weighted gram "
                    f"{r['library_ms']:.4f} ms, float64 "
                    f"{r['library64_ms']:.4f} ms")
+            parts = " + ".join(f"{x:.5f}" for x in r["parts_ms"])
             print(f"{label} device time at C {C}, np {n}, nK {nK}, nf {nf}: "
-                  f"{r['ms']:.5f} ms ({' + '.join(f'{x:.5f}' for x in r['parts_ms'])}; plain "
+                  f"{r['ms']:.5f} ms ({parts}; plain "
                   f"{r['plain_ms']:.4f} ms{lib}, bound {r['bound_ms']:.6f} "
                   f"ms by {r['bound_by']}; held stream {r['held_ms']:.5f} "
                   f"ms, with enqueue {r['event_ms']:.4f} ms, plain "
                   f"{r['plain_event_ms']:.4f} ms) [{card}]")
-        print(f"B8d-3 gpp_quad at-alpha device time: {at_ms:.5f} ms (plain "
+        print(f"B8d-3 gpp_quad at-alpha device time: {at_ms:.5f} ms "
+              f"({' + '.join(f'{x:.5f}' for x in at_parts)}; plain "
               f"{at_plain_ms:.4f} ms, bound {b_at[0]:.6f} ms by {b_at[1]}) "
               f"[{card}]")
         res = t
@@ -1726,27 +1748,171 @@ def _kernel_ms(torch, fn, names):
     return sum(device_ms(torch, fn, name) for name in names)
 
 
-def b9a_bound(n, B, ns, nc, nf, nbytes_draw=4):
+def b9a_bound(n, B, ns, nc, nf, nbytes_draw=4, moments=True, draws=False):
     """Bytes: the draws of Beta, sigma and Lambda, the Eta rows the block
-    gathers, X and uidx read once, mean and sd written once; operations:
-    the linear predictor's 2 (nc + nf) B ns n multiply-adds."""
+    gathers, X and uidx read once, mean and sd written once when
+    ``moments``, the (n, B, ns) float32 draws written once when ``draws``;
+    operations: the linear predictor's 2 (nc + nf) B ns n multiply-adds.
+    Returns (bound ms, "bytes" or "operations", bytes ms, operations ms)."""
     nbytes = (nbytes_draw * n * (nc * ns + ns + nf * ns + B * nf)
-              + 4 * (B * nc + B) + 4 * 2 * B * ns)
-    return bound_ms(nbytes, 2.0 * (nc + nf) * B * ns * n)
+              + 4 * (B * nc + B) + (4 * 2 * B * ns if moments else 0)
+              + (4 * n * B * ns if draws else 0))
+    ops = 2.0 * (nc + nf) * B * ns * n
+    b, by = bound_ms(nbytes, ops)
+    return b, by, nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
 
 
-def check_b9a(torch, tserve, dev, card):
-    """B9a against its plain version: expected moments and draws at B 1 and
-    64, float32 and bfloat16 draws, to 1e-5; a normal / probit / Poisson
-    mix to 1e-5 of max(1, |plain|); two runs bit-identical; sampled probit
-    means within the 1e-9 binomial tails of the expected ones; sampled
-    normal draws
-    by KS against their law and Poisson draws by KS against the plain
-    sampler's (rates 0.5, 5, 50, 5000)."""
+# the B9a instance whose SASS gives the issue-rate floor: float32 draws, 8
+# rows a warp (B 64), expected
+B9A_SASS = "serve_predict_kernelIfLi8ELb1E"
+
+
+def cuobjdump():
+    """The CUDA toolkit's cuobjdump, or the copy Triton's package carries,
+    or None."""
+    import os
+    import shutil
+
+    cands = [shutil.which("cuobjdump") or "", "/usr/local/cuda/bin/cuobjdump"]
+    try:
+        import triton
+
+        cands.append(os.path.join(os.path.dirname(triton.__file__),
+                                  "backends", "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    return next((c for c in cands if c and os.path.exists(c)), None)
+
+
+def _sass(lib_path):
+    """``cuobjdump -sass`` of the built library, or None without the tool."""
+    tool = cuobjdump()
+    if tool is None:
+        return None
+    r = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                       text=True, timeout=600)
+    return r.stdout if r.returncode == 0 else None
+
+
+def sass_cell_instructions(sass, name, kl, cells_a_pass):
+    """Instructions a B9a cell issues, read from the SASS of kernel
+    ``name``: the per-draw loop (the largest loop holding both a cp.async,
+    LDGSTS, and a special-function op, MUFU), less its nested staging
+    loops (those holding LDGSTS) and the Poisson link's block, with its
+    nested multiply-add loop counted ceil(kl / 4) times (its trip count),
+    over the ``cells_a_pass`` cells a thread computes a draw: a probit
+    cell's instructions, counted statically (the identity link's few and
+    the branches around the links are in it).  Returns (per cell, the
+    loop's details) or None."""
+    import re
+
+    lines = sass.splitlines()
+    start = next((i for i, ln in enumerate(lines)
+                  if "Function :" in ln and name in ln), None)
+    if start is None:
+        return None
+    end = next((i for i in range(start + 1, len(lines))
+                if "Function :" in lines[i]), len(lines))
+    ins, at = [], {}
+    for ln in lines[start + 1:end]:
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+        if not m:
+            continue
+        at[int(m.group(1), 16)] = len(ins)
+        words = m.group(2).split()
+        ins.append((words[1] if words[0].startswith("@") and len(words) > 1
+                    else words[0], m.group(2)))
+    loops = []
+    for i, (op, text) in enumerate(ins):
+        m = re.search(r"BRA\S*\s+(?:`\()?(0x[0-9a-f]+)", text)
+        if op.startswith("BRA") and m and at.get(int(m.group(1), 16),
+                                                 i + 1) <= i:
+            loops.append((at[int(m.group(1), 16)], i))
+
+    def has(lp, prefix):
+        return any(ins[k][0].startswith(prefix)
+                   for k in range(lp[0], lp[1] + 1))
+
+    main = [lp for lp in loops if has(lp, "MUFU") and has(lp, "LDGSTS")]
+    if not main:
+        return None
+    top = max(main, key=lambda lp: lp[1] - lp[0])
+    inner = [lp for lp in loops if lp != top and top[0] <= lp[0]
+             and lp[1] <= top[1]]
+    inner = [a for a in inner if not any(
+        b != a and b[0] <= a[0] and a[1] <= b[1] for b in inner)]
+    body = top[1] - top[0] + 1
+    staging = sum(b - a + 1 for a, b in inner if has((a, b), "LDGSTS"))
+    fma = sum(b - a + 1 for a, b in inner
+              if not has((a, b), "LDGSTS") and has((a, b), "FFMA"))
+    # the Poisson link's straight-line block (exp: MUFU.EX2 and no
+    # MUFU.RCP, which ndtr's erfc has) runs instead of ndtr's
+    targets = (re.search(r"BRA\S*\s+(?:`\()?(0x[0-9a-f]+)", t)
+               for _, t in ins[top[0]:top[1]])
+    cuts = sorted({top[0], top[1] + 1}
+                  | {at[int(m.group(1), 16)] for m in targets
+                     if m and int(m.group(1), 16) in at}
+                  | {k + 1 for k in range(top[0], top[1] + 1)
+                     if ins[k][0].startswith(("BRA", "CALL", "EXIT"))})
+    blocks = [(a, b - 1) for a, b in zip(cuts, cuts[1:]) if top[0] <= a < b
+              and b - 1 <= top[1]]
+    poisson = sum(b - a + 1 for a, b in blocks
+                  if has((a, b), "MUFU.EX2") and not has((a, b), "MUFU.RCP"))
+    total = body - staging - poisson + fma * (-(-kl // 4) - 1)
+    return total / cells_a_pass, dict(loop=body, staging=staging,
+                                      poisson=poisson, fma_loop=fma,
+                                      trips=-(-kl // 4))
+
+
+def sm_clock_hz():
+    """The card's maximum SM clock (nvidia-smi), in Hz."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=60, check=True)
+    return float(r.stdout.strip().splitlines()[0]) * 1e6
+
+
+def b9a_issue_floor(torch, K, B):
+    """B9a's issue-rate floor at the headline's shapes and B rows: the
+    per-cell instruction count from the SASS of the built library times
+    the cells, over the card's issue rate (4 warp instructions a clock on
+    each SM, 32 threads each, at the maximum SM clock).  None where the
+    toolkit has no cuobjdump."""
+    sass = _sass(K.library()._name)
+    if sass is None:
+        return None
+    got = sass_cell_instructions(sass, B9A_SASS, SERVE["nc"] + SERVE["nf"],
+                                 8 * 2)
+    if got is None:
+        return None
+    per_cell, parts = got
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = sms * 4 * 32 * sm_clock_hz()
+    cells = SERVE["n"] * B * SERVE["ns"]
+    return dict(per_cell=per_cell, ms=per_cell * cells / rate * 1e3,
+                sms=sms, **parts)
+
+
+# query rows at which B9a's checks run: one size for each launch geometry
+# the serving buckets (1-64 rows) and offline chunks give it at the serve
+# shapes (ops/serve.py · predict_geometry: row tiles of 1, 2, 4, 8, 16, 32
+# and 64 rows, the warps left over on draw slots), the padded sizes 3, 13
+# and 27, and 100 rows in two row tiles
+B9A_CHECK_ROWS = (1, 2, 3, 8, 13, 27, 64, 100)
+
+
+def check_b9a(torch, tserve, K, dev, card):
+    """B9a against its plain version: expected moments and draws at every
+    row count of ``B9A_CHECK_ROWS``, float32 and bfloat16 draws, to 1e-5; a
+    normal / probit / Poisson mix to 1e-5 of max(1, |plain|); two runs
+    bit-identical at B 13 and 64; sampled probit means within the 1e-9
+    binomial tails of the expected ones; sampled normal draws by KS against
+    their law and Poisson draws by KS against the plain sampler's (rates
+    0.5, 5, 50, 5000)."""
     from scipy import stats
 
     worst = 0.0
-    for B in (1, 64):
+    for B in B9A_CHECK_ROWS:
         for dt in (torch.float32, torch.bfloat16):
             args = serve_inputs(torch, dev, B, seed=20 + B, dtype=dt)
             mk, sk, yk = tserve.serve_predict(*args, expected=True,
@@ -1757,8 +1923,12 @@ def check_b9a(torch, tserve, dev, card):
                       (yk - yp).abs().max().item())
             assert err <= 1e-5, f"B9a expected B {B} {dt}: {err} > 1e-5"
             worst = max(worst, err)
-            print(f"B9a check: expected, B {B}, {dt}: max |kernel - plain| "
-                  f"over mean, sd and draws = {err:.3g} (tolerance 1e-5)")
+            geo = tserve.predict_geometry(SERVE["n"], B, SERVE["ns"],
+                                          SERVE["nc"], SERVE["nf"],
+                                          dt == torch.bfloat16)
+            print(f"B9a check: expected, B {B} ({geo}), {dt}: max |kernel "
+                  f"- plain| over mean, sd and draws = {err:.3g} "
+                  "(tolerance 1e-5)")
     ns = SERVE["ns"]
     fam = torch.tensor([1, 2, 3], device=dev, dtype=torch.int32).repeat(
         ns // 3 + 1)[:ns].contiguous()
@@ -1772,18 +1942,19 @@ def check_b9a(torch, tserve, dev, card):
     assert err <= 1e-5, f"B9a family mix: {err} > 1e-5"
     print(f"B9a check: normal / probit / Poisson columns, expected: max "
           f"|kernel - plain| / max(1, |plain|) = {err:.3g} (tolerance 1e-5)")
-    args = serve_inputs(torch, dev, 64, seed=84)
-    m1, s1, _ = tserve.serve_predict(*args, expected=True)
-    m2, s2, _ = tserve.serve_predict(*args, expected=True)
-    assert torch.equal(m1, m2) and torch.equal(s1, s2), \
-        "B9a: two runs differ"
+    for B in (13, 64):
+        args = serve_inputs(torch, dev, B, seed=84)
+        m1, s1, _ = tserve.serve_predict(*args, expected=True)
+        m2, s2, _ = tserve.serve_predict(*args, expected=True)
+        assert torch.equal(m1, m2) and torch.equal(s1, s2), \
+            f"B9a B {B}: two runs differ"
     ms_, _, _ = tserve.serve_predict(*args, expected=False, seed=5,
                                      offset=9)
     assert binomial_inside(ms_.cpu().numpy(), m1.cpu().numpy(),
                            SERVE["n"]), "B9a sampled probit: a mean beyond " \
         "the binomial 1e-9 tails"
-    print("B9a check: two runs bit-identical; sampled probit means within "
-          "the 1e-9 tails of Binomial(n, expected mean)")
+    print("B9a check: two runs bit-identical (B 13, 64); sampled probit "
+          "means within the 1e-9 tails of Binomial(n, expected mean)")
     # sampled draws at a constant linear predictor per column (Lambda 0,
     # X = [1, 0]): Poisson columns at rates 0.5, 5, 50, 5000 (sigma 1e-8),
     # normal columns N(0.3, 2.0)
@@ -1862,21 +2033,38 @@ def check_b9a(torch, tserve, dev, card):
     lib_ms = device_ms(torch, library, calls=10)
     ev, plain_ev = event_ms(torch, kern), event_ms(torch, plain, batch=5)
     held = held_event_ms(torch, kern)
-    b, by = b9a_bound(SERVE["n"], 64, SERVE["ns"], SERVE["nc"], SERVE["nf"])
-    b1, by1 = b9a_bound(SERVE["n"], 1, SERVE["ns"], SERVE["nc"],
-                        SERVE["nf"])
+    shape = (SERVE["n"], 64, SERVE["ns"], SERVE["nc"], SERVE["nf"])
+    b, by, b_bytes, b_ops = b9a_bound(*shape)
+    bd, byd, _, _ = b9a_bound(*shape, moments=False, draws=True)
+    b1, by1, _, _ = b9a_bound(SERVE["n"], 1, *shape[2:])
+    floor = b9a_issue_floor(torch, K, 64)
+    fl = ("not measured (no cuobjdump)" if floor is None else
+          f"{floor['ms']:.4f} ms ({floor['per_cell']:.1f} instructions a "
+          f"cell from the SASS: a per-draw loop of {floor['loop']}, less "
+          f"staging {floor['staging']} and the Poisson link "
+          f"{floor['poisson']}, multiply-add loop {floor['fma_loop']} x "
+          f"{floor['trips']}; 16 cells a thread; {floor['sms']} SMs at the "
+          f"maximum SM clock)")
     print(f"B9a serve_predict device time: {ms:.4f} ms (plain {plain_ms:.4f} "
           f"ms, the einsum pair forming L {lib_ms:.4f} ms, bound {b:.4f} ms "
-          f"by {by}; B 1: {times[(1, True)][0]:.4f} ms, bound {b1:.5f} ms by "
-          f"{by1}; held stream {held:.5f} ms, with enqueue {ev:.4f} ms, "
-          f"plain {plain_ev:.4f} ms) at B 64, {SERVE['n']} draws x "
-          f"{SERVE['ns']} species, expected moments [{card}]")
+          f"by {by}: FMA {b_ops:.4f} ms, bytes {b_bytes:.4f} ms; issue-rate "
+          f"floor {fl}; draws mode {times[(64, True)][1]:.4f} ms, bound "
+          f"{bd:.4f} ms by {byd}; sampled {times[(64, False)][0]:.4f} ms; "
+          f"B 1: {times[(1, True)][0]:.4f} ms, bound {b1:.5f} ms by {by1}; "
+          f"held stream {held:.5f} ms, with enqueue {ev:.4f} ms, plain "
+          f"{plain_ev:.4f} ms) at B 64, {SERVE['n']} draws x {SERVE['ns']} "
+          f"species, expected moments [{card}]")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=lib_ms, event_ms=ev,
+                bound_by=by, bound_bytes_ms=b_bytes, bound_ops_ms=b_ops,
+                issue_floor_ms=None if floor is None else floor["ms"],
+                issue_per_cell=None if floor is None else floor["per_cell"],
+                library_ms=lib_ms, event_ms=ev,
                 plain_event_ms=plain_ev, held_ms=held,
                 ms_b1=times[(1, True)][0], bound_ms_b1=b1,
                 ms_sampled=times[(64, False)][0],
-                ms_draws=times[(64, True)][1],
+                ms_draws=times[(64, True)][1], bound_ms_draws=bd,
+                ms_b1_draws=times[(1, True)][1],
+                ms_b1_sampled=times[(1, False)][0],
                 ms_b1_sampled_draws=times[(1, False)][1],
                 shape=[SERVE["n"], 64, SERVE["ns"]])
 
@@ -2512,7 +2700,7 @@ def main() -> int:
                "nngp_riw": check_b8c(torch, tsp, dev, card),
                **check_b8d(torch, tsp, dev, card),
                "truncnorm_da": check_b7(torch, trand, dev, card),
-               "serve_predict": check_b9a(torch, tserve, dev, card),
+               "serve_predict": check_b9a(torch, tserve, K, dev, card),
                "serve_quantile": check_b9c(torch, tserve, dev, card),
                "serve_conditional": check_b9b(torch, tserve, dev, card)}
     time_b4(torch, trand, dev, card)

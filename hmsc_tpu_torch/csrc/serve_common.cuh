@@ -75,14 +75,27 @@ __global__ void combine_moments_kernel(const float* __restrict__ pmean,
   if (i >= cells) return;
   float mean = pmean[i], m2 = pm2[i];
   float count = static_cast<float>(min(D, n));
-  for (int s = 1; s < S; ++s) {
-    const float nb = static_cast<float>(min(D, n - s * D));
-    const float mb = pmean[s * cells + i];
-    const float tot = count + nb;
-    const float delta = mb - mean;
-    mean += delta * (nb / tot);
-    m2 += pm2[s * cells + i] + delta * delta * (count * nb / tot);
-    count = tot;
+  // eight chunks' loads in flight at a time, combined one by one
+  constexpr int kBatch = 8;
+  for (int s0 = 1; s0 < S; s0 += kBatch) {
+    float mb[kBatch], qb[kBatch];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const bool ok = s0 + q < S;
+      mb[q] = ok ? pmean[(s0 + q) * cells + i] : 0.0f;
+      qb[q] = ok ? pm2[(s0 + q) * cells + i] : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) {
+      const int s = s0 + q;
+      if (s >= S) break;
+      const float nb = static_cast<float>(min(D, n - s * D));
+      const float tot = count + nb;
+      const float delta = mb[q] - mean;
+      mean += delta * (nb / tot);
+      m2 += qb[q] + delta * delta * (count * nb / tot);
+      count = tot;
+    }
   }
   mean_out[i] = mean;
   sd_out[i] = sqrtf(fmaxf(m2, 0.0f) / static_cast<float>(n));

@@ -147,14 +147,12 @@ def library():
             lib.hmsc_gpp_unit.argtypes = [p, p, p, p, p, p, i, i, i, p]
             lib.hmsc_gpp_knot.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
                                           i, i, p]
-            lib.hmsc_gpp_quad_grid.argtypes = [p, p, p, p, p, p, p, i, i, i,
-                                               i, i, p]
-            lib.hmsc_gpp_quad_at.argtypes = [p, p, p, p, p, p, p, p, i, i,
-                                             i, i, p]
+            lib.hmsc_gpp_quad_grid.argtypes = [p] * 7 + [i] * 7 + [p]
+            lib.hmsc_gpp_quad_at.argtypes = [p] * 8 + [i] * 6 + [p]
             lib.hmsc_truncnorm_da.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                               i, i, i, i, i, u64, u32, p]
-            lib.hmsc_serve_predict.argtypes = [p] * 8 + [i] + [p] * 8 + [
-                i] * 9 + [u64, u32, p]
+            lib.hmsc_serve_predict.argtypes = [p] * 8 + [i] + [p] * 10 + [
+                i] * 12 + [u64, u32, p]
             lib.hmsc_serve_quantile.argtypes = [p, ll, i, i, i, p, i, p, p]
             lib.hmsc_serve_conditional.argtypes = [p] * 10 + [i] + [p] * 11 + [
                 i] * 10 + [u64, u32, p]

@@ -25,6 +25,7 @@ card compares them by distribution and the tests inject noise.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -32,18 +33,23 @@ from .. import kernels as K
 from .rand import _TINY, _ndtr, _truncated_normal_onesided_plain
 
 __all__ = ["serve_predict", "draw_quantiles", "serve_conditional",
-           "poisson_plain", "quantile_layout", "MAX_QUANTILE_DRAWS"]
+           "poisson_plain", "predict_geometry", "quantile_layout",
+           "MAX_QUANTILE_DRAWS"]
 
 FAM_NORMAL, FAM_PROBIT, FAM_POISSON = 1, 2, 3
-# csrc/serve_predict.cu: species a block, query rows a thread
-_PREDICT_THREADS = 128
-_PREDICT_ROWS = (1, 2, 4, 8)
-# blocks for the H100's 132 SMs, the fastest of scripts/serve_kernel_sweep.py
-# at B 64: ~4 resident B9a blocks an SM; B9b (256 threads, ~25 KB of shared
-# memory a block, ~8 resident an SM) gains from ~4 waves of short chunks
-_PREDICT_TARGET_BLOCKS = 528
+# csrc/serve_predict.cu: a block owns 64 species (two a lane) and up to 64
+# query rows; its (at most 8) warps take the rows RB at a time and, below
+# 64 rows, the draws of a ring stage in turn; 4 ring stages of draws.
+# Blocks: two resident on each of an H100's 132 SMs, within ~112 KB of
+# shared memory each
+_PREDICT_TJ, _PREDICT_WARPS, _PREDICT_MAX_ROWS = 64, 8, 64
+_PREDICT_ROWS_A_WARP = 8
+_PREDICT_STAGES = 4
+_PREDICT_TARGET_BLOCKS = 264
+_PREDICT_SMEM_BUDGET, _PREDICT_SMEM_MAX = 112 * 1024, 227 * 1024
+# B9b (256 threads, ~25 KB of shared memory a block, ~8 resident an SM)
+# gains from ~4 waves of short chunks (scripts/serve_kernel_sweep.py)
 _COND_TARGET_BLOCKS = 4224
-_PREDICT_MIN_CHUNK = 16
 # csrc/serve_predict.cu / serve_conditional.cu limits
 _MAX_LEVELS, _MAX_NC, _MAX_NF_TOTAL = 8, 64, 64
 _COND_NF = (4, 8, 16)
@@ -56,15 +62,76 @@ MAX_QUANTILE_DRAWS = 32768
 # launch geometry
 # ---------------------------------------------------------------------------
 
-def predict_chunks(n: int, B: int, ns: int):
-    """B9a's (rows a thread, draws a chunk, chunks): enough blocks to fill
-    the card at any query size, chunks of at least 16 draws."""
-    rb = next(r for r in _PREDICT_ROWS[::-1] if r <= max(B, 1))
-    tiles = -(-ns // _PREDICT_THREADS) * -(-B // rb)
-    S = max(1, min(-(-n // _PREDICT_MIN_CHUNK),
-                   -(-_PREDICT_TARGET_BLOCKS // max(tiles, 1))))
+class PredictGeometry(NamedTuple):
+    """B9a's launch: ``rb`` rows a warp, ``wr`` warps over rows and ``wd``
+    over the draws of a stage (a block of ``32 wr wd`` threads owns ``rt =
+    wr rb`` rows), the draws cut into ``S`` chunks of ``D``; ``smem`` bytes
+    of dynamic shared memory a block."""
+    rb: int
+    wr: int
+    wd: int
+    D: int
+    S: int
+    smem: int
+
+    @property
+    def rt(self):
+        return self.wr * self.rb
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def _predict_smem(nc, nft, rt, wd, bf16=False):
+    """Dynamic shared memory of a B9a block (``csrc/serve_predict.cu ·
+    make_layout``): 4 ring stages of ``wd`` draw slots, each the rt x RP
+    row block, the RP + 1 slab rows of 64 species (bfloat16: 34 words,
+    plus the Eta words and the halves' offsets), then the tables."""
+    RP, K = _round_up(nc + nft, 4), nc + nft + 1
+    TW = _PREDICT_TJ // 2 + 2 if bf16 else _PREDICT_TJ
+    slot = 4 * rt * RP + 4 * (RP + 1) * TW
+    if bf16:
+        slot += 4 * rt * nft + _round_up(rt * nft, 4) + _round_up(RP + 1, 4)
+    ring = _PREDICT_STAGES * wd * _round_up(slot, 16)
+    comb = 4 * 2 * (wd // 2) * rt * _PREDICT_TJ
+    return _round_up(max(ring, comb), 16) + 16 * K + 8 * rt * nft + 16 * 8
+
+
+def predict_geometry(n: int, B: int, ns: int, nc: int, nft: int,
+                     bf16: bool = False) -> PredictGeometry:
+    """B9a's launch geometry, a function of the shape alone: the row tile
+    is the power of two >= B up to 64 (rb = min(8, tile) rows a warp), the
+    warps left over take draw slots, fewer where shared memory would pass
+    ~112 KB; where even one slot passes it, a smaller row tile, or the
+    largest that fits a block at all; the draws are cut into as many
+    chunks as keep the blocks within two an SM, each slot with two draws
+    at least."""
+    top = min(_PREDICT_MAX_ROWS, 1 << max(0, (max(B, 1) - 1).bit_length()))
+    fits = []                       # (rt, wd) within a block's maximum
+    rt = top
+    while rt >= 1:
+        wd = _PREDICT_WARPS // (rt // min(_PREDICT_ROWS_A_WARP, rt))
+        while wd > 1 and _predict_smem(nc, nft, rt, wd, bf16) \
+                > _PREDICT_SMEM_BUDGET:
+            wd //= 2
+        smem = _predict_smem(nc, nft, rt, wd, bf16)
+        if smem <= _PREDICT_SMEM_BUDGET:
+            fits.insert(0, (rt, wd))
+            break
+        if smem <= _PREDICT_SMEM_MAX:
+            fits.append((rt, wd))
+        rt //= 2
+    if not fits:
+        raise ValueError(f"serve_predict: {nc} covariates and {nft} factors "
+                         "need more shared memory than a block has")
+    rt, wd = fits[0]
+    rb = min(_PREDICT_ROWS_A_WARP, rt)
+    smem = _predict_smem(nc, nft, rt, wd, bf16)
+    tiles = -(-ns // _PREDICT_TJ) * -(-max(B, 1) // rt)
+    S = max(1, min(_PREDICT_TARGET_BLOCKS // tiles, n // (2 * wd)))
     D = -(-n // S)
-    return rb, D, -(-n // D)
+    return PredictGeometry(rb, rt // rb, wd, D, -(-n // D), smem)
 
 
 def conditional_chunks(n: int, B: int):
@@ -124,6 +191,18 @@ def _level_args(lams, etas):
     nf = (ctypes.c_int * max(nr, 1))(*[int(t.shape[1]) for t in lams])
     npr = (ctypes.c_int * max(nr, 1))(*[int(t.shape[1]) for t in etas])
     return (lam_p, eta_p, nf, npr), nr
+
+
+def _factor_map(lams):
+    """B9a's flat factor map: for each factor f of a query row's
+    concatenated factors (the levels in order), its level and its column
+    within the level, as two ctypes int arrays (resolved here so the
+    kernel's staging loop does no search)."""
+    pairs = [(r, c) for r, lam in enumerate(lams)
+             for c in range(int(lam.shape[1]))]
+    m = max(len(pairs), 1)
+    return ((ctypes.c_int * m)(*[r for r, _ in pairs]),
+            (ctypes.c_int * m)(*[c for _, c in pairs]))
 
 
 def _check_shapes(name, X, uidx, Beta, sigma, lams, etas, fam, ym, ys):
@@ -187,7 +266,14 @@ def serve_predict(X, uidx, Beta, sigma, lams, etas, fam, ym, ys, *,
             or fam.dtype != torch.int32 or ym.dtype != torch.float32 \
             or ys.dtype != torch.float32:
         raise ValueError("serve_predict: X, ym, ys float32; uidx, fam int32")
-    rb, D, S = predict_chunks(n, B, ns)
+    bf16 = Beta.dtype == torch.bfloat16
+    nft = sum(int(l.shape[1]) for l in lams)
+    geo = predict_geometry(n, B, ns, nc, nft, bf16)
+    for label, t in [("Beta", Beta), ("sigma", sigma)] + [
+            ("Lambda", t) for t in lams] + [("Eta", t) for t in etas]:
+        if t.data_ptr() % 4:
+            raise ValueError(f"serve_predict: {label}'s storage must be "
+                             "4-byte aligned")
     f32 = dict(device=dev, dtype=torch.float32)
     y = torch.empty((n, B, ns), **f32) if draws else None
     mean = sd = pmean = pm2 = None
@@ -196,18 +282,21 @@ def serve_predict(X, uidx, Beta, sigma, lams, etas, fam, ym, ys, *,
             torch.empty((B, ns), **f32), torch.empty((B, ns), **f32))
         _check_cuda("serve_predict", dev, [("out mean", mean),
                                            ("out sd", sd)])
-        pmean = torch.empty((S, B, ns), **f32)
-        pm2 = torch.empty((S, B, ns), **f32)
+        pmean = torch.empty((geo.S, B, ns), **f32)
+        pm2 = torch.empty((geo.S, B, ns), **f32)
     lv, nr = _level_args(lams, etas)
+    fl, fc = _factor_map(lams)
     ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
     with torch.cuda.device(dev):
         code = K.library().hmsc_serve_predict(
             X.data_ptr(), uidx.data_ptr(), Beta.data_ptr(), sigma.data_ptr(),
-            *(ctypes.addressof(a) for a in lv), nr, fam.data_ptr(),
-            ym.data_ptr(), ys.data_ptr(), ptr(y), ptr(pmean), ptr(pm2),
-            ptr(mean), ptr(sd), n, B, ns, nc, rb, D, S,
-            int(Beta.dtype == torch.bfloat16), int(bool(expected)),
-            int(seed), int(offset) & 0xFFFFFFFF, K.stream_of(Beta))
+            *(ctypes.addressof(a) for a in lv), nr, ctypes.addressof(fl),
+            ctypes.addressof(fc), fam.data_ptr(), ym.data_ptr(),
+            ys.data_ptr(), ptr(y), ptr(pmean), ptr(pm2), ptr(mean), ptr(sd),
+            n, B, ns, nc, geo.rb, geo.wr, geo.wd, geo.D, geo.S, geo.smem,
+            int(bf16),
+            int(bool(expected)), int(seed), int(offset) & 0xFFFFFFFF,
+            K.stream_of(Beta))
     K.check(code, "serve_predict")
     K.launches["serve_predict"] += 1
     return mean, sd, y

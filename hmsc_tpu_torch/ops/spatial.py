@@ -400,19 +400,24 @@ def _gpp_knot_plain(lvd, alpha_idx, iA):
 def gpp_quad_grid(lvd, eta):
     """``v[c, f, g] = eta_cf' iW_g eta_cf`` over the whole alpha grid for a
     GPP level: ``sum_u idD_g eta^2 - Et' iF_g Et`` with ``Et = eta' idDW12_g``,
-    or ``eta' eta`` where alpha_g = 0.  (C, nf, G)."""
+    or ``eta' eta`` where alpha_g = 0.  (C, nf, G).  The kernel sums each
+    grid point's units over the ranges of :func:`_quad_splits` and adds the
+    ranges in order (see ``csrc/gpp_quad.cu``)."""
     if not eta.is_cuda:
         return _gpp_quad_grid_plain(lvd, eta)
     C, npr, nf = eta.shape
     G, _, nK = lvd.idDW12g.shape
     _check_gpp("gpp_quad_grid", lvd, None, ("eta", eta, torch.float32))
+    U, chunk = _quad_splits(_quad_items(G, C * nf, nK), npr,
+                            _QUAD_GRID_BLOCKS)
     out = eta.new_empty((C, nf, G))
-    scratch = eta.new_empty((G, C * nf, nK), dtype=torch.float64)
+    scratch = eta.new_empty((G * U * C * nf * (nK + 1),),
+                            dtype=torch.float64)
     with torch.cuda.device(eta.device):
         code = K.library().hmsc_gpp_quad_grid(
             eta.data_ptr(), lvd.idDg.data_ptr(), lvd.idDW12g.data_ptr(),
             lvd.iFg.data_ptr(), lvd.alphapw.data_ptr(), scratch.data_ptr(),
-            out.data_ptr(), C, npr, nf, nK, G, K.stream_of(eta))
+            out.data_ptr(), C, npr, nf, nK, G, U, chunk, K.stream_of(eta))
     K.check(code, "gpp_quad")
     K.launches["gpp_quad"] += 1
     return out
@@ -427,17 +432,55 @@ def gpp_quad_at(lvd, alpha_idx, eta):
     C, npr, nf = eta.shape
     nK = lvd.idDW12g.shape[2]
     _check_gpp("gpp_quad_at", lvd, alpha_idx, ("eta", eta, torch.float32))
+    U, chunk = _quad_splits(_quad_items(None, C * nf, nK), npr,
+                            _QUAD_AT_BLOCKS)
     out = eta.new_empty((C, nf, 3))
-    scratch = eta.new_empty((C * nf, 2, nK), dtype=torch.float64)
+    scratch = eta.new_empty((C * nf * U * (2 * nK + 3),),
+                            dtype=torch.float64)
     with torch.cuda.device(eta.device):
         code = K.library().hmsc_gpp_quad_at(
             eta.data_ptr(), lvd.idDg.data_ptr(), lvd.idDW12g.data_ptr(),
             lvd.iFg.data_ptr(), lvd.alphapw.data_ptr(), alpha_idx.data_ptr(),
-            scratch.data_ptr(), out.data_ptr(), C, npr, nf, nK,
+            scratch.data_ptr(), out.data_ptr(), C, npr, nf, nK, U, chunk,
             K.stream_of(eta))
     K.check(code, "gpp_quad")
     K.launches["gpp_quad"] += 1
     return out
+
+
+# csrc/gpp_quad.cu's first pass: blocks of 256 threads over (slice, unit
+# range, column group x knot group), ~4 resident an H100 SM in grid mode
+# (528 blocks for 132 SMs) and ~2 at alpha, whose blocks are short (256:
+# at config 3c 32 ranges a column, which the second pass adds in one batch
+# of loads); a block stages its units' weights in shared memory, 256 units
+# at most; knots ride 32..256 lanes, columns 8 a block
+_QUAD_GRID_BLOCKS, _QUAD_AT_BLOCKS = 528, 256
+_QUAD_MIN_UNITS, _QUAD_MAX_UNITS = 16, 256
+
+
+def _quad_items(G, ncol, nK):
+    """B8d-3's first-pass blocks before the unit split: (grid points x
+    column groups of 8, or columns when ``G`` is None) x knot groups of up
+    to 256."""
+    lanes = 32
+    while lanes < nK and lanes < 256:
+        lanes *= 2
+    slices = ncol if G is None else G * -(-ncol // 8)
+    return slices * -(-nK // lanes)
+
+
+def _quad_splits(items, npr, target):
+    """``(U, chunk)``: B8d-3's first pass cuts each slice's ``npr`` units
+    into ``U`` consecutive ranges of ``chunk`` units (the last may be
+    shorter, none empty), so that ``items x U`` blocks come near ``target``
+    without passing it, each range of at least 16 units where there are 16
+    and at most 256.  A function of the shape only, so the order of the
+    sums never changes from run to run."""
+    n = max(npr, 1)
+    U = max(1, min(n // _QUAD_MIN_UNITS, target // max(items, 1)))
+    U = max(U, -(-n // _QUAD_MAX_UNITS))
+    chunk = -(-n // U)
+    return -(-n // chunk), chunk
 
 
 def _gpp_quad_grid_plain(lvd, eta):

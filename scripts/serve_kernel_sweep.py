@@ -47,13 +47,14 @@ def main() -> int:
     default_p = tserve._PREDICT_TARGET_BLOCKS
     for B in (1, 64):
         args = cs.serve_inputs(torch, dev, B, seed=40 + B)
-        for target in (264, 528, 1056, 2112):
+        for target in (132, 264, 528, 1056):
             tserve._PREDICT_TARGET_BLOCKS = target
-            rb, D, S = tserve.predict_chunks(cs.SERVE["n"], B,
-                                             cs.SERVE["ns"])
+            g = tserve.predict_geometry(cs.SERVE["n"], B, cs.SERVE["ns"],
+                                        cs.SERVE["nc"], cs.SERVE["nf"])
             t = ms(lambda: tserve.serve_predict(*args, expected=True))
-            print(f"B9a B {B}, block target {target} ({S} chunks of {D} "
-                  f"draws, {rb} rows a thread): {t:.4f} ms [{card}]")
+            print(f"B9a B {B}, block target {target} ({g.S} chunks of {g.D} "
+                  f"draws, {g.rb} rows a warp, {g.wd} draw slots): "
+                  f"{t:.4f} ms [{card}]")
     tserve._PREDICT_TARGET_BLOCKS = default_p
 
     args = cs.serve_inputs(torch, dev, 64, seed=70)

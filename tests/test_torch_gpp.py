@@ -445,6 +445,123 @@ def test_b8d3_plain_matches_jax_quadratics(b):
                     <= OP_TOL * scale, (c, f, i)
 
 
+@pytest.mark.parametrize("shape", [(101, 4, 1000, 2, 100), (101, 2, 60, 3, 9),
+                                   (101, 4, 5000, 4, 150), (11, 1, 7, 1, 9),
+                                   (101, 2, 0, 2, 9), (101, 8, 300, 2, 300)])
+def test_b8d3_unit_splits_depend_on_the_shape_only(shape):
+    """B8d-3's first pass cuts each slice's units into U consecutive ranges
+    of ``chunk`` units, none empty, at most 256 a range and at least 16
+    where there are 16, the same on every call; at config 3c's shape the
+    grid mode has ~4 blocks for each of an H100's 132 SMs and the at-alpha
+    mode at least one."""
+    G, C, npr, nf, nK = shape
+    for items, target in ((tops._quad_items(G, C * nf, nK),
+                           tops._QUAD_GRID_BLOCKS),
+                          (tops._quad_items(None, C * nf, nK),
+                           tops._QUAD_AT_BLOCKS)):
+        U, chunk = tops._quad_splits(items, npr, target)
+        assert (U, chunk) == tops._quad_splits(items, npr, target)
+        n = max(npr, 1)
+        assert U >= 1 and 1 <= chunk <= 256 and chunk >= min(16, n)
+        assert U * chunk >= n and (U - 1) * chunk < n
+        assert items * U <= max(target, items * -(-n // 256))
+        if shape == (101, 4, 1000, 2, 100):
+            assert items * U >= (3.5 * 132 if target == 528 else 132)
+
+
+def _gpp_quad_as_kernel(lvd, alpha_idx, eta):
+    """csrc/gpp_quad.cu's summation in plain PyTorch (float64): the knot
+    sums and unit sums over each range of ``_quad_splits`` summed
+    separately and added in range order, then z = iF' E and E . z; the
+    grid mode's (C, nf, G) and the at-alpha mode's (C, nf, 3)."""
+    C, npr, nf = eta.shape
+    G, _, nK = lvd.idDW12g.shape
+    e = eta.double().permute(0, 2, 1)                    # (C, nf, np)
+    W, idD, iF = lvd.idDW12g.double(), lvd.idDg.double(), lvd.iFg.double()
+
+    def ranged(U, chunk, fn):
+        total = 0.0
+        for us in range(U):
+            total = total + fn(slice(us * chunk, min(npr, (us + 1) * chunk)))
+        return total
+
+    U, chunk = tops._quad_splits(tops._quad_items(G, C * nf, nK), npr,
+                                 tops._QUAD_GRID_BLOCKS)
+    Et = ranged(U, chunk, lambda u: torch.einsum("chu,gum->chgm", e[..., u],
+                                                 W[:, u]))
+    t1 = ranged(U, chunk, lambda u: torch.einsum("gu,chu->chg", idD[:, u],
+                                                 e[..., u] ** 2))
+    z = torch.einsum("chgm,gmk->chgk", Et, iF)
+    grid = torch.where(lvd.alphapw[:, 0] == 0, (e * e).sum(-1)[..., None],
+                       t1 - (z * Et).sum(-1))
+    a = alpha_idx.long()
+    U, chunk = tops._quad_splits(tops._quad_items(None, C * nf, nK), npr,
+                                 tops._QUAD_AT_BLOCKS)
+    Wa, da, iFa = W[a], idD[a], iF[a]                    # (C, nf, ...)
+    E1 = ranged(U, chunk, lambda u: Wa[:, :, u].sum(2))
+    Ee = ranged(U, chunk, lambda u: torch.einsum("chu,chum->chm", e[..., u],
+                                                 Wa[:, :, u]))
+    t1, td, te = (ranged(U, chunk, lambda u, f=f: (da[..., u] * f(e[..., u])
+                                                   ).sum(-1))
+                  for f in (lambda x: x * x, torch.ones_like, lambda x: x))
+    z1 = torch.einsum("chm,chmk->chk", E1, iFa)
+    ze = torch.einsum("chm,chmk->chk", Ee, iFa)
+    at = torch.stack([t1 - (ze * Ee).sum(-1), td - (z1 * E1).sum(-1),
+                      te - (z1 * Ee).sum(-1)], dim=2)
+    zero = tops.gpp_alpha_zero(lvd, alpha_idx)[..., None]
+    at = torch.where(zero, torch.stack([(e * e).sum(-1), torch.full_like(
+        t1, float(npr)), e.sum(-1)], dim=2), at)
+    return grid, at
+
+
+def test_b8d3_kernel_summation_order_matches_plain():
+    """The kernel's order of summation (unit ranges summed separately and
+    added in order, then iF' E and its dot with E) gives the plain
+    version's grid and at-alpha quadratics to 1e-12 of the sum of their
+    terms' magnitudes in float64, on 300 units in 5 grid-mode ranges and
+    18 at-alpha ranges (the last ragged), 9 knots, 3 factors at alpha
+    indices 0, 50 and 100."""
+    rng = np.random.default_rng(12)
+    xy = rng.uniform(size=(300, 2)) * 10
+    alphas = float(np.sqrt(200.0)) * np.arange(101) / 100
+    lp = t_gpp_grids(xy, ht.construct_knots(xy, n_knots=3), alphas)
+    lvd = tstructs.LevelData(
+        pi_row=None, unit_count=None, x_row=None, x_unit=None, nu=None,
+        a1=None, b1=None, a2=None, b2=None,
+        alphapw=_t(np.column_stack([alphas, np.full(101, 1 / 101)])).float(),
+        **{k: tstructs._tensor(k, getattr(lp, k), "cpu", torch.float32)
+           for k in ("idDg", "idDW12g", "Fg", "iFg", "detDg")})
+    alpha = torch.tensor([[0, 50, 100], [100, 0, 50]], dtype=torch.int32)
+    eta = _t(rng.standard_normal((2, 300, 3)).astype(np.float32))
+    assert tops._quad_splits(tops._quad_items(101, 6, 9), 300,
+                            tops._QUAD_GRID_BLOCKS) \
+        == (5, 60)
+    assert tops._quad_splits(tops._quad_items(None, 6, 9), 300,
+                            tops._QUAD_AT_BLOCKS) \
+        == (18, 17)
+    grid, at = _gpp_quad_as_kernel(lvd, alpha, eta)
+    e64 = eta.double()
+    vp = tops._gpp_quad_grid_plain(lvd, e64)
+    ap = tops._gpp_quad_at_plain(lvd, alpha, e64)
+    ea = e64.abs()
+    W, iFa = lvd.idDW12g.double(), lvd.iFg.double().abs()
+    Ee = torch.einsum("cuh,gum->chgm", ea, W.abs())
+    mg = (torch.einsum("gu,cuh->chg", lvd.idDg.double(), ea ** 2)
+          + torch.einsum("chgm,gmn,chgn->chg", Ee, iFa, Ee))
+    assert ((grid - vp).abs() <= 1e-12 * mg).all()
+    a = alpha.long()
+    Ea = torch.einsum("cuh,chum->chm", ea, W.abs()[a])
+    E1 = W.abs()[a].sum(2)
+    idDa = lvd.idDg.double()[a]
+    mags = torch.stack([
+        torch.einsum("chu,cuh->ch", idDa, ea ** 2)
+        + torch.einsum("chm,chmn,chn->ch", Ea, iFa[a], Ea),
+        idDa.sum(2) + torch.einsum("chm,chmn,chn->ch", E1, iFa[a], E1),
+        torch.einsum("chu,cuh->ch", idDa, ea)
+        + torch.einsum("chm,chmn,chn->ch", E1, iFa[a], Ea)], dim=2)
+    assert ((at - ap).abs() <= 1e-12 * mags).all()
+
+
 def _large_alpha_level():
     """40 units on a 10 x 10 square with a 3 x 3 knot grid 0.2 apart at its
     centre (cond(F) reaches 2.5e5 at large alpha): the generator after the

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``hmsc_tpu_torch`` and not
-``chip_smoke.py`` imports JAX, the JAX package or ``ml_dtypes`` (which the
-card's machine does not have), its entry point refuses
+"""The port stands alone: no module of ``hmsc_tpu_torch``, not
+``chip_smoke.py`` and none of the scripts that run on the card imports
+JAX, the JAX package or ``ml_dtypes`` (which the card's machine does not
+have), its entry point refuses
 to fall back to the CPU when no card is present, and ``chip_smoke.py``
 fails (prints no result) without a card or without the repository."""
 
@@ -17,8 +18,13 @@ pytestmark = pytest.mark.torch
 torch.set_num_threads(1)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
+# the scripts/ that run on the card (the *_jax_* ones run the JAX package
+# on the CPU)
+CARD_SCRIPTS = ("kernel_checks.py", "gpp_quad_sweep.py",
+                "serve_predict_sweep.py", "serve_kernel_sweep.py",
+                "gram_tile_sweep.py", "headline_ab.py")
 PORT_FILES = sorted((REPO / "hmsc_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py"]
+    REPO / "chip_smoke.py"] + [REPO / "scripts" / n for n in CARD_SCRIPTS]
 
 
 def _forbidden(name: str) -> bool:

@@ -146,6 +146,135 @@ def test_b9a_draws_and_linear_predictor_match_jax():
         ht.serve.linear_predictor(t[7], False, t[0], XRRR=t[7])
 
 
+# the headline's serving shapes (chip_smoke.py · SERVE), small ones, a
+# ragged species tile, the covariate / factor limits, bfloat16 draws
+GEOMETRY_SHAPES = [
+    (800, 1, 1000, 2, 8, False), (800, 64, 1000, 2, 8, False),
+    (800, 64, 1000, 2, 8, True), (800, 200, 1000, 2, 8, False),
+    (800, 16, 1000, 2, 8, False), (12, 5, 6, 2, 2, False),
+    (37, 3, 130, 3, 5, True), (5, 1, 1, 1, 1, False),
+    (800, 64, 1000, 64, 64, False), (800, 1, 1000, 64, 64, True)]
+
+
+@pytest.mark.parametrize("shape", GEOMETRY_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_b9a_geometry_covers_every_cell_once(shape):
+    """csrc/serve_predict.cu's launch, from predict_geometry: every query
+    row, species and draw falls in exactly one (block, warp, lane, stage)
+    place, each chunk non-empty; the result depends on the shape alone;
+    the block fits 256 threads and the shared memory of an H100 SM; at the
+    headline's B 1 and B 64 the grid fills the 132 SMs, within two blocks
+    an SM."""
+    n, B, ns, nc, nft, bf16 = shape
+    g = tserve.predict_geometry(n, B, ns, nc, nft, bf16)
+    assert g == tserve.predict_geometry(n, B, ns, nc, nft, bf16)
+    assert g.rb in (1, 2, 4, 8) and g.rt <= 64 and 32 * g.wr * g.wd <= 256
+    assert g.smem == tserve._predict_smem(nc, nft, g.rt, g.wd, bf16)
+    assert g.smem <= tserve._PREDICT_SMEM_MAX
+    rows = [y * g.rt + w * g.rb + t for y in range(-(-B // g.rt))
+            for w in range(g.wr) for t in range(g.rb)]
+    assert sorted(r for r in rows if r < B) == list(range(B))
+    tiles = -(-ns // tserve._PREDICT_TJ)
+    species = [x * 64 + lane + 32 * h for x in range(tiles)
+               for lane in range(32) for h in range(2)]
+    assert sorted(j for j in species if j < ns) == list(range(ns))
+    draws = []
+    for z in range(g.S):
+        d0, d1 = z * g.D, min(n, (z + 1) * g.D)
+        assert d1 > d0
+        for st in range(-(-(d1 - d0) // g.wd)):
+            draws += [d for d in range(d0 + st * g.wd, d0 + (st + 1) * g.wd)
+                      if d < d1]
+    assert sorted(draws) == list(range(n))
+    blocks = tiles * -(-B // g.rt) * g.S
+    if (n, ns, nc, nft) == (800, 1000, 2, 8) and B in (1, 64):
+        assert 132 <= blocks <= 2 * 132
+        assert g.smem <= tserve._PREDICT_SMEM_BUDGET
+
+
+@pytest.mark.parametrize("nfs", [(3,), (2, 4), (1, 5, 2)])
+def test_b9a_factor_map_matches_level_args(nfs):
+    """B9a's flat factor map gives factor f of a query row's concatenated
+    factors the level and column that _level_args' offsets place it at."""
+    lams = [torch.zeros((2, nf, 3)) for nf in nfs]
+    etas = [torch.zeros((2, 4, nf)) for nf in nfs]
+    (_, _, nf_c, _), nr = tserve._level_args(lams, etas)
+    fl, fc = tserve._factor_map(lams)
+    offs = np.cumsum([0] + list(nf_c[:nr]))
+    assert len(fl) == offs[-1] == sum(nfs)
+    for f in range(int(offs[-1])):
+        r = int(np.searchsorted(offs, f, side="right")) - 1
+        assert (fl[f], fc[f]) == (r, f - offs[r])
+
+
+def _welford_as_kernel(y, geo):
+    """csrc/serve_predict.cu's moments in float32 from the per-draw
+    responses y (n, B, ns): in each chunk of D draws each draw slot's
+    Welford steps over its draws (d0 + slot, d0 + slot + wd, ...), the
+    slots combined by a fixed tree (slot s takes slot s + step, step 1, 2,
+    4, ...; one reciprocal a step), then the chunks in chunk order
+    (serve_common.cuh), both by Chan et al.'s formula."""
+    n = y.shape[0]
+    one = np.float32(1.0)
+    parts = []
+    for z in range(geo.S):
+        d0, d1 = z * geo.D, min(n, (z + 1) * geo.D)
+        slots = []
+        for w in range(geo.wd):
+            mean = torch.zeros(y.shape[1:])
+            m2 = torch.zeros(y.shape[1:])
+            ds = list(range(d0 + w, d1, geo.wd))
+            for k, d in enumerate(ds):
+                inv = torch.tensor(one / np.float32(k + 1))
+                delta = y[d] - mean
+                mean = mean + delta * inv
+                m2 = m2 + delta * (y[d] - mean)
+            slots.append([mean, m2, np.float32(len(ds))])
+        counts = [c for _, _, c in slots]
+        step = 1
+        while step < geo.wd:
+            for w in range(0, geo.wd, 2 * step):
+                mean, m2, cnt = slots[w]
+                nb = np.float32(sum(counts[w + step:w + 2 * step]))
+                if nb > 0:
+                    mb, qb = slots[w + step][:2]
+                    tot = cnt + nb
+                    r = one / tot
+                    delta = mb - mean
+                    slots[w] = [mean + delta * (nb * r),
+                                m2 + (qb + delta * delta * (cnt * nb * r)),
+                                tot]
+            step *= 2
+        parts.append(slots[0])
+    mean, m2, cnt = parts[0]
+    for mb, qb, nb in parts[1:]:
+        tot = cnt + nb
+        delta = mb - mean
+        mean = mean + delta * (nb / tot)
+        m2 = m2 + (qb + delta * delta * (cnt * nb / tot))
+        cnt = tot
+    return mean, torch.sqrt(torch.clamp(m2, min=0.0) / np.float32(n))
+
+
+def test_b9a_kernel_summation_order_matches_plain():
+    """The kernel's order of the moments (Welford per draw slot, slots by a
+    fixed tree, chunks in order) gives the plain version's mean and population
+    sd to 1e-6, at a shape of 12 chunks of 17 draws with 8 draw slots a
+    block, the last chunk and some slots short."""
+    n, B = 200, 3
+    args = serve_inputs(17, n=n, B=B)
+    Beta, sigma, lams, etas, fam, ym, ys, X, uidx = to_torch(args)
+    geo = tserve.predict_geometry(n, B, Beta.shape[2], Beta.shape[1],
+                                  sum(l.shape[1] for l in lams))
+    assert geo.S == 12 and geo.D == 17 and geo.wd == 8 and n % geo.D
+    mean, sd, y = tserve.serve_predict(X, uidx, Beta, sigma, lams, etas,
+                                       fam, ym, ys, expected=True,
+                                       draws=True)
+    km, ks = _welford_as_kernel(y, geo)
+    assert (km - mean).abs().max() <= 1e-6
+    assert (ks - sd).abs().max() <= 1e-6
+
+
 @pytest.mark.parametrize("rate", [0.5, 5.0, 50.0])
 def test_poisson_plain_sampler_ks_against_scipy(rate):
     gen = torch.Generator().manual_seed(int(rate * 10))
