@@ -20,7 +20,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    on the host, at config 3c's shapes, with the location move's ones-form
    1' iW 1 against its float64 value (C1 of ROADMAP Queue C); B9b's
    sampled means, where they differ from the plain version's, explained
-   draw by draw by a float64 Z within a few float32 ulps of 0 (C2).
+   draw by draw by a float64 Z within a few float32 ulps of 0 (C2); B9b's
+   expected moments at every launch geometry of 1-64 query rows, nf 4, 8
+   and 16, float32 and bfloat16 draws; B8a's one-launch CG draw against
+   the plain host loop (residuals, x, iteration counts, bit-identical
+   reruns) with its vectors in shared and in global memory, at np 1000
+   and np 5000 (clusters of 8 CTAs).
 3. Times: each kernel's device time per launch (torch.profiler, after
    warm-up) beside its plain version's device time per call, the one-call
    PyTorch yardstick where there is one, and the least time the card could
@@ -54,8 +59,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
       x 50 probit species), nf 2, 4 chains, 125 + 250 sweeps (B1-B3);
    f. config 3b: an NNGP level with 10 neighbours, np 1000 (2000 x 50),
       nf 2, 4 chains, 125 + 250 sweeps, the matrix-free CG Eta draw (B8a,
-      whose launches must equal what the CG iterations the port reports
-      imply, and B8b);
+      one launch a CG draw, and B8b);
    g. the 3b generator at np 100 (np nf = 200, below the dense/CG
       crossover), 50 + 100 sweeps: the dense NNGP Eta draw (B8b, B8c);
    h. config 3c: the shape of 3b with a GPP level on 100 knots and
@@ -767,9 +771,26 @@ def check_b5(torch, trand, dev, card):
           f"bound {b:.4f} ms by {by}; held stream {held:.5f} ms, with "
           f"enqueue {ev:.4f} ms, plain {plain_ev:.4f} ms) at {C}x{ny}x{ns}, "
           f"every column Poisson [{card}]")
+    # config 5's own shape, the path B5 runs on: 300 x 90, its last 30
+    # columns lognormal-Poisson (the bound counts those cells)
+    n5, s5 = CONFIG5["ny"], CONFIG5["ns"]
+    Y5, Z5, E5, iS5, _, _, _ = poisson_inputs(torch, dev, C, n5, s5, seed=6)
+    fam5 = torch.full((s5,), 1, dtype=torch.int32, device=dev)
+    fam5[30:60], fam5[60:] = 2, 3
+
+    def kern5():
+        trand.poisson_z(Y5, Z5, E5, iS5, fam5, rng)
+
+    ms5 = device_ms(torch, kern5, "poisson_z_kernel")
+    pc = C * n5 * int((fam5 == 3).sum())
+    b5, by5 = bound_ms(4.0 * (3 * pc + n5 * s5 + C * s5 + s5), 150.0 * pc)
+    print(f"B5 poisson_z device time at config 5's shape {C}x{n5}x{s5}, 30 "
+          f"columns Poisson: {ms5:.5f} ms (bound {b5:.6f} ms by {by5}) "
+          f"[{card}]")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by, library_ms=None, event_ms=ev,
-                plain_event_ms=plain_ev, held_ms=held, shape=[C, ny, ns])
+                plain_event_ms=plain_ev, held_ms=held, shape=[C, ny, ns],
+                config5_ms=ms5, config5_bound_ms=b5)
 
 
 def gram_inputs(torch, dev, C, ny, ns, P, seed):
@@ -1004,12 +1025,177 @@ def check_b8a(torch, tsp, dev, card):
               f"torch.sparse CSR RiW then RiW' {lib_ms:.5f} ms, bound "
               f"{b:.6f} ms by {by}; held stream {held:.5f} ms, with enqueue "
               f"{ev:.4f} ms, plain {plain_ev:.4f} ms) [{card}]")
-        res[n] = dict(max_abs_err=max(errs), ms=ms_f + ms_a,
-                      fwd_ms=ms_f, adj_ms=ms_a, plain_ms=plain_ms,
-                      bound_ms=b, bound_by=by, library_ms=lib_ms,
-                      event_ms=ev, plain_event_ms=plain_ev, held_ms=held,
-                      shape=[B8_C, n, B8_NF, k])
+        res[n] = dict(max_abs_err=max(errs), apply_ms=ms_f + ms_a,
+                      fwd_ms=ms_f, adj_ms=ms_a, apply_plain_ms=plain_ms,
+                      apply_bound_ms=b, apply_library_ms=lib_ms,
+                      apply_event_ms=ev, apply_held_ms=held,
+                      **check_b8a_cg(torch, tsp, dev, card, lvd, n, k))
     return res[B8_SHAPES[0][0]]
+
+
+def b8a_cg_cost(lvd, alpha, n, k, iters):
+    """The bound of one fused CG draw (C chains, ``iters`` their
+    iterations): bytes, each read once: F, eps1, b_like, x0 and LiSL in,
+    x, res and the counts out, the grid slices at the alphas in use, the
+    neighbour lists and the reverse CSR; operations: the right-hand side
+    (a transpose: 2 a real neighbour, 3 a cell), one P x a cell of 2k + 3
+    (forward) + 2 a real neighbour (transpose) + 2 nf + 1 (likelihood) for
+    the initial residual, each iteration and the true residual, and 10 a
+    cell an iteration for the dot products and updates."""
+    C, nf = B8_C, B8_NF
+    cells = C * n * nf
+    nnz = int(lvd.rev_pos.numel())
+    nbytes = (4.0 * (4 * cells + cells * nf + cells + 2 * C)
+              + _grid_bytes(lvd, alpha) + 4.0 * (n + 1 + nnz))
+    pmv = (n * nf * (2 * k + 3 + 2 * nf + 1) + 2.0 * nf * nnz)
+    ops = C * (n * nf * 3 + 2.0 * nf * nnz) + sum(
+        (it + 2) * pmv + it * 10.0 * n * nf for it in iters)
+    return bound_ms(nbytes, ops)
+
+
+# the species and sites a unit of config 3b's generator has: the likelihood
+# gram of a unit is LiSL = sites x Lambda iSigma Lambda'
+B8A_CG_NS, B8A_CG_SITES = 50, 2
+
+
+def b8a_cg_systems(torch, dev, n, seed):
+    """Two CG systems for C chains on an ``n``-unit level, each (alpha,
+    LiSL, F, eps1, b_like, x0): "sampler", built as the Eta draw builds it
+    (config 3b's likelihood: 50 species, 2 sites a unit, Lambda ~ N(0, 1),
+    iSigma ~ U(0.5, 2); F and b_like from the sites' residuals and xi;
+    x0 ~ N(0, 1), a previous draw's scale), which CG solves in a few
+    iterations; and "hard", a random LiSL = M M' / 10 that leaves the prior
+    ill-conditioned at a large alpha (hundreds of iterations)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    C, nf = B8_C, B8_NF
+    alpha = torch.randint(1, B8_G, (C, nf), generator=g, device=dev,
+                          dtype=torch.int32)
+    alpha[0, 0] = 0
+    shape = (C, n, nf)
+
+    def rn(*sh):
+        return torch.randn(sh, generator=g, device=dev)
+
+    lam = rn(C, nf, B8A_CG_NS)
+    isig = 0.5 + 1.5 * torch.rand((C, B8A_CG_NS), generator=g, device=dev)
+    gram = torch.einsum("cfj,cj,cgj->cfg", lam, isig, lam) * B8A_CG_SITES
+    S = rn(C, n * B8A_CG_SITES, B8A_CG_NS)
+    xi = rn(C, n * B8A_CG_SITES, B8A_CG_NS)
+    unit = torch.arange(n, device=dev).repeat_interleave(B8A_CG_SITES)
+
+    def per_unit(v):                      # (C, sites, ns) -> (C, np, nf)
+        out = torch.zeros(shape, device=dev)
+        return out.index_add_(1, unit, (v * isig[:, None, :])
+                              @ lam.transpose(1, 2))
+
+    sampler = (alpha, gram[:, None].expand(C, n, nf, nf).contiguous(),
+               per_unit(S), rn(*shape),
+               per_unit(xi / isig.sqrt()[:, None, :]), rn(*shape))
+    M = rn(C, n, nf, nf)
+    hard = (alpha, (0.1 * M @ M.transpose(2, 3)).contiguous(), rn(*shape),
+            rn(*shape), rn(*shape), rn(*shape))
+    return {"sampler": sampler, "hard": hard}
+
+
+def check_b8a_cg(torch, tsp, dev, card, lvd, n, k):
+    """B8a's fused CG draw (``vecchia_cg``, one launch) against the plain
+    host loop (``_vecchia_cg_plain``) on the same inputs
+    (:func:`b8a_cg_systems`) at CG_TOL 1e-5: per chain both true relative
+    residuals below 1e-4, x within 1e-4 of the plain x (max norm relative
+    to max |x|), two runs bit-identical, with the vectors in shared and in
+    global memory; iteration counts within 1 on the sampler's system, and
+    within 1 or 2% on the hard one (hundreds of float32 iterations, summed
+    in another order, cross the stopping threshold a few apart), where x
+    is held to 1e-3 on a chain the plain loop left at maxiter short of its
+    tolerance (an unconverged iterate).  Times on
+    the sampler's system: the draw's device time (one launch), its cost a
+    further iteration (a draw of 10 iterations against one of 2, tol 0),
+    the enqueue-included event time."""
+    from hmsc_tpu_torch.mcmc import spatial as tms
+
+    tol, maxiter = tms.CG_TOL, tms.CG_MAXITER
+    systems = b8a_cg_systems(torch, dev, n, seed=n + 7)
+    G, units, threads, smem, _ = tsp.cg_geometry(n, B8_NF)
+    saved = tsp._CG_SMEM_MAX
+    for name, (alpha, LiSL, F, eps1, b_like, x0) in systems.items():
+        call = (lvd, alpha, LiSL, F, eps1, b_like, x0, tol, maxiter)
+        xp, rp, kp = tsp._vecchia_cg_plain(*call)
+        lines = []
+        for label, cap in (("shared memory", saved), ("global memory", 0)):
+            tsp._CG_SMEM_MAX = cap
+            try:
+                xk, rk, kk = tsp.vecchia_cg(*call)
+                xk2, rk2, kk2 = tsp.vecchia_cg(*call)
+            finally:
+                tsp._CG_SMEM_MAX = saved
+            torch.cuda.synchronize()
+            where = f"B8a CG np={n} {name} ({label})"
+            assert torch.equal(xk, xk2) and torch.equal(rk, rk2) and \
+                torch.equal(kk, kk2), f"{where}: two runs differ"
+            assert torch.isfinite(xk).all(), f"{where}: non-finite x"
+            assert (rk < 1e-4).all() and (rp < 1e-4).all(), \
+                f"{where}: residuals {rk.tolist()}, plain {rp.tolist()}"
+            xerr = ((xk - xp).abs().amax(dim=(1, 2))
+                    / xp.abs().amax(dim=(1, 2)))
+            # a chain the plain loop stopped at maxiter, short of tol, is an
+            # unconverged iterate (hard system at np 5000): 1e-3
+            xtol = torch.where(kp < maxiter, 1e-4, 1e-3)
+            assert (xerr <= xtol).all(), \
+                f"{where}: x differs by {xerr.tolist()}"
+            slack = 1 if name == "sampler" else torch.clamp_min(
+                (0.02 * kp).floor(), 1)
+            assert ((kk - kp).abs() <= slack).all(), \
+                f"{where}: iterations {kk.tolist()} against the plain " \
+                f"loop's {kp.tolist()}"
+            lines.append(f"{label}: residuals "
+                         f"{[f'{v:.2e}' for v in rk.tolist()]}, x max rel "
+                         f"diff {xerr.max().item():.2e}, iterations "
+                         f"{kk.tolist()}")
+        print(f"B8a CG draw check np={n} k={k}, {name} system (clusters of "
+              f"{G} CTAs of {threads} threads, {units} units a CTA, {smem} "
+              f"bytes of shared memory): plain loop residuals "
+              f"{[f'{v:.2e}' for v in rp.tolist()]}, iterations "
+              f"{kp.tolist()}; kernel, " + "; ".join(lines) + " (residuals "
+              f"< 1e-4, x 1e-4 of max |x| (1e-3 at maxiter), iterations "
+              f"within "
+              f"{'1' if name == 'sampler' else '1 or 2%'}); two runs "
+              f"bit-identical")
+
+    alpha, LiSL, F, eps1, b_like, x0 = systems["sampler"]
+    call = (lvd, alpha, LiSL, F, eps1, b_like, x0, tol, maxiter)
+    kk = tsp.vecchia_cg(*call)[2]
+
+    def kern():
+        tsp.vecchia_cg(*call)
+
+    def plain():
+        tsp._vecchia_cg_plain(*call)
+
+    def fixed(m):
+        return lambda: tsp.vecchia_cg(lvd, alpha, LiSL, F, eps1, b_like, x0,
+                                      0.0, m)
+
+    ms = device_ms(torch, kern, "vecchia_cg_kernel")
+    ms2 = device_ms(torch, fixed(2), "vecchia_cg_kernel")
+    ms10 = device_ms(torch, fixed(10), "vecchia_cg_kernel")
+    plain_ms = device_ms(torch, plain, calls=5)
+    ev = event_ms(torch, kern)
+    plain_ev = event_ms(torch, plain, batch=3)
+    held = held_event_ms(torch, kern)
+    b, by = b8a_cg_cost(lvd, alpha, n, k, kk.tolist())
+    per_it = (ms10 - ms2) / 8
+    print(f"B8a vecchia_cg device time, one CG draw (one launch) at C {B8_C}"
+          f", np {n}, nf {B8_NF}, k {k}, the sampler's system, iterations "
+          f"{kk.tolist()}: {ms:.5f} ms (2 iterations {ms2:.5f} ms, 10 "
+          f"iterations {ms10:.5f} ms: {per_it:.5f} ms a further iteration; "
+          f"plain host loop {plain_ms:.4f} ms; bound {b:.6f} ms by {by}; "
+          f"held stream {held:.5f} ms, with enqueue {ev:.4f} ms, plain "
+          f"{plain_ev:.4f} ms) [{card}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                library_ms=None, event_ms=ev, plain_event_ms=plain_ev,
+                held_ms=held, ms_2_iterations=ms2, ms_10_iterations=ms10,
+                ms_an_iteration=per_it, iterations=kk.tolist(),
+                shape=[B8_C, n, B8_NF, k])
 
 
 def riw_csr(torch, lvd, alpha, x):
@@ -1700,13 +1886,16 @@ SERVE = dict(n=800, nc=2, nf=8, ns=1000, units=1000)
 SERVE_Q = (0.05, 0.5, 0.95)
 
 
-def serve_inputs(torch, dev, B, seed, dtype=None, fam=None, sig=None):
-    """A synthetic posterior at the headline's shapes and a query block:
-    (X, uidx, Beta, sigma, [Lambda], [Eta], fam, ym, ys)."""
+def serve_inputs(torch, dev, B, seed, dtype=None, fam=None, sig=None,
+                 nf=None):
+    """A synthetic posterior at the headline's shapes (``nf`` factors if
+    given) and a query block: (X, uidx, Beta, sigma, [Lambda], [Eta], fam,
+    ym, ys)."""
     s = SERVE
     g = torch.Generator(device=dev).manual_seed(seed)
     f32 = dict(device=dev, dtype=torch.float32)
-    n, nc, nf, ns = s["n"], s["nc"], s["nf"], s["ns"]
+    n, nc, ns = s["n"], s["nc"], s["ns"]
+    nf = s["nf"] if nf is None else nf
     Beta = 0.7 * torch.randn((n, nc, ns), generator=g, **f32)
     sigma = torch.ones((n, ns), **f32) if sig is None else sig
     lam = 0.4 * torch.randn((n, nf, ns), generator=g, **f32)
@@ -2132,12 +2321,21 @@ def b9b_ops(n, B, ns, observed, nc, nf, steps):
     (2 nc + 2 nf a species); over the ``observed`` cells of all B rows
     (unobserved ones weigh 0 in the gram and F, and only F reads Z) the
     gram (3 a cell and entry of its lower triangle), E at the initial Z
-    and after each step (2 nf a cell each), and per step F (2 nf + 3 a
-    cell)."""
+    and after each step but the last (whose Z nothing reads; 2 nf a cell
+    each), and per step F (2 nf + 3 a cell)."""
     per_species = 2 * nc + 2 * nf
-    per_observed = (3 * nf * (nf + 1) / 2 + (steps + 1) * 2 * nf
+    per_observed = (3 * nf * (nf + 1) / 2 + steps * 2 * nf
                     + steps * (2 * nf + 3))
     return n * (B * ns * per_species + observed * per_observed)
+
+
+def b9b_bound(n, B, ns, nc, nf, observed, steps):
+    """B9b's bound: the draws (Beta, sigma, Lambda, the rows' Eta), X,
+    uidx, Yc and mask read once, mean and sd written once; the operations
+    of :func:`b9b_ops`."""
+    nbytes = 4.0 * (n * (nc * ns + ns + nf * ns + B * nf)
+                    + B * (nc + 1 + 2 * ns) + 2 * B * ns)
+    return bound_ms(nbytes, b9b_ops(n, B, ns, observed, nc, nf, steps))
 
 
 def conditional_query(torch, dev, args, seed, observed=500):
@@ -2206,89 +2404,133 @@ def b9b_flips_explained(torch, tserve, X, uidx, Yc, mask, rest, steps,
             f"0, the largest at {worst:.3g} ulps")
 
 
-def check_b9b(torch, tserve, dev, card, steps=3):
-    """B9b against its plain version with every draw injected, at B 64 and
-    mcmc_step 3 (expected and sampled), and at B 1, bfloat16 draws:
-    expected mean and sd to 1e-5; sampled means by
-    :func:`b9b_flips_explained`; two Philox runs bit-identical."""
-    worst = 0.0
-    n, ns, nf = SERVE["n"], SERVE["ns"], SERVE["nf"]
-    for B, dt, expected in ((64, torch.float32, True),
-                            (64, torch.float32, False),
-                            (1, torch.bfloat16, True)):
-        args = serve_inputs(torch, dev, B, seed=60 + B, dtype=dt)
-        Yc, mask = conditional_query(torch, dev, args, seed=61)
-        g = torch.Generator(device=dev).manual_seed(62)
-        noise = {"eps_z": torch.randn((n, steps + 1, B, ns), generator=g,
-                                      device=dev),
-                 "u_z": torch.rand((n, steps + 1, B, ns), generator=g,
-                                   device=dev).clamp_min_(1e-38),
-                 "eps_rows": torch.randn((n, steps, B, nf), generator=g,
-                                         device=dev)}
-        if not expected:
-            noise["eps_out"] = torch.randn((n, B, ns), generator=g,
-                                           device=dev)
-        X, uidx = args[:2]
-        rest = args[2:]
-        mk, sk = tserve.serve_conditional(X, uidx, Yc, mask, *rest,
-                                          mcmc_step=steps, expected=expected,
-                                          noise=noise)
-        mp, sp = tserve._serve_conditional_plain(X, uidx, Yc, mask, *rest,
-                                                 steps, expected, noise, None)
-        err = max((mk - mp).abs().max().item(), (sk - sp).abs().max().item())
-        if expected:
-            assert err <= 1e-5, f"B9b B {B} {dt}: {err} > 1e-5"
-            worst = max(worst, err)
-            tol = "tolerance 1e-5"
-        else:
-            tol = b9b_flips_explained(torch, tserve, X, uidx, Yc, mask,
-                                      rest, steps, noise, mk, mp, sk)
-        print(f"B9b check: injected draws, B {B}, {dt}, mcmc_step {steps}, "
-              f"{'expected' if expected else 'sampled'}: max |kernel - "
-              f"plain| over mean and sd = {err:.3g} ({tol})")
-    args = serve_inputs(torch, dev, 64, seed=70)
-    Yc, mask = conditional_query(torch, dev, args, seed=71)
-    X, uidx, rest = args[0], args[1], args[2:]
+# query rows at which B9b's checks run: one size for each launch geometry
+# the serve shapes give it (ops/serve.py · conditional_geometry: 1 row and
+# 8 draw slots reading the draws from L2, 2 rows x 4 slots, 4 x 2 with one
+# stage, 8 rows with two stages, 8 row groups), at nf 4, 8 and 16, float32
+# and bfloat16 draws
+B9B_CHECK_ROWS = (1, 2, 3, 8, 64)
+B9B_CHECK_NF = (4, 8, 16)
 
-    def kern():
-        return tserve.serve_conditional(X, uidx, Yc, mask, *rest,
-                                        mcmc_step=steps, expected=True,
-                                        seed=3, offset=4)
 
-    a, b = kern(), kern()
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), \
-        "B9b: two Philox runs differ"
-
-    g = torch.Generator(device=dev).manual_seed(72)
-    noise = {"eps_z": torch.randn((n, steps + 1, 64, ns), generator=g,
+def _b9b_noise(torch, dev, n, steps, B, ns, nf, seed, sampled):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    noise = {"eps_z": torch.randn((n, steps + 1, B, ns), generator=g,
                                   device=dev),
-             "u_z": torch.rand((n, steps + 1, 64, ns), generator=g,
+             "u_z": torch.rand((n, steps + 1, B, ns), generator=g,
                                device=dev).clamp_min_(1e-38),
-             "eps_rows": torch.randn((n, steps, 64, nf), generator=g,
+             "eps_rows": torch.randn((n, steps, B, nf), generator=g,
                                      device=dev)}
+    if sampled:
+        noise["eps_out"] = torch.randn((n, B, ns), generator=g, device=dev)
+    return noise
+
+
+def check_b9b(torch, tserve, dev, card, steps=3):
+    """B9b against its plain version with every draw injected, at
+    mcmc_step 3: expected mean and sd to 1e-5 at every launch geometry of
+    ``B9B_CHECK_ROWS`` x ``B9B_CHECK_NF`` x (float32, bfloat16); sampled
+    means at B 64 by :func:`b9b_flips_explained`; two Philox runs
+    bit-identical at B 64 and B 1.  Times at B 64, 8 and 1."""
+    worst = 0.0
+    n, ns, nc = SERVE["n"], SERVE["ns"], SERVE["nc"]
+    geos = set()
+    for B in B9B_CHECK_ROWS:
+        for nf in B9B_CHECK_NF:
+            for dt in (torch.float32, torch.bfloat16):
+                args = serve_inputs(torch, dev, B, seed=60 + B + nf, dtype=dt,
+                                    nf=nf)
+                Yc, mask = conditional_query(torch, dev, args, seed=61)
+                noise = _b9b_noise(torch, dev, n, steps, B, ns, nf, 62,
+                                   False)
+                X, uidx, rest = args[0], args[1], args[2:]
+                mk, sk = tserve.serve_conditional(
+                    X, uidx, Yc, mask, *rest, mcmc_step=steps, expected=True,
+                    noise=noise)
+                mp, sp = tserve._serve_conditional_plain(
+                    X, uidx, Yc, mask, *rest, steps, True, noise, None)
+                err = max((mk - mp).abs().max().item(),
+                          (sk - sp).abs().max().item())
+                geo = tserve.conditional_geometry(
+                    n, B, ns, nc, [nf], dt == torch.bfloat16)
+                geos.add(geo[:3])
+                assert err <= 1e-5, (f"B9b B {B} nf {nf} {dt} ({geo}): "
+                                     f"{err} > 1e-5")
+                worst = max(worst, err)
+                del noise
+    print(f"B9b check: injected draws, expected, mcmc_step {steps}, B "
+          f"{B9B_CHECK_ROWS} x nf {B9B_CHECK_NF} x float32 / bfloat16 "
+          f"(geometries rows x slots x stages {sorted(geos)}): max |kernel "
+          f"- plain| over mean and sd = {worst:.3g} (tolerance 1e-5)")
+    args = serve_inputs(torch, dev, 64, seed=124)
+    Yc, mask = conditional_query(torch, dev, args, seed=61)
+    noise = _b9b_noise(torch, dev, n, steps, 64, ns, SERVE["nf"], 62, True)
+    X, uidx, rest = args[0], args[1], args[2:]
+    mk, sk = tserve.serve_conditional(X, uidx, Yc, mask, *rest,
+                                      mcmc_step=steps, expected=False,
+                                      noise=noise)
+    mp, sp = tserve._serve_conditional_plain(X, uidx, Yc, mask, *rest, steps,
+                                             False, noise, None)
+    err = max((mk - mp).abs().max().item(), (sk - sp).abs().max().item())
+    tol = b9b_flips_explained(torch, tserve, X, uidx, Yc, mask, rest, steps,
+                              noise, mk, mp, sk)
+    del noise
+    print(f"B9b check: injected draws, B 64, float32, mcmc_step {steps}, "
+          f"sampled: max |kernel - plain| over mean and sd = {err:.3g} "
+          f"({tol})")
+
+    times = {}
+    for B in (64, 8, 1):
+        args = serve_inputs(torch, dev, B, seed=70 + B)
+        Yc, mask = conditional_query(torch, dev, args, seed=71)
+        X, uidx, rest = args[0], args[1], args[2:]
+
+        def kern():
+            return tserve.serve_conditional(X, uidx, Yc, mask, *rest,
+                                            mcmc_step=steps, expected=True,
+                                            seed=3, offset=4)
+
+        a, b = kern(), kern()
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]), \
+            f"B9b B {B}: two Philox runs differ"
+        ms = _kernel_ms(torch, kern, ("serve_conditional_kernel",
+                                      "combine_moments_kernel"))
+        bd, by = b9b_bound(n, B, ns, nc, SERVE["nf"], mask.sum().item(),
+                           steps)
+        times[B] = dict(ms=ms, bound_ms=bd, bound_by=by, args=args, Yc=Yc,
+                        mask=mask, kern=kern,
+                        geo=tserve.conditional_geometry(n, B, ns, nc,
+                                                        [SERVE["nf"]]))
+    t64 = times[64]
+    X, uidx, rest = t64["args"][0], t64["args"][1], t64["args"][2:]
+    Yc, mask = t64["Yc"], t64["mask"]
+    noise = _b9b_noise(torch, dev, n, steps, 64, ns, SERVE["nf"], 72, False)
 
     def plain():                      # its draws injected, not timed
         tserve._serve_conditional_plain(X, uidx, Yc, mask, *rest, steps,
                                         True, noise, None)
 
-    ms = _kernel_ms(torch, kern, ("serve_conditional_kernel",
-                                  "combine_moments_kernel"))
     plain_ms = device_ms(torch, plain, calls=3)
-    ev, plain_ev = event_ms(torch, kern, batch=5), event_ms(torch, plain,
-                                                            batch=2)
-    held = held_event_ms(torch, kern, calls=10)
-    nbytes = 4.0 * (n * (SERVE["nc"] * ns + ns + nf * ns + 64 * nf)
-                    + 64 * (SERVE["nc"] + 1 + 2 * ns) + 2 * 64 * ns)
-    b, by = bound_ms(nbytes, b9b_ops(n, 64, ns, mask.sum().item(),
-                                     SERVE["nc"], nf, steps))
-    print(f"B9b serve_conditional device time: {ms:.4f} ms (plain "
-          f"{plain_ms:.4f} ms, bound {b:.4f} ms by {by}; held stream "
-          f"{held:.5f} ms, with enqueue {ev:.4f} ms, plain {plain_ev:.4f} "
-          f"ms) at B 64, mcmc_step {steps}, {n} draws x {ns} species, 500 "
-          f"observed [{card}]")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=None, event_ms=ev,
-                plain_event_ms=plain_ev, held_ms=held,
+    ev = event_ms(torch, t64["kern"], batch=5)
+    plain_ev = event_ms(torch, plain, batch=2)
+    held = held_event_ms(torch, t64["kern"], calls=10)
+    del noise
+    for B in (64, 8, 1):
+        t = times[B]
+        print(f"B9b serve_conditional device time at B {B}: {t['ms']:.4f} "
+              f"ms (bound {t['bound_ms']:.4f} ms by {t['bound_by']}; "
+              f"{t['ms'] / t['bound_ms']:.1f}x; geometry {t['geo']}) "
+              f"[{card}]")
+    print(f"B9b serve_conditional at B 64: plain {plain_ms:.4f} ms; held "
+          f"stream {held:.5f} ms, with enqueue {ev:.4f} ms, plain "
+          f"{plain_ev:.4f} ms; mcmc_step {steps}, {n} draws x {ns} species, "
+          f"500 observed [{card}]")
+    return dict(max_abs_err=worst, ms=t64["ms"], plain_ms=plain_ms,
+                bound_ms=t64["bound_ms"], bound_by=t64["bound_by"],
+                library_ms=None, event_ms=ev, plain_event_ms=plain_ev,
+                held_ms=held, b8_ms=times[8]["ms"],
+                b8_bound_ms=times[8]["bound_ms"], b1_ms=times[1]["ms"],
+                b1_bound_ms=times[1]["bound_ms"],
                 shape=[n, 64, ns, steps])
 
 
@@ -2304,10 +2546,9 @@ def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
     On an NNGP level, each sweep: the alpha grid quadratics and the
     scale interweave's quadratic, plus the location interweave's
     ones-forms where the design has an intercept (B8b); the dense factor
-    below the dense/CG crossover (B8c); above it, for every CG draw
-    (``cg_loop``: the iterations of each, as the port reports them), one
-    transpose for the prior perturbation and two launches for each of the
-    iterations + 2 applications of P (B8a).  On a GPP level, each sweep:
+    below the dense/CG crossover (B8c); above it one launch for every CG
+    draw (B8a: ``cg_loop``, the iterations of each, as the port reports
+    them, one entry a draw).  On a GPP level, each sweep:
     the per-unit blocks (B8d-1) and the knot correction (B8d-2) of the Eta
     draw, and the three quadratics as on NNGP (B8d-3).  With
     ``updater={"InterweaveDA": True}`` on a probit model with an intercept,
@@ -2334,7 +2575,7 @@ def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
             "standard_gamma": sweeps * per_sweep_gamma + 2 * nf_sweeps,
             "poisson_z": (1 + sweeps) * spec.any_poisson,
             "masked_gram": sweeps * (1 + spec.nr) * spec.has_na,
-            "vecchia_apply": sum(1 + 2 * (n + 2) for n in cg_loop),
+            "vecchia_apply": len(cg_loop),
             "nngp_quad": sweeps * quads * len(nngp),
             "nngp_riw": sweeps * dense,
             "gpp_unit": sweeps * gpp,

@@ -12,13 +12,18 @@
 
 namespace hmsc {
 
-// X > t for a standard normal X, from the uniform u on [1e-38, 1).
+// X > t for a standard normal X, from the uniform u on [1e-38, 1).  Each
+// cell computes only the branch it takes (the two are selected by t, so
+// the values are those of computing both and selecting).
 __device__ __forceinline__ float truncnorm_std_above(float t, float u) {
-  const float sa = normcdff(-t);            // P(W > t)
-  const float p = fminf(fmaxf(u * sa, 1e-30f), 0.99999994f);
-  const float x_r = -normcdfinvf(p);
-  const float x_far = t - log1pf(-u) / fmaxf(t, 1.0f);
-  const float x = (t > 9.0f) ? x_far : x_r;
+  float x;
+  if (t > 9.0f) {
+    x = t - log1pf(-u) / fmaxf(t, 1.0f);    // the far tail
+  } else {
+    const float sa = normcdff(-t);          // P(W > t)
+    const float p = fminf(fmaxf(u * sa, 1e-30f), 0.99999994f);
+    x = -normcdfinvf(p);
+  }
   return fmaxf(x, t);                       // clipped-quantile edge
 }
 

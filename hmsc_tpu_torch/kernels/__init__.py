@@ -139,6 +139,8 @@ def library():
                                              p]
             lib.hmsc_vecchia_adj.argtypes = [p, p, p, p, p, p, p, p, p, i, i,
                                              i, i, i, p]
+            lib.hmsc_vecchia_cg.argtypes = [p] * 15 + [i] * 8 + [
+                ctypes.c_float, i, p]
             lib.hmsc_nngp_quad_grid.argtypes = [p, p, p, p, p, i, i, i, i, i,
                                                 p]
             lib.hmsc_nngp_quad_at.argtypes = [p, p, p, p, p, p, i, i, i, i,
@@ -155,11 +157,12 @@ def library():
                 i] * 12 + [u64, u32, p]
             lib.hmsc_serve_quantile.argtypes = [p, ll, i, i, i, p, i, p, p]
             lib.hmsc_serve_conditional.argtypes = [p] * 10 + [i] + [p] * 11 + [
-                i] * 10 + [u64, u32, p]
+                i] * 13 + [u64, u32, p]
             for fn in (lib.hmsc_probit_z, lib.hmsc_mvn_prec_small,
                        lib.hmsc_standard_gamma, lib.hmsc_poisson_z,
                        lib.hmsc_masked_gram, lib.hmsc_vecchia_fwd,
-                       lib.hmsc_vecchia_adj, lib.hmsc_nngp_quad_grid,
+                       lib.hmsc_vecchia_adj, lib.hmsc_vecchia_cg,
+                       lib.hmsc_nngp_quad_grid,
                        lib.hmsc_nngp_quad_at, lib.hmsc_nngp_riw,
                        lib.hmsc_gpp_unit, lib.hmsc_gpp_knot,
                        lib.hmsc_gpp_quad_grid, lib.hmsc_gpp_quad_at,

@@ -213,7 +213,8 @@ def sample_mcmc(hM, samples: int, transient: int = 0, thin: int = 1,
     nf_sat = {r: state.levels[r].nf_sat.cpu().numpy()
               for r in range(spec.nr)}
     cg_iterations = {
-        "loop": [e[1] for e in cg_log],
+        "loop": (torch.stack([torch.as_tensor(e[1], device=dev)
+                              for e in cg_log]).tolist() if cg_log else []),
         "chains": (torch.stack([e[3] for e in cg_log]).cpu().numpy()
                    if cg_log else np.zeros((0, n_chains), np.int32))}
     t2 = time.perf_counter()

@@ -29,15 +29,19 @@ The alpha sampler and the interweaving moves read the prior quadratics
 ``eta' iW eta`` over the alpha grid or at each factor's alpha: batched
 products for Full, kernel B8b for NNGP, kernel B8d-3 for GPP.
 
-The CG loop runs on the host: eager PyTorch cannot branch on the device.
-It reads the chains' convergence back with one ``.item()`` at a time, and
-chains that have converged are frozen (their iterates no longer change),
-which is what the JAX package's ``while_loop`` does under ``vmap``.  The
-first read comes at the largest per-chain count of the level's previous
-draw (warm started, consecutive draws need similar counts), the next ones
-every ``_CG_CHECK_EVERY`` iterations after it.  A CG draw appends its
-counts to the caller's ``cg_log`` list when one is given (``sample_mcmc``
-reports them and the next draw of the level reads its first check there).
+On the card the whole CG draw (the right-hand side, the loop, the true
+residual) is one launch of kernel B8a, each chain's cluster stopping at
+its own convergence, with no host read.  On the CPU the loop runs on the
+host: it reads the chains' convergence back with one ``.item()`` at a
+time, and chains that have converged are frozen (their iterates no longer
+change), which is what the JAX package's ``while_loop`` does under
+``vmap``.  The first read comes at the largest per-chain count of the
+level's previous draw (warm started, consecutive draws need similar
+counts), the next ones every ``_CG_CHECK_EVERY`` iterations after it.  A
+CG draw appends its counts to the caller's ``cg_log`` list when one is
+given (``sample_mcmc`` reports them; on the CPU the next draw of the level
+reads its first check there; on the card they stay on the device until
+the run ends).
 """
 
 from __future__ import annotations
@@ -45,9 +49,10 @@ from __future__ import annotations
 import torch
 
 from ..ops.linalg import chol_spd, sample_mvn_prec
-from ..ops.spatial import (gpp_knot, gpp_m1_at, gpp_quad_at, gpp_quad_grid,
-                           gpp_unit, nngp_quad_at, nngp_quad_grid,
-                           nngp_riw_dense, vecchia_pmv, vecchia_riw_t)
+from ..ops.spatial import (cg_frozen, gpp_knot, gpp_m1_at, gpp_quad_at,
+                           gpp_quad_grid, gpp_unit, nngp_quad_at,
+                           nngp_quad_grid, nngp_riw_dense, vecchia_cg,
+                           vecchia_pmv, vecchia_riw_t)
 from .structs import GibbsState, LevelState, ModelData, ModelSpec
 from .updaters import _level_gram, _noise, lambda_effective
 
@@ -142,11 +147,19 @@ def _eta_nngp_cg(spec, data, state, r, rng, S, noise, tol=CG_TOL,
         w = w * data.Ymask
     b_like = F.new_zeros((C, npr, nf))
     b_like.index_add_(1, lvd.pi_row, w @ lam.transpose(1, 2))
-    b = F + vecchia_riw_t(lvd, alpha, eps1.contiguous()) + b_like
-    first = next((e[2] for e in reversed(cg_log or ()) if e[0] == r), 0)
-    eta, res, iters, kmax, chain_iters = vecchia_cg_draw(
-        lambda x: vecchia_pmv(lvd, alpha, x, LiSL), b, lv.Eta.contiguous(),
-        tol, maxiter, first_check=first)
+    if F.is_cuda:
+        # one launch, each chain to its own count; the counts stay on the
+        # device (iterations the loop ran = the largest count)
+        eta, res, chain_iters = vecchia_cg(
+            lvd, alpha, LiSL, F.contiguous(), eps1.contiguous(), b_like,
+            lv.Eta.contiguous(), tol, maxiter)
+        iters = kmax = chain_iters.max()
+    else:
+        b = F + vecchia_riw_t(lvd, alpha, eps1.contiguous()) + b_like
+        first = next((e[2] for e in reversed(cg_log or ()) if e[0] == r), 0)
+        eta, res, iters, kmax, chain_iters = vecchia_cg_draw(
+            lambda x: vecchia_pmv(lvd, alpha, x, LiSL), b,
+            lv.Eta.contiguous(), tol, maxiter, first_check=first)
     if cg_log is not None:
         cg_log.append((r, iters, kmax, chain_iters))
     thresh = max(100.0 * tol, 1e-3)       # scales with the requested tol
@@ -209,50 +222,13 @@ def _eta_gpp(spec, data, state, r, rng, S, noise):
 
 def vecchia_cg_draw(pmv, b, x0, tol=CG_TOL, maxiter=CG_MAXITER,
                     first_check=0):
-    """Conjugate gradients for ``P x = b`` per chain (iterates (C, np, nf)),
-    from ``x0``: the JAX package's ``jax.scipy.sparse.linalg.cg`` with
-    ``tol`` relative to ``|b|``, ``atol = 0`` and ``maxiter``, run on the
-    host with converged chains frozen.  The host reads the convergence at
-    iteration ``first_check`` and every ``_CG_CHECK_EVERY`` after it; the
-    solution does not depend on when.  Returns ``(x, relative residual
-    (C,), iterations the loop ran, the largest per-chain count, per-chain
-    iterations (C,))``.  ``pmv`` is applied ``iterations + 2`` times."""
-    def dot(u, v):
-        return (u * v).sum(dim=(1, 2))
-
-    atol2 = tol ** 2 * dot(b, b)
-    x = x0
-    r = b - pmv(x0)
-    p = r
-    gamma = dot(r, r)
-    k = torch.zeros_like(gamma, dtype=torch.int32)
-    active = (gamma > atol2) & (k < maxiter)
-    it, kmax = 0, -1
-    while it < maxiter:
-        if it >= first_check and (it - first_check) % _CG_CHECK_EVERY == 0:
-            # one read: -1 while a chain runs on, else the largest count
-            kmax = int(torch.where(active.any(), -1, k.max()))
-            if kmax >= 0:
-                break
-        Ap = pmv(p)
-        a = gamma / dot(p, Ap)
-        x_ = x + a[:, None, None] * p
-        r_ = r - a[:, None, None] * Ap
-        gamma_ = dot(r_, r_)
-        p_ = r_ + (gamma_ / gamma)[:, None, None] * p
-        on = active[:, None, None]
-        x = torch.where(on, x_, x)
-        r = torch.where(on, r_, r)
-        p = torch.where(on, p_, p)
-        gamma = torch.where(active, gamma_, gamma)
-        k = k + active.to(torch.int32)
-        active = (gamma > atol2) & (k < maxiter)
-        it += 1
-    if kmax < 0:                          # stopped by maxiter, not a read
-        kmax = int(k.max())
-    res = torch.linalg.vector_norm(pmv(x) - b, dim=(1, 2)) / torch.clamp_min(
-        torch.linalg.vector_norm(b, dim=(1, 2)), 1e-30)
-    return x, res, it, kmax, k
+    """Conjugate gradients for ``P x = b`` per chain, run on the host with
+    converged chains frozen (:func:`~hmsc_tpu_torch.ops.spatial.cg_frozen`),
+    the convergence read at iteration ``first_check`` and every
+    ``_CG_CHECK_EVERY`` after it: the CPU's form of the CG Eta draw.
+    Returns ``(x, relative residual (C,), iterations the loop ran, the
+    largest per-chain count, per-chain iterations (C,))``."""
+    return cg_frozen(pmv, b, x0, tol, maxiter, first_check, _CG_CHECK_EVERY)
 
 
 # ---------------------------------------------------------------------------

@@ -33,8 +33,8 @@ from .. import kernels as K
 from .rand import _TINY, _ndtr, _truncated_normal_onesided_plain
 
 __all__ = ["serve_predict", "draw_quantiles", "serve_conditional",
-           "poisson_plain", "predict_geometry", "quantile_layout",
-           "MAX_QUANTILE_DRAWS"]
+           "poisson_plain", "predict_geometry", "conditional_geometry",
+           "quantile_layout", "MAX_QUANTILE_DRAWS"]
 
 FAM_NORMAL, FAM_PROBIT, FAM_POISSON = 1, 2, 3
 # csrc/serve_predict.cu: a block owns 64 species (two a lane) and up to 64
@@ -47,13 +47,19 @@ _PREDICT_ROWS_A_WARP = 8
 _PREDICT_STAGES = 4
 _PREDICT_TARGET_BLOCKS = 264
 _PREDICT_SMEM_BUDGET, _PREDICT_SMEM_MAX = 112 * 1024, 227 * 1024
-# B9b (256 threads, ~25 KB of shared memory a block, ~8 resident an SM)
-# gains from ~4 waves of short chunks (scripts/serve_kernel_sweep.py)
-_COND_TARGET_BLOCKS = 4224
+# csrc/serve_conditional.cu: a block of up to 16 warps (8 at nf 16), a warp
+# a (query row, draw slot); up to 2 shared-memory stages of a draw's
+# operands a slot; the draws cut into chunks for _COND_WAVES waves of the
+# blocks resident on an H100's 132 SMs, within its 65536 registers (~128 a
+# thread, ~255 at nf 16)
+_COND_WARPS, _COND_MAX_STAGES, _COND_WAVES = 16, 2, 1
+_COND_SMS, _SM_REGISTERS = 132, 65536
+_SMEM_SM = 228 * 1024              # an SM's shared memory, 1 KB a block kept
 # csrc/serve_predict.cu / serve_conditional.cu limits
 _MAX_LEVELS, _MAX_NC, _MAX_NF_TOTAL = 8, 64, 64
 _COND_NF = (4, 8, 16)
-_COND_MAX_SPECIES = 200 * 1024 // 20
+# one warp's row state (18 bytes a species) within a block's 227 KB
+_COND_MAX_SPECIES = 10240
 # csrc/serve_quantile.cu: one column of P floats in shared memory at most
 MAX_QUANTILE_DRAWS = 32768
 
@@ -134,11 +140,86 @@ def predict_geometry(n: int, B: int, ns: int, nc: int, nft: int,
     return PredictGeometry(rb, rt // rb, wd, D, -(-n // D), smem)
 
 
-def conditional_chunks(n: int, B: int):
-    """B9b's (draws a chunk, chunks): one block per (row, chunk)."""
-    S = max(1, min(n, -(-_COND_TARGET_BLOCKS // max(B, 1))))
+class ConditionalGeometry(NamedTuple):
+    """B9b's launch: a block of ``warps = rows x slots`` warps owns
+    ``rows`` query rows, each of its ``slots`` draw slots a chunk of ``D``
+    draws (``S`` chunks in all), with ``stages`` (0, 1 or 2) shared-memory
+    copies of a draw's operands a slot; ``smem`` bytes of dynamic shared
+    memory a block."""
+    rows: int
+    slots: int
+    stages: int
+    D: int
+    S: int
+    smem: int
+
+    @property
+    def warps(self):
+        return self.rows * self.slots
+
+
+def _conditional_smem(ns, nc, nfs, nfm, bf16, warps, slots, stages):
+    """Dynamic shared memory of a B9b block (``csrc/serve_conditional.cu ·
+    make_layout``): ``slots x stages`` copies of a draw's Lambda_r, Beta and
+    sigma (each with 16 bytes of slack to align its copies) plus 1 / sigma
+    and its square root, then each warp's row state: the observed species'
+    entries and bits, E, z (with more than one level) and its small tables
+    (the moments live in the chunks' scratch)."""
+    ws = 2 if bf16 else 4
+    r16 = lambda b: _round_up(b, 16)                     # noqa: E731
+    stage = (sum(r16(nf * ns * ws + 16) for nf in nfs)
+             + r16(nc * ns * ws + 16) + r16(ns * ws + 16) + 2 * r16(4 * ns))
+    nr, nft = len(nfs), sum(nfs)
+    warp = (r16(4 * ns) + r16(4 * -(-ns // 32))
+            + r16(4 * ns) * (1 + int(nr > 1))
+            + r16(4 * (nc + nr * nfm * nfm + nfm * (nfm + 1) // 2 + 2 * nft
+                       + nfm)))
+    return slots * stages * stage + warps * warp
+
+
+def conditional_geometry(n: int, B: int, ns: int, nc: int, nfs,
+                         bf16: bool = False) -> ConditionalGeometry:
+    """B9b's launch geometry, a function of the shape alone: a warp a query
+    row, ``rows`` the power of two >= B up to the block's warps (16, or 8
+    at nf 16), the warps
+    left over on draw slots; two stages of each slot's draws in shared
+    memory where they fit, else one, else none (the warps read the draws
+    from L2; so too with one row a block, which shares nothing); fewer
+    warps where even the rows' state does not fit; the draws cut into as
+    many chunks as keep the resident blocks busy for ``_COND_WAVES``
+    waves."""
+    nfs = [int(f) for f in nfs] or [1]
+    nfm = next((m for m in _COND_NF if m >= max(nfs)), None)
+    if nfm is None:
+        raise ValueError(f"serve_conditional: at most {_COND_NF[-1]} factors "
+                         f"a level, got {max(nfs)}")
+    warps = _COND_WARPS if nfm < 16 else _COND_WARPS // 2
+    regs = 128 if nfm < 16 else 255
+    while True:
+        rows = min(warps, 1 << max(0, (max(B, 1) - 1).bit_length()))
+        slots = warps // rows
+        for stages in range(min(2, _COND_MAX_STAGES), -1, -1):
+            if stages and rows == 1:
+                continue
+            smem = _conditional_smem(ns, nc, nfs, nfm, bf16, warps, slots,
+                                     stages)
+            if smem <= _PREDICT_SMEM_MAX:
+                break
+        else:
+            if warps == 1:
+                raise ValueError(
+                    f"serve_conditional: {ns} species need more shared "
+                    "memory than a block has")
+            warps //= 2
+            continue
+        break
+    resident = max(1, min(_SMEM_SM // (smem + 1024),
+                          _SM_REGISTERS // (regs * 32 * warps)))
+    groups = -(-max(B, 1) // rows)
+    per_group = max(1, _COND_WAVES * _COND_SMS * resident // groups)
+    S = min(n, per_group * slots)
     D = -(-n // S)
-    return D, -(-n // D)
+    return ConditionalGeometry(rows, slots, stages, D, -(-n // D), smem)
 
 
 def quantile_layout(n: int):
@@ -494,8 +575,10 @@ def serve_conditional(X, uidx, Yc, mask, Beta, sigma, lams, etas, fam, ym,
                          f"a level, got {nf_max}")
     if ns > _COND_MAX_SPECIES:
         raise ValueError(f"serve_conditional: at most {_COND_MAX_SPECIES} "
-                         "species (five float rows in shared memory)")
-    D, S = conditional_chunks(n, B)
+                         "species (a warp's row state in shared memory)")
+    geo = conditional_geometry(n, B, ns, nc, [int(l.shape[1]) for l in lams],
+                               Beta.dtype == torch.bfloat16)
+    D, S = geo.D, geo.S
     f32 = dict(device=dev, dtype=torch.float32)
     mean, sd = out if out is not None else (
         torch.empty((B, ns), **f32), torch.empty((B, ns), **f32))
@@ -511,7 +594,8 @@ def serve_conditional(X, uidx, Yc, mask, Beta, sigma, lams, etas, fam, ym,
             ym.data_ptr(), ys.data_ptr(), ptr("eps_z"), ptr("u_z"),
             ptr("eps_rows"), ptr("eps_out"), pmean.data_ptr(),
             pm2.data_ptr(), mean.data_ptr(), sd.data_ptr(), n, B, ns, nc,
-            steps, nfm, D, S, int(Beta.dtype == torch.bfloat16),
+            steps, nfm, geo.rows, geo.slots, geo.stages, D, S,
+            int(Beta.dtype == torch.bfloat16),
             int(bool(expected)), int(seed), int(offset) & 0xFFFFFFFF,
             K.stream_of(Beta))
     K.check(code, "serve_conditional")

@@ -4,7 +4,9 @@ wrappers:
 
 - B8a :func:`vecchia_riw`, :func:`vecchia_riw_t`, :func:`vecchia_pmv` —
   ``RiW x``, ``RiW' u`` and the CG sampler's ``P x = RiW'(RiW x) + LiSL x``
-  (``csrc/vecchia_apply.cu``; the JAX package's ``vecchia_ops``);
+  (``csrc/vecchia_apply.cu``; the JAX package's ``vecchia_ops``), and
+  :func:`vecchia_cg`, the CG Eta draw's whole solve in one launch (the JAX
+  package's ``vecchia_cg_draw``, its loop on the device);
 - B8b :func:`nngp_quad_grid`, :func:`nngp_quad_at` — the prior quadratics
   over the alpha grid, or at each factor's alpha with the location move's
   ones-forms (``csrc/nngp_quad.cu``; ``eta_quad_grid``, ``eta_quad_at``,
@@ -40,7 +42,8 @@ import torch
 from .. import kernels as K
 from .linalg import chol_spd
 
-__all__ = ["vecchia_riw", "vecchia_riw_t", "vecchia_pmv", "nngp_quad_grid",
+__all__ = ["vecchia_riw", "vecchia_riw_t", "vecchia_pmv", "vecchia_cg",
+           "cg_geometry", "cg_frozen", "nngp_quad_grid",
            "nngp_quad_at", "nngp_riw_dense", "gpp_unit", "gpp_knot",
            "gpp_quad_grid", "gpp_quad_at", "gpp_alpha_zero", "gpp_m1_at"]
 
@@ -158,6 +161,141 @@ def _vecchia_riw_t_plain(lvd, alpha_idx, u, LiSL, x, scaled):
     if LiSL is not None:
         out = out + torch.einsum("cufg,cug->cuf", LiSL, x)
     return out
+
+
+def cg_frozen(pmv, b, x0, tol, maxiter, first_check=0, every=1):
+    """Conjugate gradients for ``P x = b`` per chain (iterates (C, np, nf)),
+    from ``x0``: ``jax.scipy.sparse.linalg.cg`` with ``tol`` relative to
+    ``|b|``, ``atol = 0`` and ``maxiter``, converged chains frozen (the JAX
+    package's ``while_loop`` under ``vmap``).  The host reads the
+    convergence at iteration ``first_check`` and every ``every`` after it;
+    the solution does not depend on when.  Returns ``(x, relative residual
+    (C,), iterations the loop ran, the largest per-chain count, per-chain
+    iterations (C,))``.  ``pmv`` is applied ``iterations + 2`` times."""
+    def dot(u, v):
+        return (u * v).sum(dim=(1, 2))
+
+    atol2 = tol ** 2 * dot(b, b)
+    x = x0
+    r = b - pmv(x0)
+    p = r
+    gamma = dot(r, r)
+    k = torch.zeros_like(gamma, dtype=torch.int32)
+    active = (gamma > atol2) & (k < maxiter)
+    it, kmax = 0, -1
+    while it < maxiter:
+        if it >= first_check and (it - first_check) % every == 0:
+            # one read: -1 while a chain runs on, else the largest count
+            kmax = int(torch.where(active.any(), -1, k.max()))
+            if kmax >= 0:
+                break
+        Ap = pmv(p)
+        a = gamma / dot(p, Ap)
+        x_ = x + a[:, None, None] * p
+        r_ = r - a[:, None, None] * Ap
+        gamma_ = dot(r_, r_)
+        p_ = r_ + (gamma_ / gamma)[:, None, None] * p
+        on = active[:, None, None]
+        x = torch.where(on, x_, x)
+        r = torch.where(on, r_, r)
+        p = torch.where(on, p_, p)
+        gamma = torch.where(active, gamma_, gamma)
+        k = k + active.to(torch.int32)
+        active = (gamma > atol2) & (k < maxiter)
+        it += 1
+    if kmax < 0:                          # stopped by maxiter, not a read
+        kmax = int(k.max())
+    res = torch.linalg.vector_norm(pmv(x) - b, dim=(1, 2)) / torch.clamp_min(
+        torch.linalg.vector_norm(b, dim=(1, 2)), 1e-30)
+    return x, res, it, kmax, k
+
+
+# csrc/vecchia_apply.cu · vecchia_cg_kernel: a thread a unit (all its
+# factors, nf <= 16), CTAs of up to 256 threads; a chain's cluster takes as
+# many CTAs (a power of two up to 8) as keep ~_CG_UNITS_A_CTA units a CTA
+# (scripts/vecchia_cg_sweep.py: at np 1000 clusters of 8 a little ahead of
+# 4, both well ahead of 1 or 2);
+# p and t whole in each CTA and x, r, Ap, b its units' slices in shared
+# memory while they fit _CG_SMEM_MAX bytes, else in a global scratch
+_CG_THREADS, _CG_UNITS_A_CTA, _CG_MAX_CLUSTER, _CG_MAX_NF = 256, 128, 8, 16
+_CG_SMEM_MAX = 227 * 1024
+_CG_SCRATCH = 128                       # floats: the dot products' partials
+
+
+def cg_geometry(npr: int, nf: int):
+    """The fused CG draw's launch for a level of ``npr`` units and ``nf``
+    factors: ``(G CTAs a chain's cluster, units a CTA, threads a CTA,
+    shared-memory bytes a CTA, vectors in global memory)``."""
+    G = 1
+    while G < _CG_MAX_CLUSTER and npr > G * _CG_UNITS_A_CTA:
+        G *= 2
+    units = -(-npr // G)
+    threads = min(_CG_THREADS, -(-units // 32) * 32)
+    smem = 4 * (_CG_SCRATCH + 2 * npr * nf + 4 * units * nf)
+    if smem <= _CG_SMEM_MAX:
+        return G, units, threads, smem, False
+    return G, units, threads, 4 * _CG_SCRATCH, True
+
+
+def vecchia_cg(lvd, alpha_idx, LiSL, F, eps1, b_like, x0, tol: float,
+               maxiter: int):
+    """The NNGP CG Eta draw's solve, each chain to its own convergence:
+    ``b = F + RiW' eps1 + b_like``, then CG on ``P x = b`` from ``x0``
+    (:func:`cg_frozen`'s iterates), then the true relative residual.
+    Returns ``(x, res (C,), iterations (C,) int32)``, all on the device: on
+    the card one launch, with no host read."""
+    if not F.is_cuda:
+        return _vecchia_cg_plain(lvd, alpha_idx, LiSL, F, eps1, b_like, x0,
+                                 tol, maxiter)
+    C, npr, nf = F.shape
+    shaped = (("F", F), ("eps1", eps1), ("b_like", b_like), ("x0", x0))
+    for label, t in shaped:
+        if t.shape != (C, npr, nf):
+            raise ValueError(f"vecchia_cg: {label} must be (C, np, nf)")
+    if LiSL.shape != (C, npr, nf, nf):
+        raise ValueError("vecchia_cg: LiSL must be (C, np, nf, nf)")
+    if nf > _CG_MAX_NF:
+        raise ValueError(f"vecchia_cg: at most {_CG_MAX_NF} factors, got "
+                         f"{nf}")
+    _check("vecchia_cg", lvd, alpha_idx,
+           ("rev_ptr", lvd.rev_ptr, torch.int32),
+           ("rev_pos", lvd.rev_pos, torch.int32),
+           ("LiSL", LiSL, torch.float32),
+           *((label, t, torch.float32) for label, t in shaped))
+    G, units, threads, smem, in_global = cg_geometry(npr, nf)
+    x = torch.empty_like(F)
+    res = F.new_empty((C,))
+    iters = torch.empty((C,), dtype=torch.int32, device=F.device)
+    work = F.new_empty((C, 6, npr * nf)) if in_global else None
+    with torch.cuda.device(F.device):
+        code = K.library().hmsc_vecchia_cg(
+            lvd.nn_idx.data_ptr(), lvd.nn_coef.data_ptr(),
+            lvd.nn_D.data_ptr(), alpha_idx.data_ptr(),
+            lvd.rev_ptr.data_ptr(), lvd.rev_pos.data_ptr(), LiSL.data_ptr(),
+            F.data_ptr(), eps1.data_ptr(), b_like.data_ptr(), x0.data_ptr(),
+            x.data_ptr(), res.data_ptr(), iters.data_ptr(),
+            None if work is None else work.data_ptr(), C, npr, nf,
+            lvd.nn_idx.shape[1], G, units, threads, int(maxiter),
+            float(tol) ** 2,
+            smem, K.stream_of(F))
+    K.check(code, "vecchia_apply")
+    K.launches["vecchia_apply"] += 1
+    return x, res, iters
+
+
+def _vecchia_cg_plain(lvd, alpha_idx, LiSL, F, eps1, b_like, x0, tol,
+                      maxiter):
+    """:func:`vecchia_cg` from the plain applies: the loop reads the
+    convergence every iteration, so it stops at the largest per-chain
+    count."""
+    def pmv(x):
+        t = _vecchia_riw_plain(lvd, alpha_idx, x, True)
+        return _vecchia_riw_t_plain(lvd, alpha_idx, t, LiSL, x, True)
+
+    b = F + _vecchia_riw_t_plain(lvd, alpha_idx, eps1, None, None,
+                                 False) + b_like
+    x, res, _, _, k = cg_frozen(pmv, b, x0, tol, maxiter)
+    return x, res, k
 
 
 # ---------------------------------------------------------------------------

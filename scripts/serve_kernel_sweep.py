@@ -10,8 +10,8 @@ events over a batch, the wrapper's launches together) of:
 - B9a (expected moments) at B 1 and 64 for several block targets of the
   draw-chunk split (``ops.serve._PREDICT_TARGET_BLOCKS``);
 - B9b (expected, B 64) at mcmc_step 0, 1 and 3 with 0, 500 and 1000 of
-  the 1000 species observed, and at 500 observed for several block
-  targets (``ops.serve._COND_TARGET_BLOCKS``).
+  the 1000 species observed, and at 500 observed for 1, 2 and 4 waves of
+  draw chunks (``ops.serve._COND_WAVES``).
 
 Each line carries the card's name and power limit.  Needs the repository
 and a card; exits non-zero without one.
@@ -68,17 +68,18 @@ def main() -> int:
                 seed=3), batch=3)
             print(f"B9b B 64, {observed} of {cs.SERVE['ns']} observed, "
                   f"mcmc_step {steps}: {t:.4f} ms [{card}]")
-    default_c = tserve._COND_TARGET_BLOCKS
+    default_c = tserve._COND_WAVES
     Yc, mask = cs.conditional_query(torch, dev, args, seed=71)
-    for target in (264, 528, 1056, 2112, 4224):
-        tserve._COND_TARGET_BLOCKS = target
-        D, S = tserve.conditional_chunks(cs.SERVE["n"], 64)
+    for waves in (1, 2, 4):
+        tserve._COND_WAVES = waves
+        g = tserve.conditional_geometry(cs.SERVE["n"], 64, cs.SERVE["ns"],
+                                        cs.SERVE["nc"], [cs.SERVE["nf"]])
         t = ms(lambda: tserve.serve_conditional(
             X, uidx, Yc, mask, *rest, mcmc_step=3, expected=True, seed=3),
             batch=3)
-        print(f"B9b B 64, mcmc_step 3, block target {target} ({S} chunks of "
-              f"{D} draws): {t:.4f} ms [{card}]")
-    tserve._COND_TARGET_BLOCKS = default_c
+        print(f"B9b B 64, mcmc_step 3, {waves} waves of blocks ({g.S} chunks "
+              f"of {g.D} draws): {t:.4f} ms [{card}]")
+    tserve._COND_WAVES = default_c
     return 0
 
 

@@ -22,7 +22,9 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 # on the CPU)
 CARD_SCRIPTS = ("kernel_checks.py", "gpp_quad_sweep.py",
                 "serve_predict_sweep.py", "serve_kernel_sweep.py",
-                "gram_tile_sweep.py", "headline_ab.py")
+                "gram_tile_sweep.py", "headline_ab.py",
+                "serve_conditional_sweep.py", "slice_ab.py",
+                "vecchia_cg_sweep.py")
 PORT_FILES = sorted((REPO / "hmsc_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"] + [REPO / "scripts" / n for n in CARD_SCRIPTS]
 

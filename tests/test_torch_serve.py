@@ -406,6 +406,156 @@ def test_b9b_plain_matches_jax_conditional_kernel(nr, steps, expected):
         close(g.numpy(), w, rtol=1e-4, atol=1e-5)
 
 
+def _b9b_noise(seed, n, steps, B, ns, nft, sampled):
+    rng = np.random.default_rng(seed)
+    noise = {"eps_z": rng.standard_normal((n, steps + 1, B, ns)),
+             "u_z": rng.uniform(_TINY, 1.0, (n, steps + 1, B, ns)),
+             "eps_rows": rng.standard_normal((n, steps, B, nft))}
+    if sampled:
+        noise["eps_out"] = rng.standard_normal((n, B, ns))
+    return {k: torch.from_numpy(v.astype(F32)) for k, v in noise.items()}
+
+
+def _cached_e_predictor(X, uidx, Yc, mask, Beta, sigma, lams, etas, fam,
+                        steps, noise):
+    """E after the refinement in csrc/serve_conditional.cu's order: E formed
+    once a draw; an observed species' E takes each level's change at the
+    next pass over the observed species, an unobserved one each level's
+    whole change at the end; S = z - (E - rows_r . Lambda_r); no refresh
+    after the last step; std = 1 / sqrt(1 / sigma)."""
+    LFix = torch.einsum("yc,ncj->nyj", X, Beta)
+    isig = 1.0 / sigma
+    std = 1.0 / torch.sqrt(isig)
+    rows = [eta[:, uidx[r].long(), :] for r, eta in enumerate(etas)]
+    rows0 = [r.clone() for r in rows]
+    offs = np.cumsum([0] + [lam.shape[1] for lam in lams])
+    E = LFix + sum(torch.einsum("nyf,nfj->nyj", r, lam)
+                   for r, lam in zip(rows, lams))
+    chol = []
+    for lam in lams:
+        U = torch.einsum("nfj,ngj,nj,yj->nyfg", lam, lam, isig, mask)
+        chol.append(torch.linalg.cholesky(
+            U + torch.eye(lam.shape[1], dtype=U.dtype)))
+    obs = mask > 0
+    pend = None
+    for s in range(steps):
+        for r, lam in enumerate(lams):
+            if pend is not None:
+                q, dq = pend
+                E = torch.where(obs, E + torch.einsum("nyf,nfj->nyj", dq,
+                                                      lams[q]), E)
+            if r == 0:
+                eps, u = noise["eps_z"][:, s], noise["u_z"][:, s]
+                z = E + std[:, None, :] * eps
+                z = torch.where((fam == tserve.FAM_NORMAL) & obs, Yc, z)
+                ztn = tserve._truncated_normal_onesided_plain(E, std, Yc, u)
+                z = torch.where((fam == tserve.FAM_PROBIT) & obs, ztn, z)
+            own = torch.einsum("nyf,nfj->nyj", rows[r], lam)
+            S = z - (E - own)
+            F = torch.einsum("nyj,nfj->nyf", S * isig[:, None, :] * mask,
+                             lam)
+            mean = torch.cholesky_solve(F[..., None], chol[r])[..., 0]
+            e = noise["eps_rows"][:, s, :, offs[r]:offs[r + 1]]
+            nz = torch.linalg.solve_triangular(chol[r].mT, e[..., None],
+                                               upper=True)[..., 0]
+            new = mean + nz
+            pend = (r, new - rows[r])
+            rows[r] = new
+    owed = sum(torch.einsum("nyf,nfj->nyj", r1 - r0, lam)
+               for r1, r0, lam in zip(rows, rows0, lams))
+    last = (torch.einsum("nyf,nfj->nyj", pend[1], lams[pend[0]])
+            if pend is not None else 0.0)
+    return torch.where(obs, E + last, E + owed)
+
+
+@pytest.mark.parametrize("nr,steps", [(1, 0), (1, 3), (2, 2)])
+def test_b9b_kernel_order_matches_plain(nr, steps):
+    """The kernel's restructured refinement (a running E per row, changes
+    applied a pass late or at the end, no refresh after the last step)
+    gives the plain version's expected moments to 1e-5 with the same
+    injected draws, normal and probit columns, a row all unobserved."""
+    nfs = (2, 3)[:nr]
+    args = serve_inputs(50 + nr + steps, nfs=nfs, units=(5, 4)[:nr], n=40,
+                        fam=(1, 2, 2, 1, 2, 2))
+    Beta, sigma, lams, etas, fam, ym, ys, X, uidx = to_torch(args)
+    n, B, ns = Beta.shape[0], X.shape[0], Beta.shape[2]
+    rng = np.random.default_rng(3)
+    mask = torch.from_numpy((rng.uniform(size=(B, ns)) < 0.6).astype(F32))
+    mask[1] = 0.0
+    Yc = torch.from_numpy(np.where(fam.numpy() == 2,
+                                   rng.uniform(size=(B, ns)) < 0.5,
+                                   rng.standard_normal((B, ns))).astype(F32))
+    Yc = Yc * mask
+    noise = _b9b_noise(5, n, steps, B, ns, sum(nfs), False)
+    mp, sp = tserve.serve_conditional(X, uidx, Yc, mask, Beta, sigma, lams,
+                                      etas, fam, ym, ys, mcmc_step=steps,
+                                      expected=True, noise=noise)
+    E = _cached_e_predictor(X, uidx, Yc, mask, Beta, sigma, lams, etas, fam,
+                            steps, noise)
+    y = torch.where(fam == tserve.FAM_PROBIT, tserve._ndtr(E), E) * ys + ym
+    assert (y.mean(dim=0) - mp).abs().max() <= 1e-5
+    assert (y.std(dim=0, correction=0) - sp).abs().max() <= 1e-5
+
+
+def test_b9b_last_refresh_is_never_read():
+    """The Z drawn after the last step reaches no output: the kernel skips
+    that refresh, and changing its injected draws changes nothing here."""
+    args = to_torch(serve_inputs(44, fam=(1, 2, 2, 1, 2, 2)))
+    X, uidx = args[7], args[8]
+    B, ns, n = X.shape[0], args[0].shape[2], args[0].shape[0]
+    Yc = torch.zeros(B, ns)
+    mask = torch.ones(B, ns)
+    for expected in (True, False):
+        noise = _b9b_noise(6, n, 2, B, ns, 2, not expected)
+        a = tserve.serve_conditional(X, uidx, Yc, mask, *args[:7],
+                                     mcmc_step=2, expected=expected,
+                                     noise=noise)
+        noise["eps_z"][:, 2] = 7.0
+        noise["u_z"][:, 2] = 0.5
+        b = tserve.serve_conditional(X, uidx, Yc, mask, *args[:7],
+                                     mcmc_step=2, expected=expected,
+                                     noise=noise)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("nf", [4, 8, 16])
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("ns", [1, 37, 1000, 4000, 10240])
+def test_b9b_geometry_covers_every_cell_once(nf, bf16, ns):
+    """csrc/serve_conditional.cu's launch, from conditional_geometry, for
+    every B in 1..100 and several draw counts: every (query row, draw)
+    falls to exactly one warp (block x, slot and row warp, its chunk's
+    draw); at most 16 warps a block (8 at nf 16); no staging with one row
+    a block; the
+    chunks' last one non-empty; the block's shared memory (the kernel's
+    make_layout) within the 227 KB an H100 block may use."""
+    for n in (800, 13, 1):
+        for B in range(1, 101):
+            g = tserve.conditional_geometry(n, B, ns, 2, [nf], bf16)
+            assert g == tserve.conditional_geometry(n, B, ns, 2, [nf], bf16)
+            assert 1 <= g.warps <= (16 if nf < 16 else 8)
+            assert g.stages in (0, 1, 2)
+            assert g.rows == 1 or g.rows >= min(B, g.warps)
+            assert not (g.rows == 1 and g.stages)
+            assert g.smem == tserve._conditional_smem(
+                ns, 2, [nf], nf, bf16, g.warps, g.slots, g.stages)
+            assert g.smem <= 227 * 1024
+            assert (g.S - 1) * g.D < n <= g.S * g.D
+            gx, gy = -(-B // g.rows), -(-g.S // g.slots)
+            x, y, w = np.meshgrid(np.arange(gx), np.arange(gy),
+                                  np.arange(g.warps), indexing="ij")
+            b = (x * g.rows + w % g.rows).ravel()
+            d0 = ((y * g.slots + w // g.rows) * g.D).ravel()
+            keep = (b < B) & (d0 < n)
+            b, d0 = b[keep], d0[keep]
+            d = d0[:, None] + np.arange(g.D)[None, :]
+            bb = np.broadcast_to(b[:, None], d.shape)
+            inside = d < n
+            count = np.zeros((B, n), np.int64)
+            np.add.at(count, (bb[inside], d[inside]), 1)
+            assert (count == 1).all(), (n, B, g)
+
+
 def test_b9b_checks_its_noise_and_runs_without_it():
     args = to_torch(serve_inputs(40, fam=(1, 2, 2, 1, 2, 2)))
     B, ns = args[7].shape[0], args[0].shape[2]

@@ -391,6 +391,72 @@ def test_cg_first_check_follows_previous_draw(built, cg_path):
     assert log[-1][:3] == (0, kmax, kmax)
 
 
+def test_fused_cg_plain_matches_jax_cg_draw(built, cg_path):
+    """The one-launch CG draw's plain semantics (``vecchia_cg`` on the CPU:
+    b formed inside, each chain stopped at its own count, no host schedule)
+    against the JAX package's ``vecchia_cg_draw`` per chain with the same
+    F, LiSL, b_like, eps1 and warm start: x within 1e-4 of max |x|, and
+    counts within one of the JAX solve's (its maxiter = the port's count +
+    1 gives its converged x bit for bit, the port's count - 2 does not).
+    Both stop at a relative residual of 1e-5 in float32, and two float32
+    solves summed in another order may cross it an iteration apart: here
+    the JAX solve's true residual after the port's 22 iterations is
+    1.16e-5, the port's 9.93e-6."""
+    b = built["NNGP"]
+    spec, data, st = b["spec_t"], b["data_t"], b["state_t"]
+    lvd, lv, ls = data.levels[0], st.levels[0], spec.levels[0]
+    LiSL, F = TU._level_gram(spec, data, lvd, ls, lv, st.iSigma,
+                             _residual(spec, data, st))
+    noise = _stack([eta_spatial_noise(b["spec_j"], k, dense=False)
+                    for k in b["keys"]])
+    lam = TU.lambda_effective(lv)[..., 0]
+    w = noise["xi"] * torch.sqrt(st.iSigma)[:, None, :]
+    b_like = F.new_zeros(F.shape).index_add_(1, lvd.pi_row,
+                                             w @ lam.transpose(1, 2))
+    x, res, k = tops.vecchia_cg(lvd, lv.alpha_idx, LiSL, F, noise["eps1"],
+                                b_like, lv.Eta, TS.CG_TOL, TS.CG_MAXITER)
+    assert k.dtype == torch.int32 and (res < 1e-3).all()
+    lvd_j = b["data_j"].levels[0]
+    for c in range(F.shape[0]):
+        a = jnp.asarray(lv.alpha_idx[c].numpy())
+        riw_t, pmv = JS.vecchia_ops(lvd_j.nn_idx, lvd_j.nn_coef[a],
+                                    jnp.sqrt(lvd_j.nn_D[a]),
+                                    jnp.asarray(LiSL[c].numpy()))
+        ins = [jnp.asarray(t[c].numpy()) for t in (F, b_like, noise["eps1"],
+                                                    lv.Eta)]
+
+        def run(m):
+            return np.asarray(JS.vecchia_cg_draw(
+                riw_t, pmv, ins[0], ins[1], ins[2], x0=ins[3],
+                tol=TS.CG_TOL, maxiter=m)[0])
+
+        want = run(TS.CG_MAXITER)
+        got = x[c].numpy()
+        assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+        kc = int(k[c])
+        assert kc > 2
+        assert np.array_equal(run(kc + 1), want)
+        assert not np.array_equal(run(kc - 2), want)
+
+
+@pytest.mark.parametrize("npr,nf", [(30, 2), (1000, 2), (5000, 2),
+                                    (5000, 8), (100000, 4)])
+def test_cg_geometry(npr, nf):
+    """The fused CG draw's launch: a cluster of 1-8 CTAs (a power of two)
+    covering the level's units, a unit a thread below 8 CTAs in whole
+    warps of at most 256 threads, the vectors (p and t whole, four
+    slices) in shared memory within 227 KB or else in global memory."""
+    G, units, threads, smem, glob = tops.cg_geometry(npr, nf)
+    assert G in (1, 2, 4, 8) and G * units >= npr > (G - 1) * units
+    assert threads % 32 == 0 and threads <= tops._CG_THREADS
+    assert G == 8 or units <= threads
+    assert smem <= 227 * 1024
+    assert glob == (4 * (tops._CG_SCRATCH + 2 * npr * nf + 4 * units * nf)
+                    > 227 * 1024)
+    if (npr, nf) == (1000, 2):
+        assert (G, threads, glob) == (8, 128, False)
+
+
 def test_cg_stall_poisons_the_draw(built):
     """A CG solve cut off far from convergence returns NaN for the chain,
     so that the sampler's divergence tracker reports it."""
