@@ -13,8 +13,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    nvcc per source, all started together).
 2. Each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it (tolerances stated at each check; the serving
-   kernels at the headline posterior's shapes), and B6, B8a-b, B8d-2,
-   B8d-3, B9a and B9b run twice to the same bits; the GPP Eta draw, in
+   kernels at the headline posterior's shapes), and B6, B8a, B8b (grid
+   mode and at alpha, np 100 to 5000, odd np, C nf 8 and 32), B8d-2,
+   B8d-3, B9a and B9b run twice to the same bits; B1's two forms (reading
+   E, and forming E from X Beta and the level's loadings) at the
+   headline's and config 3b's shapes, against the plain version and
+   against each other on the same uniforms and on one Philox stream; the
+   GPP Eta draw, in
    float32 with its knot space in float64, against its float64 run from
    the same inputs and against the float64 run from grids made in float64
    on the host, at config 3c's shapes, with the location move's ones-form
@@ -45,13 +50,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    run), the draws must be finite, no chain may diverge and the simulated
    slopes must be recovered:
    a. the headline: the 1000-site x 1000-species probit JSDM, nf_max = 8,
-      4 chains (B1-B3), whose posterior-mean Beta must match the JAX
+      4 chains (B1's fused form, B2, B3: the sweep forms no linear
+      predictor), whose posterior-mean Beta must match the JAX
       package's (scripts/headline_jax_moments.json, written on the CPU by
       scripts/headline_jax_moments.py) by entrywise z-scores, max < 5 and
       mean < 1.5 (C3);
    b. config 5 of BASELINE.md at its published size: 300 x 90, normal /
       probit / lognormal-Poisson columns, nf 2, 4 chains, 125 + 250 sweeps
-      (B1-B3, B5);
+      (B1's E-reading form, B2, B3, B5);
    c. the headline with 10% of Y missing, 10 + 50 sweeps (B1-B3, B6);
    d. the headline with the probit-DA intercept interweave on
       (``updater={"InterweaveDA": True}``), 10 + 50 sweeps (B1-B3, B7);
@@ -498,58 +504,139 @@ def block_slope_corr(post, Beta):
             for b in (0, 30, 60)]
 
 
-def check_b1(torch, trand, dev, card):
-    C, ny, ns = HEADLINE["n_chains"], HEADLINE["ny"], HEADLINE["ns"]
-    g = torch.Generator(device=dev).manual_seed(0)
-    E = torch.randn((C, ny, ns), generator=g, device=dev) * 3.0
-    k = min(200, ns)
-    E[:, 0, :k] = torch.linspace(-40.0, 40.0, k, device=dev)      # |t| > 9
+# B1's shapes: the headline's (one unit a row) and config 3b's (np 1000
+# units of two rows each, nf 2, 50 species)
+B1_SHAPES = (("headline", dict(C=HEADLINE["n_chains"], ny=HEADLINE["ny"],
+                               ns=HEADLINE["ns"], nc=2, npr=HEADLINE["ny"],
+                               nf=HEADLINE["nf"])),
+             ("config3b", dict(C=CONFIG3["config3b"]["n_chains"],
+                               ny=2 * CONFIG3["config3b"]["np"],
+                               ns=CONFIG3_NS, nc=2,
+                               npr=CONFIG3["config3b"]["np"],
+                               nf=CONFIG3_NF)))
+# float operations a cell of B1's truncated normal, counted from the
+# shipped arithmetic (csrc/truncnorm.cuh, an FMA as 2, each exp2 / log2 /
+# rsqrt / reciprocal as 1, on the path below 9 sd): the uniform from its
+# Philox bits 3; the draw's standardisation, reflection, scaled and clamped
+# probability, clip, sign and shift 9; upper_prob 29 (the scaled |t|, the
+# reciprocal of 1 + z / 2, erfc's 9-term polynomial, the exponent, exp2 and
+# its scaling, the reflection); neg_ndtri 37 (AS 241's central numerator
+# and denominator, log2 and sqrt of the tail variable, the taken tail's
+# rationals, the select and one reciprocal).  The Philox quarter is integer
+# work, left out; the fused form adds 2 K for E
+B1_OPS_A_CELL = 78
+
+
+def b1_inputs(torch, dev, C, ny, ns, nc, npr, nf, seed):
+    """B1's operands on the card: the fused form's (X, Beta, a level whose
+    pi gathers np units for ny rows, one factor of chain 0 inactive), the
+    E-reading form's E formed from them by the plain version's arithmetic,
+    sd, Y and injected uniforms.  Row 0 of X is scaled so that its linear
+    predictors reach past 9 sd on both sides (the far tail); row 1's
+    uniforms are 1 - 2^-24, within one ulp of 1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *sh: torch.randn(sh, generator=g, device=dev)
+    X = torch.cat([torch.ones((ny, 1), device=dev), rn(ny, nc - 1)], dim=1)
+    X[0] *= 12.0
+    Beta, Eta, Lam = rn(C, nc, ns), rn(C, npr, nf), rn(C, nf, ns) * 0.5
+    mask = torch.ones((C, nf), device=dev)
+    mask[0, -1] = 0.0
+    pi = (torch.arange(ny, device=dev) * npr // ny).to(torch.int64)
+    if npr == ny:
+        pi = torch.randperm(ny, generator=g, device=dev)
+    level = (Eta, pi, Lam, mask)
+    E = X @ Beta + Eta[:, pi] @ (Lam * mask[:, :, None])
     std = torch.rand((C, ns), generator=g, device=dev) * 1.5 + 0.5
     Y = (torch.rand((ny, ns), generator=g, device=dev) < 0.5).float()
     u = torch.rand((C, ny, ns), generator=g, device=dev).clamp_min_(1e-38)
-    u[:, 1, :] = 1.0 - 2.0 ** -24                  # within one ulp of 1
+    u[:, 1, :] = 1.0 - 2.0 ** -24
     t = torch.where(Y > 0.5, -E / std[:, None, :], E / std[:, None, :])
     assert (t > 9).any() and (t < -9).any()
-    zk = trand.truncated_normal_onesided(E, std, Y, u=u)
-    zp = trand._truncated_normal_onesided_plain(E, std, Y, u)
-    err = ((zk - zp).abs() / std[:, None, :]).max().item()
-    assert torch.isfinite(zk).all(), "B1: non-finite draws"
-    assert err <= 1e-4, f"B1 injected uniforms: max |diff|/std {err} > 1e-4"
-    print(f"B1 check: injected uniforms, max |kernel - plain| / std = "
-          f"{err:.3g} (tolerance 1e-4)")
+    return X, Beta, level, E, std, Y, u
 
-    rng = trand.Rng(7, dev)
-    wk = (trand.truncated_normal_onesided(E, std, Y, rng) - E) / std[:, None]
-    wp = (trand._truncated_normal_onesided_plain(
-        E, std, Y, rng.uniform(E.shape)) - E) / std[:, None]
-    for cls in (1.0, 0.0):
-        m = (Y == cls).expand_as(E)
-        print(f"B1 check: in-kernel Philox, Y={int(cls)}: "
-              + _moments_agree(f"B1 Philox class {cls}", wk[m], wp[m]))
 
-    def kern():
-        trand.truncated_normal_onesided(E, std, Y, rng)
+def check_b1(torch, trand, dev, card):
+    """B1's two forms (E-reading, fused) against the plain version on
+    injected uniforms at the headline's and config 3b's shapes, the fused
+    form against the E-reading one on the same uniforms and on the same
+    in-kernel Philox stream, each form's in-kernel draws by moments; then
+    both forms' times at each shape.  Returns both kernels' numbers at the
+    headline shape."""
+    res = {}
+    for label, sh in B1_SHAPES:
+        C, ny, ns, nc, npr, nf = (sh[k] for k in ("C", "ny", "ns", "nc",
+                                                  "npr", "nf"))
+        X, Beta, level, E, std, Y, u = b1_inputs(torch, dev, C, ny, ns, nc,
+                                                 npr, nf, seed=ny + ns)
+        sd = std[:, None, :]
+        zp = trand._truncated_normal_onesided_plain(E, std, Y, u)
+        zk = trand.truncated_normal_onesided(E, std, Y, u=u)
+        zf = trand.probit_z_fused(X, Beta, std, Y, u=u, level=level)
+        zfp = trand._probit_z_fused_plain(X, Beta, std, Y, u, level)
+        assert torch.isfinite(zk).all() and torch.isfinite(zf).all(), \
+            "B1: non-finite draws"
+        errs = {"E-reading - plain": ((zk - zp).abs() / sd).max().item(),
+                "fused - plain": ((zf - zfp).abs() / sd).max().item(),
+                "fused - E-reading": ((zf - zk).abs() / sd).max().item()}
+        for what, err in errs.items():
+            assert err <= 1e-4, f"B1 {label} {what}: max |diff|/sd {err} " \
+                                f"> 1e-4"
+        print(f"B1 check {label} (C {C}, ny {ny}, ns {ns}, np {npr}, nf "
+              f"{nf}), injected uniforms: max |diff| / sd "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + " (tolerance 1e-4)")
+        r1, r2 = trand.Rng(7, dev), trand.Rng(7, dev)   # one Philox stream
+        wk = (trand.truncated_normal_onesided(E, std, Y, r1) - E) / sd
+        wf = (trand.probit_z_fused(X, Beta, std, Y, r2, level=level)
+              - E) / sd
+        same = (wf - wk).abs().max().item()
+        assert same <= 1e-4, f"B1 {label}: forms on one Philox stream " \
+                             f"differ by {same} sd"
+        wp = (trand._truncated_normal_onesided_plain(
+            E, std, Y, r1.uniform(E.shape)) - E) / sd
+        for cls in (1.0, 0.0):
+            m = (Y == cls).expand_as(E)
+            print(f"B1 check {label}: in-kernel Philox, Y={int(cls)}: "
+                  + _moments_agree(f"B1 Philox class {cls}", wk[m], wp[m])
+                  + f"; the fused form on the same stream within {same:.3g}"
+                  " sd")
 
-    def plain():
-        trand._truncated_normal_onesided_plain(E, std, Y,
-                                               rng.uniform(E.shape))
-
-    ms = device_ms(torch, kern, "probit_z_kernel")
-    plain_ms = device_ms(torch, plain, calls=10)
-    ev, plain_ev = event_ms(torch, kern), event_ms(torch, plain, batch=5)
-    held = held_event_ms(torch, kern)
-    cells = C * ny * ns
-    # bytes: E and Z per cell, Y per site x species, std per chain x species;
-    # operations: ~120 per cell (a quarter Philox call, the uniform, the
-    # standardisation, normcdff, normcdfinvf, log1pf, clamps and selects)
-    b, by = bound_ms(4.0 * (2 * cells + ny * ns + C * ns), 120.0 * cells)
-    print(f"B1 probit_z device time: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-          f"bound {b:.4f} ms by {by}; held stream {held:.5f} ms, with "
-          f"enqueue {ev:.4f} ms, plain {plain_ev:.4f} ms) at E {C}x{ny}x{ns} "
-          f"[{card}]")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=None, event_ms=ev,
-                plain_event_ms=plain_ev, held_ms=held)
+        rng = trand.Rng(8, dev)
+        forms = {
+            "probit_z": (lambda: trand.truncated_normal_onesided(
+                E, std, Y, rng),
+                lambda: trand._truncated_normal_onesided_plain(
+                    E, std, Y, rng.uniform(E.shape)),
+                4.0 * (2 * E.numel() + ny * ns + C * ns),
+                B1_OPS_A_CELL * E.numel()),
+            "probit_z_fused": (lambda: trand.probit_z_fused(
+                X, Beta, std, Y, rng, level=level),
+                lambda: trand._probit_z_fused_plain(
+                    X, Beta, std, Y, rng.uniform(E.shape), level),
+                4.0 * (E.numel() + ny * ns + ny * nc + C * nc * ns
+                       + C * npr * nf + C * nf * ns + C * nf + C * ns)
+                + 8.0 * ny,
+                (B1_OPS_A_CELL + 2 * (nc + nf)) * E.numel())}
+        for name, (kern, plain, nbytes, ops) in forms.items():
+            ms = device_ms(torch, kern, "probit_z_kernel")
+            plain_ms = device_ms(torch, plain, calls=10)
+            ev, plain_ev = event_ms(torch, kern), event_ms(torch, plain,
+                                                           batch=5)
+            held = held_event_ms(torch, kern)
+            b, by = bound_ms(nbytes, ops)
+            print(f"B1 {name} device time at {label}: {ms:.5f} ms (plain "
+                  f"{plain_ms:.4f} ms, bound {b:.5f} ms by {by}; held stream "
+                  f"{held:.5f} ms, with enqueue {ev:.4f} ms, plain "
+                  f"{plain_ev:.4f} ms) at E {C}x{ny}x{ns} [{card}]")
+            if label == "headline":
+                res[name] = dict(max_abs_err=max(errs.values()), ms=ms,
+                                 plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                                 library_ms=None, event_ms=ev,
+                                 plain_event_ms=plain_ev, held_ms=held)
+            else:
+                res[name][f"{label}_ms"] = ms
+                res[name][f"{label}_bound_ms"] = b
+    return res
 
 
 def check_b2(torch, tlinalg, dev, card):
@@ -902,13 +989,15 @@ def nngp_level(torch, dev, n, k, side, seed):
     have at least one real neighbour listed."""
     from types import SimpleNamespace
 
-    from hmsc_tpu_torch.mcmc.structs import reverse_neighbours
+    from hmsc_tpu_torch.mcmc.structs import (reverse_neighbours,
+                                             unit_last_grids)
     from hmsc_tpu_torch.precompute import _nngp_grids
 
     pts = np.random.default_rng(seed).uniform(size=(n, 2)) * side
     diag = float(np.sqrt(((pts.max(0) - pts.min(0)) ** 2).sum()))
     lp = _nngp_grids(pts, k, diag * np.arange(101) / 100)
     rev = reverse_neighbours(lp.nn_idx, lp.nn_n)
+    unit = unit_last_grids(lp.nn_idx, lp.nn_coef)
 
     def t(a, dt=torch.float32):
         return torch.tensor(np.asarray(a), dtype=dt, device=dev)
@@ -916,7 +1005,9 @@ def nngp_level(torch, dev, n, k, side, seed):
     i32 = torch.int32
     return SimpleNamespace(
         nn_idx=t(lp.nn_idx, i32), nn_coef=t(lp.nn_coef), nn_D=t(lp.nn_D),
-        nn_n=t(lp.nn_n, i32), rev_ptr=t(rev[0], i32), rev_pos=t(rev[1], i32))
+        nn_idx_u=t(unit[0], i32), nn_coef_u=t(unit[1]),
+        nn_n=t(lp.nn_n, i32),
+        rev_ptr=t(rev[0], i32), rev_pos=t(rev[1], i32))
 
 
 def _rel(k, p):
@@ -1097,9 +1188,28 @@ def b8a_cg_systems(torch, dev, n, seed):
     return {"sampler": sampler, "hard": hard}
 
 
+def deterministic_plain(torch, fn, *args):
+    """``fn(*args)`` with PyTorch's deterministic algorithms: on the card
+    ``index_add_`` (the plain transpose apply's segment sum) otherwise adds
+    with atomics in a varying order, so the plain CG loop's float32
+    iterates, and the iteration at which a hard system crosses its stopping
+    threshold, would change from run to run (``warn_only``: the GEMMs,
+    deterministic on one stream, only warn)."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*CUBLAS_WORKSPACE.*")
+            return fn(*args)
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn)
+
+
 def check_b8a_cg(torch, tsp, dev, card, lvd, n, k):
     """B8a's fused CG draw (``vecchia_cg``, one launch) against the plain
-    host loop (``_vecchia_cg_plain``) on the same inputs
+    host loop (``_vecchia_cg_plain``, run twice to the same bits under
+    :func:`deterministic_plain`) on the same inputs
     (:func:`b8a_cg_systems`) at CG_TOL 1e-5: per chain both true relative
     residuals below 1e-4, x within 1e-4 of the plain x (max norm relative
     to max |x|), two runs bit-identical, with the vectors in shared and in
@@ -1119,7 +1229,10 @@ def check_b8a_cg(torch, tsp, dev, card, lvd, n, k):
     saved = tsp._CG_SMEM_MAX
     for name, (alpha, LiSL, F, eps1, b_like, x0) in systems.items():
         call = (lvd, alpha, LiSL, F, eps1, b_like, x0, tol, maxiter)
-        xp, rp, kp = tsp._vecchia_cg_plain(*call)
+        xp, rp, kp = deterministic_plain(torch, tsp._vecchia_cg_plain, *call)
+        xp2, _, kp2 = deterministic_plain(torch, tsp._vecchia_cg_plain, *call)
+        assert torch.equal(xp, xp2) and torch.equal(kp, kp2), \
+            f"B8a CG np={n} {name}: two plain loops differ"
         lines = []
         for label, cap in (("shared memory", saved), ("global memory", 0)):
             tsp._CG_SMEM_MAX = cap
@@ -1153,7 +1266,8 @@ def check_b8a_cg(torch, tsp, dev, card, lvd, n, k):
                          f"{kk.tolist()}")
         print(f"B8a CG draw check np={n} k={k}, {name} system (clusters of "
               f"{G} CTAs of {threads} threads, {units} units a CTA, {smem} "
-              f"bytes of shared memory): plain loop residuals "
+              f"bytes of shared memory): plain loop (deterministic, two runs "
+              f"bit-identical) residuals "
               f"{[f'{v:.2e}' for v in rp.tolist()]}, iterations "
               f"{kp.tolist()}; kernel, " + "; ".join(lines) + " (residuals "
               f"< 1e-4, x 1e-4 of max |x| (1e-3 at maxiter), iterations "
@@ -1230,14 +1344,26 @@ def riw_csr(torch, lvd, alpha, x):
     return R, Rt, v
 
 
+# B8b's extra checks: an odd unit count, C nf = 32 columns (4 chains x nf
+# 8, dense NNGP's largest nf_max), at config 3b's level, and its first 11
+# grid points (a grid of fewer points than the card has SMs)
+B8B_CHECKS = ((999, 10, 10.0, B8_NF, B8_G), (1000, 10, 10.0, 8, B8_G),
+              (1000, 10, 10.0, B8_NF, 11))
+
+
 def check_b8b(torch, tsp, dev, card):
     res = {}
-    for n, k, side in B8B_SHAPES:
+    shapes = [(n, k, side, B8_NF, B8_G, True) for n, k, side in B8B_SHAPES
+              ] + [(*c, False) for c in B8B_CHECKS]
+    for n, k, side, nf, G, timed in shapes:
         lvd = nngp_level(torch, dev, n, k, side, seed=n)
+        if G < B8_G:                              # the grid's first G points
+            lvd.nn_coef, lvd.nn_D = lvd.nn_coef[:G], lvd.nn_D[:G]
+            lvd.nn_coef_u = lvd.nn_coef_u[:G]
         g = torch.Generator(device=dev).manual_seed(n + 2)
-        alpha = torch.randint(0, B8_G, (B8_C, B8_NF), generator=g,
+        alpha = torch.randint(0, G, (B8_C, nf), generator=g,
                               device=dev, dtype=torch.int32)
-        eta = torch.randn((B8_C, n, B8_NF), generator=g, device=dev)
+        eta = torch.randn((B8_C, n, nf), generator=g, device=dev)
         vk = tsp.nngp_quad_grid(lvd, eta)
         vp = tsp._nngp_quad_grid_plain(lvd, eta)
         ak = tsp.nngp_quad_at(lvd, alpha, eta)
@@ -1254,12 +1380,20 @@ def check_b8b(torch, tsp, dev, card):
                / (ap[..., 0] * ap[..., 1]).sqrt()).max().item()
         for label, e in (("grid", e_grid), ("at-alpha quadratics", e_q),
                          ("at-alpha 1' iW eta", e_s)):
-            assert e <= 1e-5, f"B8b {label} np={n}: rel diff {e} > 1e-5"
+            assert e <= 1e-5, f"B8b {label} np={n} C nf={B8_C * nf} G={G}: " \
+                              f"rel diff {e} > 1e-5"
         assert torch.equal(vk, tsp.nngp_quad_grid(lvd, eta)), \
-            "B8b: two runs differ"
-        print(f"B8b check np={n} k={k}: grid rel diff {e_grid:.3g}, at-alpha "
-              f"{e_q:.3g} (q, 1' iW 1) and {e_s:.3g} (1' iW eta) (tolerance "
-              f"1e-5: another summation order); two runs bit-identical")
+            "B8b grid mode: two runs differ"
+        assert torch.equal(ak, tsp.nngp_quad_at(lvd, alpha, eta)), \
+            "B8b at alpha: two runs differ"
+        geo = tsp.quad_geometry(B8_C, n, nf)
+        print(f"B8b check np={n} k={k} C nf={B8_C * nf} G={G}: grid rel diff "
+              f"{e_grid:.3g}, at-alpha {e_q:.3g} (q, 1' iW 1) and {e_s:.3g} "
+              f"(1' iW eta) (tolerance 1e-5: another summation order); two "
+              f"runs bit-identical in both modes; grid launch {geo}, at "
+              f"alpha {tsp.quad_at_geometry(n)}")
+        if not timed:
+            continue
 
         def grid():
             tsp.nngp_quad_grid(lvd, eta)
@@ -1280,29 +1414,37 @@ def check_b8b(torch, tsp, dev, card):
         ev, plain_ev = event_ms(torch, grid), event_ms(torch, grid_plain,
                                                        batch=5)
         held = held_event_ms(torch, grid)
-        cells = B8_C * n * B8_NF
+        at_ev = event_ms(torch, at)
+        cells = B8_C * n * nf
         # grid mode: the whole coefficient and variance grids, the lists,
         # eta in and C nf G out; 2k + 4 operations a cell and grid point.
         # at-alpha mode: the slices in use; 3k + 10 operations a cell
         b, by = bound_ms(4.0 * (B8_G * n * (k + 1) + n * k + cells
-                                + B8_C * B8_NF * B8_G),
+                                + B8_C * nf * B8_G),
                          B8_G * cells * (2 * k + 4))
         b_at, by_at = bound_ms(_grid_bytes(lvd, alpha) + 4.0 * (cells + 4
-                                                                * B8_C * B8_NF),
+                                                                * B8_C * nf),
                                cells * (3 * k + 10))
-        print(f"B8b nngp_quad device time at C {B8_C}, np {n}, nf {B8_NF}, "
+        print(f"B8b nngp_quad device time at C {B8_C}, np {n}, nf {nf}, "
               f"k {k}, G {B8_G}: grid {ms:.5f} ms (plain {plain_ms:.4f} ms, "
               f"bound {b:.5f} ms by {by}; held stream {held:.5f} ms, with "
               f"enqueue {ev:.4f} ms, plain {plain_ev:.4f} ms); at-alpha "
               f"{at_ms:.5f} ms (plain {at_plain_ms:.4f} ms, bound "
-              f"{b_at:.6f} ms by {by_at}) [{card}]")
+              f"{b_at:.6f} ms by {by_at}; with enqueue {at_ev:.4f} ms) "
+              f"[{card}]")
         res[n] = dict(max_abs_err=max((vk - vp).abs().max().item(),
                                       (ak - ap).abs().max().item()),
                       ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
                       library_ms=None, event_ms=ev, plain_event_ms=plain_ev,
                       held_ms=held, at_ms=at_ms, at_plain_ms=at_plain_ms,
-                      at_bound_ms=b_at, shape=[B8_C, n, B8_NF, k, B8_G])
-    return res[B8_SHAPES[0][0]]
+                      at_bound_ms=b_at, at_event_ms=at_ev,
+                      shape=[B8_C, n, nf, k, B8_G])
+    out = res[B8_SHAPES[0][0]]
+    for n, r in res.items():
+        if n != B8_SHAPES[0][0]:
+            out.update({f"np{n}_ms": r["ms"], f"np{n}_at_ms": r["at_ms"],
+                        f"np{n}_bound_ms": r["bound_ms"]})
+    return out
 
 
 def check_b8c(torch, tsp, dev, card):
@@ -2537,7 +2679,9 @@ def check_b9b(torch, tserve, dev, card, steps=3):
 def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
                       cg_loop=(), updater=None):
     """Kernel launches the sweep schedule implies: Z once at start and once
-    a sweep, for probit columns (B1) and for Poisson columns (B5);
+    a sweep, for probit columns (B1: its fused form where Z's probit
+    branch is the linear predictor's only reader, ``updaters.fused_z``,
+    else its E-reading form) and for Poisson columns (B5);
     BetaLambda and each level's Eta systems (B2, where P <= 16) each sweep;
     psi, nf_max deltas, the Wishart diagonal and, where a dispersion is
     estimated, the residual precisions each sweep, plus the Nf move's psi
@@ -2554,6 +2698,7 @@ def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
     ``updater={"InterweaveDA": True}`` on a probit model with an intercept,
     the DA intercept draw each sweep (B7)."""
     from hmsc_tpu_torch.mcmc import spatial as tspatial
+    from hmsc_tpu_torch.mcmc import updaters as tupd
     from hmsc_tpu_torch.mcmc.structs import _find_ones_column
 
     sweeps = transient + samples * thin
@@ -2570,7 +2715,9 @@ def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
     gpp = sum(ls.spatial == "GPP" for ls in spec.levels)
     da = bool((updater or {}).get("InterweaveDA")) and spec.any_probit \
         and ones
-    return {"probit_z": (1 + sweeps) * spec.any_probit,
+    fused = tupd.fused_z(spec)
+    return {"probit_z": (1 + sweeps) * spec.any_probit * (not fused),
+            "probit_z_fused": (1 + sweeps) * fused,
             "mvn_prec_small": sweeps * systems,
             "standard_gamma": sweeps * per_sweep_gamma + 2 * nf_sweeps,
             "poisson_z": (1 + sweeps) * spec.any_poisson,
@@ -2931,7 +3078,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{len(K.KERNELS)} kernels (nvcc, sm_90a)")
 
-    results = {"probit_z": check_b1(torch, trand, dev, card),
+    results = {**check_b1(torch, trand, dev, card),
                "mvn_prec_small": check_b2(torch, tlinalg, dev, card),
                "standard_gamma": check_b3(torch, trand, dev, card),
                "poisson_z": check_b5(torch, trand, dev, card),
@@ -3037,7 +3184,10 @@ def main() -> int:
     # launches the line reports: the first that runs it)
     meta = {
         "probit_z": ("B1 probit_z", "hmsc_tpu_torch/csrc/probit_z.cu",
-                     "hmsc_tpu/ops/rand.py:84", "headline"),
+                     "hmsc_tpu/ops/rand.py:84", "config5"),
+        "probit_z_fused": ("B1 probit_z_fused",
+                           "hmsc_tpu_torch/csrc/probit_z.cu",
+                           "hmsc_tpu/ops/rand.py:84", "headline"),
         "mvn_prec_small": ("B2 mvn_prec_small",
                            "hmsc_tpu_torch/csrc/mvn_prec_small.cu",
                            "hmsc_tpu/ops/linalg.py:63", "headline"),

@@ -23,6 +23,36 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 ctr, uint2 key) {
   return ctr;
 }
 
+// The same generator with its ten round keys (key + r (W0, W1), r = 0..9)
+// formed on the host and passed in the launch's arguments, where every
+// round reads them as constants instead of adding them.
+struct PhiloxKeys {
+  uint2 k[10];
+};
+
+__host__ __device__ inline PhiloxKeys philox_round_keys(uint2 key) {
+  PhiloxKeys ks;
+  for (int i = 0; i < 10; ++i) {
+    ks.k[i] = key;
+    key.x += 0x9E3779B9u;
+    key.y += 0xBB67AE85u;
+  }
+  return ks;
+}
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 ctr,
+                                               const PhiloxKeys& ks) {
+  const unsigned M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    const unsigned hi0 = __umulhi(M0, ctr.x), lo0 = M0 * ctr.x;
+    const unsigned hi1 = __umulhi(M1, ctr.z), lo1 = M1 * ctr.z;
+    ctr = make_uint4(hi1 ^ ctr.y ^ ks.k[i].x, lo1, hi0 ^ ctr.w ^ ks.k[i].y,
+                     lo0);
+  }
+  return ctr;
+}
+
 __host__ __device__ __forceinline__ uint2 seed_key(unsigned long long seed) {
   return make_uint2(static_cast<unsigned>(seed),
                     static_cast<unsigned>(seed >> 32));

@@ -19,20 +19,22 @@
 //   sampled);  y = out * ys + ym
 //
 // with z_given_yc(E) = E + std eps (std = isig^-1/2), Yc on observed normal
-// cells and B1's one-sided truncated normal (truncnorm.cuh, the same device
-// code) on observed probit cells; then the mean and population sd of y
-// over the draws.  No jitter on P, as in the JAX kernel.  Unobserved cells
-// carry weight 0 in U and F, and F is the only reader of z, so the kernel
-// skips them in those passes and draws no z for them (the JAX kernel
-// draws E + std eps there, multiplied by 0).  Nor does it draw the z of the
-// last step's refresh: nothing reads it (the JAX scan carries it out and
-// drops it).  The draws it does make keep their Philox keys.
+// cells and B1's one-sided truncated normal (truncnorm.cuh · probit_z_draw,
+// the same device function) on observed probit cells; then the mean and
+// population sd of y over the draws.  No jitter on P, as in the JAX
+// kernel.  Unobserved cells carry weight 0 in U and F, and F is the only
+// reader of z, so the kernel skips them in those passes and draws no z for
+// them (the JAX kernel draws E + std eps there, multiplied by 0).  Nor does
+// it draw the z of the last step's refresh: nothing reads it (the JAX scan
+// carries it out and drops it).  The draws it does make keep their Philox
+// keys.
 //
 // What bounds it on the H100: instructions.  At the serve path's query (B
 // 64, 800 draws, 1000 species, 500 observed, nf 8, mcmc_step 3) the ~1e8
 // refreshed probit cells each issue a Philox4x32-10 (~80 integer
-// instructions) and a truncated normal (normcdff, normcdfinvf: ~100 more);
-// that is most of the issue-rate floor (scripts/serve_conditional_sweep.py
+// instructions) and a truncated normal (~100 more with normcdff and
+// normcdfinvf, fewer with truncnorm.cuh's forms since B1's redesign); that
+// is most of the issue-rate floor (scripts/serve_conditional_sweep.py
 // reads it from the SASS).  The first version (one block of 256 threads a
 // (row, draw chunk), threads over species) sat far above it, held by
 // latency: block-wide reductions and warp 0's serial Cholesky and solves

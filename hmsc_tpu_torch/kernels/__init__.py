@@ -31,6 +31,7 @@ __all__ = ["launches", "reset_launches", "library", "check", "stream_of",
 
 # kernel name -> its source file under csrc/
 KERNELS = {"probit_z": "probit_z.cu",
+           "probit_z_fused": "probit_z.cu",
            "mvn_prec_small": "mvn_prec_small.cu",
            "standard_gamma": "standard_gamma.cu",
            "poisson_z": "poisson_z.cu",
@@ -126,8 +127,10 @@ def library():
             p, i, ll, u64, u32 = (ctypes.c_void_p, ctypes.c_int,
                                   ctypes.c_longlong, ctypes.c_ulonglong,
                                   ctypes.c_uint)
-            lib.hmsc_probit_z.argtypes = [p, p, p, p, p, ll, ll, i, u64, u32,
-                                          p]
+            lib.hmsc_probit_z.argtypes = [p, p, p, p, p, i, i, i, i, i, u64,
+                                          u32, p]
+            lib.hmsc_probit_z_fused.argtypes = [p] * 11 + [i] * 7 + [
+                u64, u32, p]
             lib.hmsc_mvn_prec_small.argtypes = [p, p, p, p, ll, i, p]
             lib.hmsc_standard_gamma.argtypes = [p, p, ll, u64, u32, p]
             lib.hmsc_poisson_z.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
@@ -141,10 +144,8 @@ def library():
                                              i, i, i, p]
             lib.hmsc_vecchia_cg.argtypes = [p] * 15 + [i] * 8 + [
                 ctypes.c_float, i, p]
-            lib.hmsc_nngp_quad_grid.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                                p]
-            lib.hmsc_nngp_quad_at.argtypes = [p, p, p, p, p, p, i, i, i, i,
-                                              p]
+            lib.hmsc_nngp_quad_grid.argtypes = [p] * 5 + [i] * 6 + [p]
+            lib.hmsc_nngp_quad_at.argtypes = [p] * 6 + [i] * 7 + [p]
             lib.hmsc_nngp_riw.argtypes = [p, p, p, p, p, i, i, i, i, p]
             lib.hmsc_gpp_unit.argtypes = [p, p, p, p, p, p, i, i, i, p]
             lib.hmsc_gpp_knot.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
@@ -158,7 +159,8 @@ def library():
             lib.hmsc_serve_quantile.argtypes = [p, ll, i, i, i, p, i, p, p]
             lib.hmsc_serve_conditional.argtypes = [p] * 10 + [i] + [p] * 11 + [
                 i] * 13 + [u64, u32, p]
-            for fn in (lib.hmsc_probit_z, lib.hmsc_mvn_prec_small,
+            for fn in (lib.hmsc_probit_z, lib.hmsc_probit_z_fused,
+                       lib.hmsc_mvn_prec_small,
                        lib.hmsc_standard_gamma, lib.hmsc_poisson_z,
                        lib.hmsc_masked_gram, lib.hmsc_vecchia_fwd,
                        lib.hmsc_vecchia_adj, lib.hmsc_vecchia_cg,

@@ -109,6 +109,11 @@ class LevelData(_Replace):
     nn_idx: Any = None           # (np, k) int32, pads index 0
     nn_coef: Any = None          # (G, np, k), pads 0
     nn_D: Any = None             # (G, np)
+    # the lists and the coefficient grid with the unit last: B8b's grid
+    # mode takes a unit a thread, so a warp's loads of a slot are 128 bytes
+    # in a row
+    nn_idx_u: Any = None         # (k, np) int32
+    nn_coef_u: Any = None        # (G, k, np)
     nn_n: Any = None             # (np,) int32 real neighbours per unit
     # reverse-neighbour CSR: unit j is neighbour slot rev_pos[e] % k of
     # unit rev_pos[e] // k for e in rev_ptr[j]:rev_ptr[j+1]
@@ -347,7 +352,8 @@ def stack_states(states) -> GibbsState:
 _INT_FIELDS = {"pi_row": torch.int64, "distr_family": torch.int32,
                "alpha_idx": torch.int32, "nf_sat": torch.int32,
                "rho_idx": torch.int32, "it": torch.int32,
-               "nn_idx": torch.int32, "nn_n": torch.int32,
+               "nn_idx": torch.int32, "nn_idx_u": torch.int32,
+               "nn_n": torch.int32,
                "rev_ptr": torch.int32, "rev_pos": torch.int32}
 _INDEX_FIELDS = {"x_intercept_ind", "tr_intercept_ind", "x_ones_ind"}
 # held in float64 whatever the working type: the GPP grid's F^-1 reaches
@@ -409,11 +415,19 @@ def reverse_neighbours(nn_idx, nn_n):
     return ptr, pos[order]
 
 
+def unit_last_grids(nn_idx, nn_coef):
+    """An NNGP level's lists (np, k) and coefficient grid (G, np, k) with
+    the unit last: (k, np) and (G, k, np), contiguous."""
+    return (np.ascontiguousarray(np.asarray(nn_idx).T),
+            np.ascontiguousarray(np.asarray(nn_coef).transpose(0, 2, 1)))
+
+
 def data_from_numpy(d: dict, device, dtype=torch.float32) -> ModelData:
     """``ModelData`` from numpy arrays keyed by field name (per-level fields
     as ``levels.<r>.<field>``).  Fields the port does not use are ignored;
     intercept indices may be None or integer scalars.  An NNGP level's
-    ``nn_n`` is derived when absent, and its reverse-neighbour lists are
+    ``nn_n`` is derived when absent, and its reverse-neighbour lists and
+    its lists and grid with the unit last (:func:`unit_last_grids`) are
     built here."""
     d = dict(d)
     for key in [k for k in d if k.endswith(".nn_idx")]:
@@ -422,6 +436,8 @@ def data_from_numpy(d: dict, device, dtype=torch.float32) -> ModelData:
             d[pre + "nn_n"] = _neighbour_counts(d[key], d[pre + "nn_coef"])
         d[pre + "rev_ptr"], d[pre + "rev_pos"] = reverse_neighbours(
             d[key], d[pre + "nn_n"])
+        d[pre + "nn_idx_u"], d[pre + "nn_coef_u"] = unit_last_grids(
+            d[key], d[pre + "nn_coef"])
     top, lvls = _split_levels(d)
     names = {f.name for f in dataclasses.fields(LevelData)}
     levels = tuple(LevelData(**{k: _tensor(k, v, device, dtype)

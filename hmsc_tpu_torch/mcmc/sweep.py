@@ -5,7 +5,9 @@ The sweep is a list of named blocks run in order, each ``block(data, carry,
 rng, noise) -> carry`` with the carry ``(state, E_shared)``: ``E_shared`` is
 the linear predictor computed at the end of the Eta block and read by
 InvSigma and Z (the interweaving moves leave the product Eta Lambda + X
-Beta invariant, so it is not recomputed).  Updaters can be disabled with
+Beta invariant, so it is not recomputed).  Where Z's probit branch is its
+only reader (``updaters.fused_z``) the block passes ``None`` instead and Z
+forms E inside kernel B1.  Updaters can be disabled with
 the ``updater`` toggle dict, as in the JAX package
 (``updater={"Interweave": False}``); the probit-DA intercept interweave is
 opt-in (``updater={"InterweaveDA": True}``).
@@ -40,6 +42,10 @@ def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
                 f"updater {name!r} is not ported yet (ROADMAP {item})")
     adapt_nf = adapt_nf or tuple(0 for _ in range(spec.nr))
     any_spatial = any(ls.spatial is not None for ls in spec.levels)
+    # where Z's probit branch is E's only reader, the Eta block leaves E
+    # unformed and Z forms it in B1's fused form, from the state after the
+    # interweaves (equal in exact arithmetic: they leave E invariant)
+    fused = U.fused_z(spec)
     steps = []
 
     if on("BetaLambda"):
@@ -81,7 +87,11 @@ def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
                 levels = list(state.levels)
                 levels[r] = lv
                 state = state.replace(levels=tuple(levels))
-                LRan[r] = U.level_loading(data.levels[r], state.levels[r])
+                if not fused:
+                    LRan[r] = U.level_loading(data.levels[r],
+                                              state.levels[r])
+            if fused:
+                return state, None
             E = LFix
             for r in range(spec.nr):
                 E = E + LRan[r]

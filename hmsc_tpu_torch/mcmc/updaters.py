@@ -27,12 +27,13 @@ import torch
 
 from ..ops.gram import masked_gram
 from ..ops.linalg import chol_spd, sample_mvn_prec, sample_mvn_prec_batched
-from ..ops.rand import (da_intercept_draw, poisson_z, standard_gamma,
-                        truncated_normal_onesided, wishart)
+from ..ops.rand import (da_intercept_draw, poisson_z, probit_z_fused,
+                        standard_gamma, truncated_normal_onesided, wishart)
 from .structs import GibbsState, LevelState, ModelData, ModelSpec
 
 __all__ = ["lambda_effective", "linear_fixed", "level_loading",
-           "total_loading", "eta_star", "update_z", "update_beta_lambda",
+           "total_loading", "eta_star", "fused_z", "update_z",
+           "update_beta_lambda",
            "update_gamma_v", "gamma_given_beta", "update_lambda_priors",
            "update_eta_nonspatial", "interweave_scale", "location_gate",
            "interweave_location", "da_intercept_gate",
@@ -116,6 +117,22 @@ def _unstack_lambda(spec: ModelSpec, BL, state: GibbsState):
 # updateZ (reference R/updateZ.R)
 # ---------------------------------------------------------------------------
 
+# B1's fused form stages nc + nf_max floats a row and a column
+FUSED_Z_MAX_K = 32
+
+
+def fused_z(spec: ModelSpec) -> bool:
+    """Whether Z's probit branch is the linear predictor's only reader:
+    every column probit, no missing values, no estimated dispersion, at
+    most one random level (with x_dim 0, as every ported level) and
+    ``nc + nf_max <= 32``.  Then the sweep does not form E and
+    :func:`update_z` draws Z with B1's fused form, which forms E itself."""
+    return (spec.any_probit and not spec.any_normal and not spec.any_poisson
+            and not spec.has_na and not spec.any_estimated_sigma
+            and spec.nr <= 1 and all(ls.x_dim == 0 for ls in spec.levels)
+            and spec.nc + spec.nf_total <= FUSED_Z_MAX_K)
+
+
 def update_z(spec: ModelSpec, data: ModelData, state: GibbsState, rng=None,
              E=None, noise=None) -> GibbsState:
     """Latent-response data augmentation: normal columns copy Y, probit
@@ -123,9 +140,20 @@ def update_z(spec: ModelSpec, data: ModelData, state: GibbsState, rng=None,
     Poisson columns the Polya-Gamma augmented normal of the NB(r = 1000)
     limit, drawn at the previous Z (kernel B5); last, missing cells of
     every family are imputed as E + sigma eps.  ``E`` may pass in the
-    current linear predictor.  ``noise``, per active branch: ``{"u",
-    "eps_pg", "eps_z", "eps_na"}``, each (C, ny, ns) (the JAX updater's
-    ``k_tn, k_pg, k_pg2, k_na`` draws)."""
+    current linear predictor; without it, a model where :func:`fused_z`
+    holds draws Z with B1's fused form from the current state.  ``noise``,
+    per active branch: ``{"u", "eps_pg", "eps_z", "eps_na"}``, each (C,
+    ny, ns) (the JAX updater's ``k_tn, k_pg, k_pg2, k_na`` draws)."""
+    if E is None and fused_z(spec):
+        level = None
+        if spec.nr:
+            lv = state.levels[0]
+            level = (lv.Eta, data.levels[0].pi_row, lv.Lambda[..., 0],
+                     lv.nf_mask)
+        Z = probit_z_fused(data.X, state.Beta, state.iSigma ** -0.5, data.Y,
+                           rng, None if noise is None else noise.get("u"),
+                           level)
+        return state.replace(Z=Z)
     if E is None:
         E = total_loading(spec, data, state)
     nz = noise if noise is not None else {}

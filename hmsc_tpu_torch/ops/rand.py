@@ -1,9 +1,11 @@
 """Random-draw primitives (port of ``hmsc_tpu/ops/rand.py``).
 
-Two of them are kernels written by hand for Hopper (``csrc/``):
+Some of them are kernels written by hand for Hopper (``csrc/``):
 
-- B1 :func:`truncated_normal_onesided` — the probit Z draw, one thread per
-  four cells (``csrc/probit_z.cu``);
+- B1 :func:`truncated_normal_onesided` and :func:`probit_z_fused` — the
+  probit Z draw from the linear predictor E, or with E formed in the
+  kernel from X Beta and the level's loadings, a thread a row's four
+  columns of four rows (``csrc/probit_z.cu``);
 - B3 :func:`standard_gamma` — per-element Marsaglia-Tsang rejection
   (``csrc/standard_gamma.cu``);
 - B5 :func:`poisson_z` — the Polya-Gamma Poisson Z draw, one thread per
@@ -27,6 +29,7 @@ draw, so seeding a launch never waits for the device.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -34,6 +37,7 @@ import torch
 from .. import kernels as K
 
 __all__ = ["Rng", "truncated_normal", "truncated_normal_onesided",
+           "probit_z_fused", "probit_z_geometry",
            "standard_gamma", "wishart", "polya_gamma", "poisson_z",
            "da_intercept_draw"]
 
@@ -122,15 +126,46 @@ def truncated_normal(lower, upper, mean=0.0, std=1.0, *, _u):
 # B1: one-sided truncated normal (the probit Z draw)
 # ---------------------------------------------------------------------------
 
+def probit_z_geometry(ny: int, ns: int):
+    """B1's launch geometry, ``(lg_tcg, grid)``: 256 threads a block, each
+    owning 4 consecutive columns of 4 rows; a block spans ``2**lg_tcg``
+    column groups (the smallest power of two from 4 to 32 that covers ns)
+    and ``256 / 2**lg_tcg * 4`` rows; the grid is (column tiles, row
+    tiles) per chain."""
+    tcg = 4
+    while tcg < 32 and 4 * tcg < ns:
+        tcg *= 2
+    rows = 256 // tcg * 4
+    return tcg.bit_length() - 1, (-(-ns // (4 * tcg)), -(-ny // rows))
+
+
+def _z_launch_checks(name, tensors):
+    """Device, type and layout checks of B1's operands; whether every one
+    allows 128-bit accesses."""
+    dev = tensors[0][1].device
+    aligned = True
+    for label, t, dtype, contiguous in tensors:
+        if t is None:
+            continue
+        if t.device != dev or t.dtype != dtype or (
+                contiguous and not t.is_contiguous()):
+            raise ValueError(f"{name}: {label} must be a "
+                             f"{'contiguous ' if contiguous else ''}{dtype} "
+                             f"tensor on {dev}")
+        aligned = aligned and t.data_ptr() % 16 == 0
+    return aligned
+
+
 def truncated_normal_onesided(E, std, Y, rng: Rng | None = None, u=None):
     """Z ~ N(E, std^2) truncated to Z > 0 where Y > 0.5 and Z < 0 elsewhere.
 
     ``E`` (C, ny, ns) linear predictors, ``std`` (C, ns) residual standard
     deviations per chain and species, ``Y`` (ny, ns) shared by the chains.
     This is the JAX op ``truncated_normal_onesided`` at bound 0, the only
-    bound the sampler uses.  ``u`` (C, ny, ns) injects the uniforms (the
-    JAX op's ``_u`` hook); otherwise the kernel draws them from Philox
-    keyed by ``rng.philox()``, and the plain version from ``rng.uniform``.
+    bound the sampler uses (B1's E-reading form).  ``u`` (C, ny, ns)
+    injects the uniforms (the JAX op's ``_u`` hook); otherwise the kernel
+    draws them from Philox keyed by ``rng.philox()``, and the plain version
+    from ``rng.uniform``.
     """
     C, ny, ns = E.shape
     if std.shape != (C, ns) or Y.shape != (ny, ns):
@@ -142,24 +177,102 @@ def truncated_normal_onesided(E, std, Y, rng: Rng | None = None, u=None):
         if u is None:
             u = rng.uniform(E.shape, dtype=E.dtype)
         return _truncated_normal_onesided_plain(E, std, Y, u)
-    for name, t in (("E", E), ("std", std), ("Y", Y)) + (
-            (("u", u),) if u is not None else ()):
-        if t.device != E.device or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError(f"truncated_normal_onesided: {name} must be a "
-                             "contiguous float32 tensor on E's device")
+    f32 = torch.float32
     Z = torch.empty_like(E)
+    aligned = _z_launch_checks("truncated_normal_onesided", (
+        ("E", E, f32, True), ("std", std, f32, True), ("Y", Y, f32, True),
+        ("u", u, f32, True), ("Z", Z, f32, True)))
     if E.numel() == 0:
         return Z
+    lg, _ = probit_z_geometry(ny, ns)
     seed, offset = (0, 0) if u is not None else rng.philox()
     with torch.cuda.device(E.device):
         code = K.library().hmsc_probit_z(
             E.data_ptr(), std.data_ptr(), Y.data_ptr(),
-            None if u is None else u.data_ptr(), Z.data_ptr(), E.numel(),
-            ny * ns, ns, seed, offset, K.stream_of(E))
+            None if u is None else u.data_ptr(), Z.data_ptr(), C, ny, ns, lg,
+            int(aligned and ns % 4 == 0), seed, offset, K.stream_of(E))
     K.check(code, "probit_z")
     K.launches["probit_z"] += 1
     return Z
+
+
+def probit_z_fused(X, Beta, std, Y, rng: Rng | None = None, u=None,
+                   level=None):
+    """B1's fused form: the probit Z draw of :func:`truncated_normal_onesided`
+    at the linear predictor ``E = X Beta + Eta[:, pi] (Lambda * mask)``,
+    formed inside the kernel, so E is never written.
+
+    ``X`` (ny, nc), ``Beta`` (C, nc, ns), ``std`` (C, ns), ``Y`` (ny, ns);
+    ``level`` is ``None`` (no random level) or ``(Eta (C, np, nf), pi (ny,)
+    int64, Lambda (C, nf, ns), mask (C, nf))``, inactive factors masked by
+    0.  ``nc + nf`` is at most 32.  The operands may be strided views.
+    ``u`` (C, ny, ns) injects the uniforms.  The plain version forms E as
+    ``updaters.total_loading`` does, then runs the plain truncated normal;
+    the kernel draws the same uniforms from the same Philox counters as the
+    E-reading form."""
+    C, nc, ns = Beta.shape
+    ny = X.shape[0]
+    if X.shape != (ny, nc) or std.shape != (C, ns) or Y.shape != (ny, ns):
+        raise ValueError(f"probit_z_fused: X {tuple(X.shape)}, Beta "
+                         f"{tuple(Beta.shape)}, std {tuple(std.shape)}, Y "
+                         f"{tuple(Y.shape)}")
+    if level is not None:
+        Eta, pi, Lam, mask = level
+        nf = Eta.shape[2]
+        if (Eta.shape[0] != C or pi.shape != (ny,)
+                or Lam.shape != (C, nf, ns) or mask.shape != (C, nf)):
+            raise ValueError("probit_z_fused: level shapes Eta "
+                             f"{tuple(Eta.shape)}, pi {tuple(pi.shape)}, "
+                             f"Lambda {tuple(Lam.shape)}, mask "
+                             f"{tuple(mask.shape)}")
+    else:
+        nf = 0
+    if nc + nf > 32 or nc + nf < 1:
+        raise ValueError(f"probit_z_fused: nc + nf = {nc + nf} outside "
+                         "[1, 32]")
+    if u is not None and u.shape != (C, ny, ns):
+        raise ValueError("probit_z_fused: u must be (C, ny, ns)")
+    if not Beta.is_cuda:
+        if u is None:
+            u = rng.uniform((C, ny, ns), dtype=Beta.dtype)
+        return _probit_z_fused_plain(X, Beta, std, Y, u, level)
+    f32 = torch.float32
+    Z = Beta.new_empty((C, ny, ns))
+    lvl = level if level is not None else (None,) * 4
+    aligned = _z_launch_checks("probit_z_fused", (
+        ("Beta", Beta, f32, False), ("X", X, f32, False),
+        ("Eta", lvl[0], f32, False), ("pi", lvl[1], torch.int64, True),
+        ("Lambda", lvl[2], f32, False), ("mask", lvl[3], f32, False),
+        ("std", std, f32, True), ("Y", Y, f32, True), ("u", u, f32, True),
+        ("Z", Z, f32, True)))
+    if Z.numel() == 0:
+        return Z
+    strides = list(X.stride()) + list(Beta.stride()) + (
+        [*lvl[0].stride(), *lvl[2].stride(), *lvl[3].stride()]
+        if level is not None else [0] * 8)
+    lg, _ = probit_z_geometry(ny, ns)
+    seed, offset = (0, 0) if u is not None else rng.philox()
+    eta_p, pi_p, lam_p, mask_p, u_p = (
+        None if t is None else t.data_ptr() for t in (*lvl, u))
+    with torch.cuda.device(Z.device):
+        code = K.library().hmsc_probit_z_fused(
+            X.data_ptr(), Beta.data_ptr(), eta_p, pi_p, lam_p, mask_p,
+            std.data_ptr(), Y.data_ptr(), u_p, Z.data_ptr(),
+            (ctypes.c_longlong * 13)(*strides), C, ny, ns, nc, nf, lg,
+            int(aligned and ns % 4 == 0), seed, offset, K.stream_of(Z))
+    K.check(code, "probit_z_fused")
+    K.launches["probit_z_fused"] += 1
+    return Z
+
+
+def _probit_z_fused_plain(X, Beta, std, Y, u, level):
+    """The linear predictor as ``updaters.total_loading`` forms it, then
+    the plain truncated normal."""
+    E = X @ Beta
+    if level is not None:
+        Eta, pi, Lam, mask = level
+        E = E + Eta[:, pi] @ (Lam * mask[:, :, None])
+    return _truncated_normal_onesided_plain(E, std, Y, u)
 
 
 def _truncated_normal_onesided_plain(E, std, Y, u):
@@ -182,8 +295,8 @@ def _truncated_normal_onesided_plain(E, std, Y, u):
 def _ndtr(x):
     """Phi(x) as ``jax.scipy.special.ndtr`` computes it: erfc in the tails,
     so the lower tail keeps its relative accuracy in float32
-    (``torch.special.ndtr`` loses it below about -5).  The kernel's
-    ``normcdff`` is accurate there too."""
+    (``torch.special.ndtr`` loses it below about -5).  The kernels'
+    ``upper_prob`` (``csrc/truncnorm.cuh``) keeps it too."""
     half_sqrt_2 = 0.5 * math.sqrt(2.0)
     w = x * half_sqrt_2
     z = w.abs()

@@ -24,8 +24,10 @@ wrappers:
   ``eta_quad_at``, ``eta_ones_forms_at``).
 
 ``lvd`` is a level's ``LevelData``: for NNGP ``nn_idx`` (np, k),
-``nn_coef`` (G, np, k), ``nn_D`` (G, np), ``nn_n`` and the
-reverse-neighbour CSR (``rev_ptr``, ``rev_pos``); for GPP ``idDg`` (G, np),
+``nn_coef`` (G, np, k), ``nn_D`` (G, np), the lists and the grid with
+the unit last, ``nn_idx_u`` (k, np) and ``nn_coef_u`` (G, k, np) (B8b's
+grid mode reads those), ``nn_n`` and the reverse-neighbour CSR (``rev_ptr``,
+``rev_pos``); for GPP ``idDg`` (G, np),
 ``idDW12g`` (G, np, nK), ``Fg`` and ``iFg`` (G, nK, nK; all but ``idDg`` in
 float64) and ``alphapw`` (G, 2), whose grid points at alpha 0 switch the
 knot algebra off (``W = I``).  ``alpha_idx`` (C, nf) picks each chain's factor's grid point, and
@@ -302,20 +304,60 @@ def _vecchia_cg_plain(lvd, alpha_idx, LiSL, F, eps1, b_like, x0, tol,
 # B8b: prior quadratics over the alpha grid and at each factor's alpha
 # ---------------------------------------------------------------------------
 
+# the shared memory a grid-mode block may take for eta; the largest
+# at-alpha cluster (the portable size)
+_QUAD_SMEM = 200 * 1024
+_CLUSTER_MAX = 8
+
+
+def quad_geometry(C: int, npr: int, nf: int) -> dict:
+    """Grid-mode launch shape of B8b (``csrc/nngp_quad.cu``), which runs a
+    block of 512 threads a grid point, a thread a unit at a time: eta whole
+    in each block's shared memory (``eta_smem``) when it fits in
+    ``_QUAD_SMEM``, else read in place."""
+    return dict(eta_smem=4 * C * npr * nf <= _QUAD_SMEM)
+
+
+def quad_at_geometry(npr: int) -> dict:
+    """At-alpha launch shape of B8b: ``S`` blocks a cluster a column, each
+    over ``units`` units, a thread a unit (``threads``: 128 or 256)."""
+    S = max(1, min(_CLUSTER_MAX, -(-npr // 128)))
+    units = -(-npr // S)
+    return dict(S=S, units=units, threads=128 if units <= 128 else 256)
+
+
+def _check_unit_last(name, lvd, eta):
+    """:func:`_check` of grid mode's operands: the level's unit-last lists
+    and grid, their shapes those of ``nn_idx`` and ``nn_coef`` with the
+    unit last, and eta."""
+    G, npr, k = lvd.nn_coef.shape
+    if (tuple(lvd.nn_idx_u.shape) != (k, npr)
+            or tuple(lvd.nn_coef_u.shape) != (G, k, npr)
+            or eta.dim() != 3 or eta.shape[1] != npr):
+        raise ValueError(f"{name}: nn_idx_u must be (k, np) = {(k, npr)}, "
+                         f"nn_coef_u (G, k, np) = {(G, k, npr)} and eta (C, "
+                         f"np, nf), got {tuple(lvd.nn_idx_u.shape)}, "
+                         f"{tuple(lvd.nn_coef_u.shape)}, {tuple(eta.shape)}")
+    _check(name, lvd, None, ("eta", eta, torch.float32),
+           ("nn_idx_u", lvd.nn_idx_u, torch.int32),
+           ("nn_coef_u", lvd.nn_coef_u, torch.float32))
+
+
 def nngp_quad_grid(lvd, eta):
     """``v[c, f, g] = eta_cf' iW_g eta_cf`` for every grid point g: the
     Vecchia residuals' squares over D, summed over units.  (C, nf, G)."""
     if not eta.is_cuda:
         return _nngp_quad_grid_plain(lvd, eta)
     C, npr, nf = eta.shape
-    G = lvd.nn_coef.shape[0]
-    _check("nngp_quad_grid", lvd, None, ("eta", eta, torch.float32))
+    G, _, k = lvd.nn_coef.shape
+    _check_unit_last("nngp_quad_grid", lvd, eta)
     out = eta.new_empty((C, nf, G))
+    q = quad_geometry(C, npr, nf)
     with torch.cuda.device(eta.device):
         code = K.library().hmsc_nngp_quad_grid(
-            eta.data_ptr(), lvd.nn_idx.data_ptr(), lvd.nn_coef.data_ptr(),
-            lvd.nn_D.data_ptr(), out.data_ptr(), C, npr, nf,
-            lvd.nn_idx.shape[1], G, K.stream_of(eta))
+            eta.data_ptr(), lvd.nn_idx_u.data_ptr(), lvd.nn_coef_u.data_ptr(),
+            lvd.nn_D.data_ptr(), out.data_ptr(), C, npr, nf, k, G,
+            int(q["eta_smem"]), K.stream_of(eta))
     K.check(code, "nngp_quad")
     K.launches["nngp_quad"] += 1
     return out
@@ -327,13 +369,18 @@ def nngp_quad_at(lvd, alpha_idx, eta):
     if not eta.is_cuda:
         return _nngp_quad_at_plain(lvd, alpha_idx, eta)
     C, npr, nf = eta.shape
+    if eta.dim() != 3 or npr != lvd.nn_idx.shape[0]:
+        raise ValueError(f"nngp_quad_at: eta must be (C, np, nf) with np "
+                         f"{lvd.nn_idx.shape[0]}, got {tuple(eta.shape)}")
     _check("nngp_quad_at", lvd, alpha_idx, ("eta", eta, torch.float32))
     out = eta.new_empty((C, nf, 3))
+    q = quad_at_geometry(npr)
     with torch.cuda.device(eta.device):
         code = K.library().hmsc_nngp_quad_at(
             eta.data_ptr(), lvd.nn_idx.data_ptr(), lvd.nn_coef.data_ptr(),
             lvd.nn_D.data_ptr(), alpha_idx.data_ptr(), out.data_ptr(), C,
-            npr, nf, lvd.nn_idx.shape[1], K.stream_of(eta))
+            npr, nf, lvd.nn_idx.shape[1], q["S"], q["units"], q["threads"],
+            K.stream_of(eta))
     K.check(code, "nngp_quad")
     K.launches["nngp_quad"] += 1
     return out

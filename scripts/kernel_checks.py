@@ -23,8 +23,9 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-# B8d-1..3 share one check, which returns all three kernels' numbers
-_GPP = ("gpp_unit", "gpp_knot", "gpp_quad")
+# checks that return several kernels' numbers: B1's two forms, B8d-1..3
+_GROUPS = (("probit_z", "probit_z_fused"),
+           ("gpp_unit", "gpp_knot", "gpp_quad"))
 
 
 def ptxas_report(K, names):
@@ -80,7 +81,6 @@ def main(argv=None) -> int:
     if opts.ptxas:
         ptxas_report(K, opts.names)
     checks = {
-        "probit_z": lambda: cs.check_b1(torch, rand, dev, card),
         "mvn_prec_small": lambda: cs.check_b2(torch, linalg, dev, card),
         "standard_gamma": lambda: cs.check_b3(torch, rand, dev, card),
         "poisson_z": lambda: cs.check_b5(torch, rand, dev, card),
@@ -96,7 +96,9 @@ def main(argv=None) -> int:
     for name in opts.names:
         if name in results:
             continue
-        if name in _GPP:
+        if name in _GROUPS[0]:
+            results.update(cs.check_b1(torch, rand, dev, card))
+        elif name in _GROUPS[1]:
             results.update(cs.check_b8d(torch, spatial, dev, card))
         else:
             results[name] = checks[name]()

@@ -3,23 +3,26 @@
 on one CUDA card.
 
     python3 scripts/serve_conditional_sweep.py [--first FILE] [--rounds N]
+                                               [--variants a,b]
 
-Compiles copies of the kernel's source into ``build/conditional_variants/``,
-each with one part cut out or changed, prints each copy's registers and
+Compiles copies of the kernel's source (with ``truncnorm.cuh``, the
+truncated normal it shares with B1, written in) into
+``build/conditional_variants/``, each with one part cut out or changed, prints each copy's registers and
 spills, and times each (torch.profiler: the refinement kernel and the
 moments' combine) at the headline posterior's shapes (chip_smoke.py's
 ``serve_inputs``: 800 draws, nc 2, nf 8, 1000 species, 500 observed) at
 mcmc_step 3, expected moments, B 64 (and B 8, B 1 for the shipped
 geometries).  The copies that compute the same function are held against
 the plain version (1e-5); the diagnostic ones (a part cut out) are only
-timed.  ``--rounds N`` times the whole list N times in turn, so that two
-copies are compared within one call.
+timed.  ``--rounds N`` times the list (``--variants``, all by default) N
+times in turn, so that two copies are compared within one call.
 
 Beside the times it prints the issue-rate floor of the Z refresh: the
 static instruction count of the refresh loop's body in the SASS of a
 marked copy (``cuobjdump -sass``; a ``nanosleep`` marks the loop) times
 the refreshed cells, over the card's issue rate (4 warp instructions a
-clock on each SM at the maximum SM clock).
+clock on each SM at the maximum SM clock), for the shipped source and for
+the copy with the library's Phi and Phi^-1 (``library_tn``).
 
 ``--first FILE`` times instead the kernel's first version (a block of 256
 threads a (query row, draw chunk), threads over species, Lambda read from
@@ -43,6 +46,7 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "scripts"))
 
 CHEAP_BITS = """
 // a stand-in for Philox: a few integer operations
@@ -88,6 +92,11 @@ FIRST_MARK = [(r"for \(int j = tid; j < ns; j \+= kThreads\)\n"
 # the same function, ops.serve constants the copy runs under)
 VARIANTS = {
     "shipped": ("the kernel as built", [], True, {}),
+    "library_tn": ("the truncated normal's Phi and Phi^-1 as normcdff and "
+                   "normcdfinvf, as before B1's redesign", [
+                       (r"u \* upper_prob\(t\)", "u * normcdff(-t)"),
+                       (r"x = neg_ndtri\(p\);", "x = -normcdfinvf(p);")],
+                   True, {}),
     "stages1": ("one stage of draws (no copy in flight while a draw "
                 "computes)", [], True, {"_COND_MAX_STAGES": 1}),
     "unstaged": ("no staging: Lambda, Beta and sigma read from L2", [],
@@ -264,6 +273,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--first", default=None)
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--variants", default=",".join(VARIANTS))
     opts = ap.parse_args()
     import torch
 
@@ -318,9 +328,14 @@ def main() -> int:
             print("first version SASS: no cuobjdump or no marked loop")
         return 0
 
-    src = (K._CSRC / "serve_conditional.cu").read_text()
-    libs = build(src, {k: v[1] for k, v in VARIANTS.items()}, "now")
-    marked = build(src, {"marked": SHIPPED_MARK}, "now")
+    from probit_z_sweep import inline_header
+
+    src = inline_header(K, "serve_conditional.cu", "truncnorm.cuh")
+    chosen = {k: VARIANTS[k] for k in opts.variants.split(",")}
+    libs = build(src, {k: v[1] for k, v in chosen.items()}, "now")
+    marked = build(src, {"marked": SHIPPED_MARK,
+                         "marked_library_tn": VARIANTS["library_tn"][1]
+                         + SHIPPED_MARK}, "now")
     argtypes = main_lib.hmsc_serve_conditional.argtypes
     plain = {}
     for B, (X, uidx, Yc, mask, rest) in inputs.items():
@@ -336,7 +351,7 @@ def main() -> int:
             X, uidx, Yc, mask, *rest, steps, True, noise, None))
     try:
         for rnd in range(opts.rounds):
-            for name, (what, _, same, consts) in VARIANTS.items():
+            for name, (what, _, same, consts) in chosen.items():
                 lib = libs[name][0]
                 lib.hmsc_serve_conditional.argtypes = argtypes
                 lib.hmsc_serve_conditional.restype = ctypes.c_int
@@ -372,16 +387,17 @@ def main() -> int:
                       + "; ".join(row) + f" [{card}]", flush=True)
     finally:
         K._lib = main_lib
-    per = refresh_loop_instructions(marked["marked"][1])
-    if per:
+    for label in ("marked", "marked_library_tn"):
+        per = refresh_loop_instructions(marked[label][1])
+        if not per:
+            print("SASS: no cuobjdump or no marked loop")
+            break
         k = next((k for k in per if "Li8E" in k), min(per, key=len))
         cells = n * 64 * observed * steps
-        print(f"SASS: {per[k]} instructions in the refresh loop's body "
-              f"({k[:60]}...); {cells} refreshed cells (mcmc_step "
+        print(f"SASS ({label}): {per[k]} instructions in the refresh loop's "
+              f"body ({k[:60]}...); {cells} refreshed cells (mcmc_step "
               f"refreshes) -> issue-rate floor of the refreshes "
               f"{issue_floor_ms(torch, per[k], cells):.4f} ms [{card}]")
-    else:
-        print("SASS: no cuobjdump or no marked loop")
     return 0
 
 

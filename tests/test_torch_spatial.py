@@ -256,6 +256,152 @@ def test_b8b_plain_matches_jax_quadratics(built):
                                        rtol=OP_RTOL, atol=OP_RTOL)
 
 
+@pytest.fixture(scope="module")
+def odd_nngp():
+    """An NNGP level at an odd unit count (31 units, 5 neighbours) from the
+    JAX package, and the port's copy of it."""
+    mj = small_model(ny=62, ns=4, n_units=31, spatial="NNGP", nf=2, seed=7,
+                     n_neighbours=5)
+    spec_j, data_j, states_j = jax_triple(mj, seeds=(0,))
+    data_t, _ = to_torch(spec_j, data_j, states_j)
+    return spec_j.levels[0], data_j.levels[0], data_t.levels[0]
+
+
+def test_b8b_plain_matches_jax_at_odd_np_and_many_columns(odd_nngp):
+    """At np 31 and C nf = 5 x 2 = 10 columns (more than one 8-column
+    chunk): the grid quadratics against eta_quad_grid and the at-alpha forms
+    against eta_quad_at / eta_ones_forms_at, per chain (rtol 1e-5)."""
+    ls, lvd_j, lvd = odd_nngp
+    g = np.random.default_rng(3)
+    C, nf = 5, 2
+    npr = lvd.nn_idx.shape[0]
+    assert npr % 2 == 1 and C * nf > 8
+    eta = g.standard_normal((C, npr, nf)).astype(np.float32)
+    alpha = g.integers(0, ls.n_alpha, (C, nf)).astype(np.int32)
+    alpha[0, 0] = 0
+    grid = tops.nngp_quad_grid(lvd, _t(eta)).numpy()
+    at = tops.nngp_quad_at(lvd, _t(alpha), _t(eta)).numpy()
+    for c in range(C):
+        v, _ = JS.eta_quad_grid(lvd_j, ls, jnp.asarray(eta[c]))
+        a = jnp.asarray(alpha[c])
+        q = JS.eta_quad_at(lvd_j, ls, jnp.asarray(eta[c]), a)
+        q1, s = JS.eta_ones_forms_at(lvd_j, ls, jnp.asarray(eta[c]), a)
+        np.testing.assert_allclose(grid[c], np.asarray(v), rtol=OP_RTOL)
+        for i, want in enumerate((q, q1, s)):
+            np.testing.assert_allclose(at[c, :, i], np.asarray(want),
+                                       rtol=OP_RTOL, atol=OP_RTOL)
+
+
+def _random_level(npr, k, G, seed):
+    """Random NNGP-shaped grids (any lists, positive variances): the
+    quadratics are a formula in them."""
+    from types import SimpleNamespace
+
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, npr, (npr, k), generator=g, dtype=torch.int32)
+    coef = torch.randn((G, npr, k), generator=g) * 0.3
+    D = torch.rand((G, npr), generator=g) + 0.5
+    unit = tstructs.unit_last_grids(idx.numpy(), coef.numpy())
+    return SimpleNamespace(nn_idx=idx, nn_coef=coef, nn_D=D,
+                           nn_idx_u=torch.from_numpy(unit[0]),
+                           nn_coef_u=torch.from_numpy(unit[1]))
+
+
+def _warp_sums(vals):
+    """The grid kernel's reduction of a warp's 8 sums over its 32 lanes:
+    ``vals`` (32 lanes, 8 values) -> (8,).  Three steps each keep the half
+    of a lane's values that its lane bit (4, 3, 2) selects and add the
+    partner's copy of that half; two butterfly steps (bits 1, 0) finish,
+    so lane l ends with the sum of value l >> 2."""
+    lane = torch.arange(32)
+    v = vals
+    for o, h in ((16, 4), (8, 2), (4, 1)):
+        upper = ((lane & o) != 0)[:, None]
+        keep = torch.where(upper, v[:, h:2 * h], v[:, :h])
+        send = torch.where(upper, v[:, :h], v[:, h:2 * h])
+        v = keep + send[lane ^ o]
+    v = v + v[lane ^ 2]
+    v = v + v[lane ^ 1]
+    return v[::4, 0]
+
+
+@pytest.mark.parametrize("C,npr,nf,k,G", [(4, 1000, 2, 10, 101),
+                                          (4, 999, 2, 10, 101),
+                                          (4, 1000, 8, 10, 101),
+                                          (4, 100, 2, 10, 101),
+                                          (3, 31, 3, 5, 11),
+                                          (2, 3000, 2, 10, 11)])
+def test_b8b_launch_geometry_and_summation_order(C, npr, nf, k, G):
+    """B8b's grid-mode launch replayed on the CPU: a block of 512 threads a
+    grid point, a thread a unit at a time over chunks of 8 columns; every
+    (grid point, column, unit) is covered exactly once, and summing each
+    thread's terms over its units in order, the warp's 8 sums by the
+    kernel's shuffle steps and the warps in order gives the plain
+    quadratics (rtol 1e-5); the at-alpha ranges cover the units once."""
+    lvd = _random_level(npr, k, G, seed=npr)
+    eta = torch.randn((C, npr, nf), generator=torch.Generator().manual_seed(1))
+    assert tops.quad_geometry(C, npr, nf)["eta_smem"]
+    ncol = C * nf
+    cols = eta.permute(0, 2, 1).reshape(ncol, npr).double()
+    # back from the unit-last layouts
+    coef = lvd.nn_coef_u.double().permute(0, 2, 1)
+    idx = lvd.nn_idx_u.long().T
+    pred = torch.einsum("gik,qik->qgi", coef, cols[:, idx])
+    term = (cols[:, None, :] - pred) ** 2 / lvd.nn_D.double()[None]
+    hits = torch.zeros((ncol, G, npr), dtype=torch.int64)
+    out = torch.zeros((ncol, G), dtype=torch.float64)
+    for c0 in range(0, ncol, 8):
+        cq = [min(c0 + x, ncol - 1) for x in range(8)]
+        tb = term[cq].permute(1, 2, 0)                    # (G, np, 8)
+        T = 512                                           # threads a block
+        rows = torch.zeros((G, -(-npr // T) * T, 8), dtype=torch.float64)
+        rows[:, :npr] = tb
+        acc = torch.zeros((G, T, 8), dtype=torch.float64)
+        for r in rows.reshape(G, -1, T, 8).unbind(1):     # a thread's units
+            acc = acc + r
+        hits[c0:c0 + 8] += 1
+        part = sum(torch.stack([_warp_sums(acc[gg, w * 32:(w + 1) * 32])
+                                for gg in range(G)])
+                   for w in range(T // 32))
+        out[c0:c0 + 8] = part.T[:min(8, ncol - c0)]
+    assert (hits == 1).all()
+    plain = tops._nngp_quad_grid_plain(lvd, eta).reshape(ncol, G)
+    np.testing.assert_allclose(out.numpy(), plain.double().numpy(),
+                               rtol=OP_RTOL)
+    a = tops.quad_at_geometry(npr)
+    assert a["S"] <= 8 and a["S"] * a["units"] >= npr
+    assert (a["S"] - 1) * a["units"] < npr and a["threads"] in (128, 256)
+
+
+def test_b8b_geometry_reads_eta_in_place_when_it_does_not_fit():
+    """Where eta would not fit in a block's shared memory, the launch reads
+    it in place."""
+    assert tops.quad_geometry(4, 6000, 2)["eta_smem"]
+    assert not tops.quad_geometry(4, 20000, 2)["eta_smem"]
+
+
+def test_nngp_level_carries_its_grids_unit_last(odd_nngp):
+    """LevelData's lists and coefficient grid with the unit last are the
+    lists and the grid, transposed and contiguous, so the flat offsets
+    B8b's kernels read, ``t np + i`` and ``(g k + t) np + i`` for unit i's
+    slot t at grid point g, hold ``nn_idx[i, t]`` and ``nn_coef[g, i,
+    t]``."""
+    _, _, lvd = odd_nngp
+    assert torch.equal(lvd.nn_idx_u, lvd.nn_idx.T)
+    assert torch.equal(lvd.nn_coef_u, lvd.nn_coef.permute(0, 2, 1))
+    assert lvd.nn_idx_u.is_contiguous() and lvd.nn_coef_u.is_contiguous()
+    assert lvd.nn_idx_u.dtype == torch.int32
+    G, npr, k = lvd.nn_coef.shape
+    g, t, i = np.meshgrid(np.arange(G), np.arange(k), np.arange(npr),
+                          indexing="ij")
+    flat_idx = lvd.nn_idx_u.reshape(-1).numpy()
+    flat_coef = lvd.nn_coef_u.reshape(-1).numpy()
+    assert (flat_idx[t[0] * npr + i[0]]
+            == lvd.nn_idx.numpy()[i[0], t[0]]).all()
+    assert (flat_coef[(g * k + t) * npr + i]
+            == lvd.nn_coef.numpy()[g, i, t]).all()
+
+
 def test_b8c_plain_matches_jax_dense_iw(built):
     """The dense factor's gram against _nngp_dense_iW (rtol 1e-5), and the
     factor itself exactly: the scatter, identity and scaling are the same
