@@ -30,7 +30,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and 16, float32 and bfloat16 draws; B8a's one-launch CG draw against
    the plain host loop (residuals, x, iteration counts, bit-identical
    reruns) with its vectors in shared and in global memory, at np 1000
-   and np 5000 (clusters of 8 CTAs).
+   and np 5000 (clusters of 8 CTAs); B3's shrinkage form (a level's whole
+   psi / delta update in one launch) against the plain update fed with
+   its element form's draws at the same Philox counters (1e-5 relative),
+   at the headline's, config 5's and config 3's shapes and nf 20 x ns
+   5000, its law by KS and moments, bit-identical reruns; B8c (iW in one
+   launch) to 1e-5 of its plain version at np 97, 100, 128 (nf 2) and 256
+   (nf 1), alpha 0 giving I, bit-identical reruns, timed beside its first
+   version (scripts/older/nngp_riw_factor.cu, built here) and its gram.
 3. Times: each kernel's device time per launch (torch.profiler, after
    warm-up) beside its plain version's device time per call, the one-call
    PyTorch yardstick where there is one, and the least time the card could
@@ -50,7 +57,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
    run), the draws must be finite, no chain may diverge and the simulated
    slopes must be recovered:
    a. the headline: the 1000-site x 1000-species probit JSDM, nf_max = 8,
-      4 chains (B1's fused form, B2, B3: the sweep forms no linear
+      4 chains (B1's fused form, B2, B3's two forms: the sweep forms no linear
       predictor), whose posterior-mean Beta must match the JAX
       package's (scripts/headline_jax_moments.json, written on the CPU by
       scripts/headline_jax_moments.py) by entrywise z-scores, max < 5 and
@@ -746,6 +753,180 @@ def check_b3(torch, trand, dev, card):
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by, library_ms=lib_ms, event_ms=ev,
                 plain_event_ms=plain_ev, held_ms=held)
+
+
+class FixedPhilox:
+    """An ``Rng`` stand-in that gives every launch one (seed, offset), so
+    that two kernels can be fed the same Philox counters."""
+
+    def __init__(self, seed, offset):
+        self.seed, self.offset = seed, offset
+
+    def philox(self):
+        return self.seed, self.offset
+
+
+# the shrinkage form's shapes (nf, ns): the headline's, config 5's, config
+# 3's, and one with many factors and species (several pieces a lane)
+B3S_SHAPES = ((HEADLINE["nf"], HEADLINE["ns"]), (CONFIG5["nf"], 90),
+              (CONFIG3_NF, CONFIG3_NS), (20, 5000))
+# the priors' defaults (set_priors_random_level): nu, a1, b1, a2, b2
+B3S_PRIORS = (3.0, 50.0, 1.0, 50.0, 1.0)
+
+
+def shrinkage_inputs(torch, dev, C, nf, ns, seed):
+    """A level's loadings, mask (a chain with all factors active, one with
+    none past the first two, one with three inactive slots at the end) and
+    Delta, and the priors, on the card."""
+    g = np.random.default_rng(seed)
+    mask = np.ones((C, nf), np.float32)
+    mask[1 % C, 2:] = 0.0
+    mask[2 % C, max(1, nf - 3):] = 0.0
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    Lam = t(g.standard_normal((C, nf, ns, 1)) * 0.5)
+    Delta = t(g.uniform(0.5, 3.0, (C, nf, 1)))
+    return Lam, t(mask), Delta, [t([v]) for v in B3S_PRIORS]
+
+
+def _delta_units(torch, trand, Lam, mask, Delta, prior, Psi, Dout):
+    """Delta's unit gamma draws and their shapes, recovered in float64 from
+    an update's inputs and outputs (the chain replayed with the drawn
+    deltas): (draws, shapes) at the active slots."""
+    nu, a1, b1, a2, b2 = (p.double() for p in prior)
+    m = mask.double()
+    lam2 = (Lam.double() * m[:, :, None, None]) ** 2
+    msum = (Psi.double() * lam2).sum(dim=2)
+    dl = torch.where(m[:, :, None] > 0, Delta.double(), 1.0)
+    out = Dout.double()
+    _, ad = trand.shrinkage_shapes(mask, *prior[:2], prior[3], Lam.shape[2])
+    gd = torch.zeros_like(out)
+    for h in range(Lam.shape[1]):
+        tau = torch.cumprod(dl, dim=1)
+        tail = (tau[:, h:] * msum[:, h:] * m[:, h:, None]).sum(dim=1)
+        bd = (b1 if h == 0 else b2) + 0.5 * tail / dl[:, h]
+        gd[:, h] = out[:, h] * bd
+        dl = dl.clone()
+        dl[:, h] = out[:, h]
+    act = mask[:, :, None].expand_as(out) > 0
+    return gd[act], ad.double()[act]
+
+
+def check_b3_shrinkage(torch, trand, dev, card):
+    """B3's shrinkage form (a level's whole update in one launch) against
+    the plain update (``shrinkage_update``) fed with the element form's own
+    draws at the same (seed, offsets), Psi and Delta to 1e-5 relative, at
+    ``B3S_SHAPES`` with inactive slots; a rerun to the same bits; the law of
+    its draws by KS and moments against the plain version's (psi's unit
+    draws, and delta's recovered from its outputs, as probabilities of
+    their gamma laws); timed beside the plain version and the block as the
+    sampler ran it before (the element form's psi draw, then a delta draw
+    and the update's tensor ops a factor)."""
+    from scipy import special, stats
+
+    C = HEADLINE["n_chains"]
+    worst = 0.0
+    for nf, ns in B3S_SHAPES:
+        Lam, mask, Delta, prior = shrinkage_inputs(torch, dev, C, nf, ns,
+                                                   seed=nf * ns)
+        seed, off = 0x5EED + ns, 1000 + nf
+        Pk, Dk = trand.shrinkage_gamma(Lam, mask, Delta, *prior,
+                                       FixedPhilox(seed, off))
+        a_psi, ad = trand.shrinkage_shapes(mask, *prior[:2], prior[3], ns)
+        g_psi = trand.standard_gamma(a_psi.expand(Lam.shape).contiguous(),
+                                     FixedPhilox(seed, off))
+        g_d = trand.standard_gamma(ad.contiguous(), FixedPhilox(
+            seed, trand.delta_offset(off)))
+        Pp, Dp = trand.shrinkage_update(Lam, mask, Delta, prior[0],
+                                        prior[2], prior[4], g_psi,
+                                        lambda h: g_d[:, h])
+        rel = max(((Pk - Pp).abs() / Pp.abs()).max().item(),
+                  ((Dk - Dp).abs() / Dp.abs()).max().item())
+        assert rel <= 1e-5, f"B3 shrinkage nf {nf} ns {ns}: rel {rel}"
+        assert torch.isfinite(Pk).all() and torch.isfinite(Dk).all()
+        assert (Dk[mask == 0] == 1).all(), "B3 shrinkage: inactive delta"
+        P2, D2 = trand.shrinkage_gamma(Lam, mask, Delta, *prior,
+                                       FixedPhilox(seed, off))
+        assert torch.equal(Pk, P2) and torch.equal(Dk, D2), \
+            f"B3 shrinkage nf {nf} ns {ns}: a rerun gave other bits"
+        worst = max(worst, float((Pk - Pp).abs().max()),
+                    float((Dk - Dp).abs().max()))
+        geo = trand.shrinkage_geometry(nf, ns, 1)
+        print(f"B3 shrinkage check C {C}, nf {nf}, ns {ns} (clusters of "
+              f"{geo['S']} x {geo['T']} threads, {geo['P']} pieces a row): "
+              f"max relative |kernel - plain| on Psi and Delta {rel:.3g} "
+              f"(1e-5) from the element form's draws at the same counters; a "
+              f"rerun gives the same bits")
+    # the law: psi's unit draws (Psi b_psi) and delta's (recovered), as
+    # their gamma CDFs, kernel against the plain version over many launches
+    nf, ns = HEADLINE["nf"], HEADLINE["ns"]
+    Lam, mask, Delta, prior = shrinkage_inputs(torch, dev, C, nf, ns, seed=5)
+    a_psi, _ = trand.shrinkage_shapes(mask, *prior[:2], prior[3], ns)
+    tau = torch.cumprod(torch.where(mask[:, :, None] > 0, Delta, 1.0), dim=1)
+    b_psi = prior[0] / 2 + 0.5 * (Lam * mask[:, :, None, None]) ** 2 * \
+        tau[:, :, None, :]
+    laws = {}
+    for name, fn in (("kernel", trand.shrinkage_gamma),
+                     ("plain", trand._shrinkage_gamma_plain)):
+        rng = trand.Rng(41, dev)
+        ups, uds = [], []
+        for rep in range(300):
+            Ps, Ds = fn(Lam, mask, Delta, *prior, rng)
+            if rep < 10:
+                ups.append((Ps * b_psi).double().flatten())
+            gd, shp = _delta_units(torch, trand, Lam, mask, Delta, prior, Ps,
+                                   Ds)
+            uds.append(special.gammainc(shp.cpu().numpy(),
+                                        gd.cpu().numpy()))
+        up = special.gammainc(float(a_psi[0]),
+                              torch.cat(ups).cpu().numpy())
+        laws[name] = (up, np.concatenate(uds))
+    for i, what in enumerate(("psi", "delta")):
+        a, b = laws["kernel"][i], laws["plain"][i]
+        p = stats.ks_2samp(a, b).pvalue
+        assert p > 1e-3, f"B3 shrinkage {what}: KS p {p} <= 1e-3"
+        msg = _moments_agree(f"B3 shrinkage {what}", torch.tensor(a),
+                             torch.tensor(b))
+        print(f"B3 shrinkage law of {what}'s unit draws (their gamma CDF, "
+              f"{len(a)} draws): KS p {p:.3g} (> 1e-3) against the plain "
+              f"version, {msg}")
+
+    rng = trand.Rng(43, dev)
+
+    def kern():
+        trand.shrinkage_gamma(Lam, mask, Delta, *prior, rng)
+
+    def plain():
+        trand._shrinkage_gamma_plain(Lam, mask, Delta, *prior, rng)
+
+    def before():
+        g = trand.standard_gamma(a_psi.expand(Lam.shape).contiguous(), rng)
+        _, ad = trand.shrinkage_shapes(mask, *prior[:2], prior[3], ns)
+        trand.shrinkage_update(Lam, mask, Delta, prior[0], prior[2],
+                               prior[4], g, lambda h: trand.standard_gamma(
+                                   ad[:, h].contiguous(), rng))
+
+    ms = device_ms(torch, kern, "shrinkage_gamma_kernel")
+    plain_ms = device_ms(torch, plain, calls=10)
+    before_ms = device_ms(torch, before, calls=20)
+    ev, plain_ev = event_ms(torch, kern), event_ms(torch, plain, batch=5)
+    before_ev = event_ms(torch, before, batch=5)
+    held = held_event_ms(torch, kern)
+    # bytes: Lambda in, Psi out (and the small mask, Delta, priors);
+    # operations: ~180 a unit gamma draw (a Philox call, Box-Muller, the
+    # cube and two logs, one round at these shapes) for psi's and delta's
+    m = C * nf * ns
+    b, by = bound_ms(8.0 * m + 4.0 * (2 * C * nf + C * nf + 5),
+                     180.0 * (m + C * nf))
+    print(f"B3 shrinkage_gamma device time at C {C}, nf {nf}, ns {ns}: "
+          f"{ms:.5f} ms (the block as the sampler ran it before: "
+          f"{before_ms:.5f} ms of device work, with enqueue {before_ev:.4f} "
+          f"ms; plain {plain_ms:.4f} ms, bound {b:.6f} ms by {by}; held "
+          f"stream {held:.5f} ms, with enqueue {ev:.4f} ms, plain "
+          f"{plain_ev:.4f} ms) [{card}]")
+    return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=None, event_ms=ev,
+                plain_event_ms=plain_ev, held_ms=held,
+                before_ms=before_ms, before_event_ms=before_ev)
 
 
 def time_b4(torch, trand, dev, card):
@@ -1447,26 +1628,83 @@ def check_b8b(torch, tsp, dev, card):
     return out
 
 
+# B8c's shapes: (np, nf, neighbours) at C 4: the dense-NNGP path's np 100,
+# an odd np, the largest np the dense/CG crossover (np nf <= 256) admits at
+# nf 2 and at nf 1, and a list of 40 neighbours (a unit's places outnumber
+# a warp's lanes; more than 48 KB of shared memory a block)
+B8C_SHAPES = ((97, 2, 10), (CONFIG3["dense_nngp"]["np"], 2, 10),
+              (128, 2, 10), (256, 1, 10), (100, 2, 40))
+# the first version of B8c (RiW a thread a row, then the gram by
+# torch.matmul), built from its source to be timed beside the shipped one
+B8C_FIRST_SOURCE = "scripts/older/nngp_riw_factor.cu"
+
+
+def build_source(path, tag):
+    """An extra kernel source with a plain C interface, compiled by nvcc for
+    the card into the port's build directory and loaded with ctypes."""
+    import ctypes
+    import pathlib
+
+    from hmsc_tpu_torch import kernels as K
+
+    src = pathlib.Path(__file__).resolve().parent / path
+    out = K._build_dir() / f"{tag}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([K._nvcc(), *K._FLAGS, "-shared", str(src), "-o",
+                    str(out)], check=True, capture_output=True, timeout=600)
+    return ctypes.CDLL(str(out))
+
+
+def first_b8c(torch, lib, lvd, alpha):
+    """B8c's first version on the card: the factor RiW in one launch, then
+    its gram (torch.matmul), as the dense NNGP draw formed iW before."""
+    import ctypes
+
+    C, nf = alpha.shape
+    n, k = lvd.nn_idx.shape
+    fn = lib.hmsc_nngp_riw
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    RiW = lvd.nn_coef.new_empty((C, nf, n, n))
+    code = fn(lvd.nn_idx.data_ptr(), lvd.nn_coef.data_ptr(),
+              lvd.nn_D.data_ptr(), alpha.data_ptr(), RiW.data_ptr(), C, n,
+              nf, k, torch.cuda.current_stream().cuda_stream)
+    assert code == 0, f"B8c first version: cudaError {code}"
+    return RiW.transpose(2, 3) @ RiW
+
+
 def check_b8c(torch, tsp, dev, card):
-    """At the dense-NNGP path's shape (np 100, k 10) and at the largest
-    the crossover admits for nf 2 (np 128)."""
+    """B8c writes iW = RiW' RiW in one launch: against its plain version
+    (the scatter, then the gram) at ``B8C_SHAPES``, max |kernel - plain| /
+    max |plain| <= 1e-5 (the gram's sums in another order), alpha 0 giving
+    I, a rerun to the same bits; timed beside its first version (the
+    factor a thread a row, then torch.matmul) on the same inputs."""
+    first = build_source(B8C_FIRST_SOURCE, "nngp_riw_first")
     res = {}
-    for n in (CONFIG3["dense_nngp"]["np"], 128):
-        lvd = nngp_level(torch, dev, n, 10, 10.0, seed=n)
+    for n, nf, k in B8C_SHAPES:
+        lvd = nngp_level(torch, dev, n, k, 10.0, seed=n)
         g = torch.Generator(device=dev).manual_seed(n + 3)
-        alpha = torch.randint(0, B8_G, (B8_C, B8_NF), generator=g,
+        alpha = torch.randint(0, B8_G, (B8_C, nf), generator=g,
                               device=dev, dtype=torch.int32)
         alpha[0, 0] = 0
-        Rk = tsp.nngp_riw_dense(lvd, alpha)
-        Rp = tsp._nngp_riw_dense_plain(lvd, alpha)
-        err = (Rk - Rp).abs().max().item()
-        # the same scatter, identity and scaling in the same order
-        assert err <= 1e-6, f"B8c np={n}: max |diff| {err} > 1e-6"
+        Wk = tsp.nngp_riw_dense(lvd, alpha)
+        Wp = tsp._nngp_riw_dense_plain(lvd, alpha)
+        Wf = first_b8c(torch, first, lvd, alpha)
+        torch.cuda.synchronize()
+        err = _rel(Wk, Wp)
+        err_first = _rel(Wf, Wp)
+        assert err <= 1e-5, f"B8c np={n}: max |diff| / max {err} > 1e-5"
+        assert err_first <= 1e-5, f"B8c first version np={n}: {err_first}"
+        assert torch.isfinite(Wk).all(), f"B8c np={n}: non-finite"
         eye = torch.eye(n, device=dev)
-        assert torch.equal(Rk[0, 0], eye), "B8c: alpha = 0 is not I"
-        print(f"B8c check np={n}: max |kernel - plain| = {err:.3g} "
-              f"(tolerance 1e-6; {'exact' if err == 0 else 'not exact'}); "
-              f"alpha 0 gives I exactly")
+        assert torch.equal(Wk[0, 0], eye), "B8c: alpha = 0 is not I"
+        assert torch.equal(Wk, tsp.nngp_riw_dense(lvd, alpha)), \
+            f"B8c np={n}: a rerun gave other bits"
+        print(f"B8c check np={n}, nf {nf}, k {k}: max |kernel - plain| / "
+              f"max |plain|"
+              f" = {err:.3g} (tolerance 1e-5; the first version "
+              f"{err_first:.3g}); alpha 0 gives I exactly; a rerun gives the "
+              f"same bits")
 
         def kern():
             tsp.nngp_riw_dense(lvd, alpha)
@@ -1474,24 +1712,41 @@ def check_b8c(torch, tsp, dev, card):
         def plain():
             tsp._nngp_riw_dense_plain(lvd, alpha)
 
-        ms = device_ms(torch, kern, "nngp_riw_kernel")
+        def older():
+            first_b8c(torch, first, lvd, alpha)
+
+        ms = device_ms(torch, kern, "nngp_iw_kernel")
         plain_ms = device_ms(torch, plain, calls=10)
+        first_ms = device_ms(torch, older)
         ev, plain_ev = event_ms(torch, kern), event_ms(torch, plain, batch=5)
+        first_ev = event_ms(torch, older)
         held = held_event_ms(torch, kern)
-        # bytes: the dense factor out, the slices in use and the lists in;
-        # operations: a division per entry and k adds per row
-        rows = B8_C * B8_NF * n
-        b, by = bound_ms(4.0 * rows * n + _grid_bytes(lvd, alpha),
-                         rows * (n + 10))
-        print(f"B8c nngp_riw device time at C {B8_C}, nf {B8_NF}, np {n}: "
-              f"{ms:.5f} ms (plain {plain_ms:.4f} ms, bound {b:.6f} ms by "
-              f"{by}; held stream {held:.5f} ms, with enqueue {ev:.4f} ms, "
-              f"plain {plain_ev:.4f} ms) [{card}]")
-        res[n] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                      bound_by=by, library_ms=None, event_ms=ev,
-                      plain_event_ms=plain_ev, held_ms=held,
-                      shape=[B8_C, B8_NF, n, n])
-    return res[CONFIG3["dense_nngp"]["np"]]
+        # bytes: iW out, the grid slices in use, the lists, counts and the
+        # reverse-neighbour lists in; operations: a multiply-add for each
+        # (i, j, l) with j and l in {i} and unit i's real neighbours
+        nn_n = lvd.nn_n.long()
+        used = alpha.unique().numel()
+        nbytes = (4.0 * B8_C * nf * n * n + _grid_bytes(lvd, alpha)
+                  + 4.0 * (n + lvd.rev_ptr.numel() + lvd.rev_pos.numel()))
+        ops = 2.0 * B8_C * nf * float(((nn_n + 1) ** 2).sum())
+        b, by = bound_ms(nbytes, ops)
+        print(f"B8c nngp_riw device time at C {B8_C}, nf {nf}, np {n}, k "
+              f"{k}: "
+              f"{ms:.5f} ms (the first version and its gram {first_ms:.5f} "
+              f"ms, with enqueue {first_ev:.4f} ms; plain {plain_ms:.4f} ms, "
+              f"bound {b:.6f} ms by {by}; held stream {held:.5f} ms, with "
+              f"enqueue {ev:.4f} ms, plain {plain_ev:.4f} ms; {used} grid "
+              f"slices in use) [{card}]")
+        res[n, k] = dict(max_abs_err=float((Wk - Wp).abs().max()),
+                         rel_err=err,
+                      ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                      library_ms=None, event_ms=ev, plain_event_ms=plain_ev,
+                         held_ms=held, first_ms=first_ms,
+                         first_event_ms=first_ev, shape=[B8_C, nf, n, n, k])
+    out = dict(res[CONFIG3["dense_nngp"]["np"], 10])
+    out["by_shape"] = {f"np {n} k {k}": {f: r[f] for f in (
+        "ms", "first_ms", "bound_ms", "rel_err")} for (n, k), r in res.items()}
+    return out
 
 
 def gpp_level(torch, dev, n, n_knots, side, seed):
@@ -2683,14 +2938,16 @@ def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
     branch is the linear predictor's only reader, ``updaters.fused_z``,
     else its E-reading form) and for Poisson columns (B5);
     BetaLambda and each level's Eta systems (B2, where P <= 16) each sweep;
-    psi, nf_max deltas, the Wishart diagonal and, where a dispersion is
-    estimated, the residual precisions each sweep, plus the Nf move's psi
-    and delta draws while it <= adapt_nf (B3); with missing values the
+    the Wishart diagonal and, where a dispersion is estimated, the
+    residual precisions each sweep, plus the Nf move's psi and delta draws
+    while it <= adapt_nf (B3's element form); each level's shrinkage
+    update each sweep (B3's shrinkage form); with missing values the
     BetaLambda and each level's masked grams each sweep (B6).
     On an NNGP level, each sweep: the alpha grid quadratics and the
     scale interweave's quadratic, plus the location interweave's
     ones-forms where the design has an intercept (B8b); the dense factor
-    below the dense/CG crossover (B8c); above it one launch for every CG
+    below the dense/CG crossover (B8c, iW in one launch); above it one
+    launch for every CG
     draw (B8a: ``cg_loop``, the iterations of each, as the port reports
     them, one entry a draw).  On a GPP level, each sweep:
     the per-unit blocks (B8d-1) and the knot correction (B8d-2) of the Eta
@@ -2703,8 +2960,7 @@ def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
 
     sweeps = transient + samples * thin
     nf_sweeps = sum(min(a, sweeps) for a in adapt_nf)
-    per_sweep_gamma = (1 + sum(1 + ls.nf_max for ls in spec.levels)
-                       + int(spec.any_estimated_sigma))
+    per_sweep_gamma = 1 + int(spec.any_estimated_sigma)
     systems = int(spec.nc + spec.nf_total <= 16) + sum(
         int(ls.nf_max <= 16) for ls in spec.levels if ls.spatial is None)
     nngp = [ls for ls in spec.levels if ls.spatial == "NNGP"]
@@ -2720,6 +2976,7 @@ def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
             "probit_z_fused": (1 + sweeps) * fused,
             "mvn_prec_small": sweeps * systems,
             "standard_gamma": sweeps * per_sweep_gamma + 2 * nf_sweeps,
+            "shrinkage_gamma": sweeps * spec.nr,
             "poisson_z": (1 + sweeps) * spec.any_poisson,
             "masked_gram": sweeps * (1 + spec.nr) * spec.has_na,
             "vecchia_apply": len(cg_loop),
@@ -3081,6 +3338,7 @@ def main() -> int:
     results = {**check_b1(torch, trand, dev, card),
                "mvn_prec_small": check_b2(torch, tlinalg, dev, card),
                "standard_gamma": check_b3(torch, trand, dev, card),
+               "shrinkage_gamma": check_b3_shrinkage(torch, trand, dev, card),
                "poisson_z": check_b5(torch, trand, dev, card),
                "masked_gram": check_b6(torch, tgram, dev, card),
                "vecchia_apply": check_b8a(torch, tsp, dev, card),
@@ -3194,6 +3452,9 @@ def main() -> int:
         "standard_gamma": ("B3 standard_gamma",
                            "hmsc_tpu_torch/csrc/standard_gamma.cu",
                            "hmsc_tpu/ops/rand.py:124", "headline"),
+        "shrinkage_gamma": ("B3 shrinkage_gamma",
+                            "hmsc_tpu_torch/csrc/shrinkage_gamma.cu",
+                            "hmsc_tpu/mcmc/updaters.py:539", "headline"),
         "poisson_z": ("B5 poisson_z", "hmsc_tpu_torch/csrc/poisson_z.cu",
                       "hmsc_tpu/ops/rand.py:172", "config5"),
         "masked_gram": ("B6 masked_gram",

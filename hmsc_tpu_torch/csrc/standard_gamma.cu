@@ -1,28 +1,23 @@
-// B3: Gamma(a, 1) draws, one per element.
+// B3, element form: Gamma(a, 1) draws, one per element.
 //
-// Replaces hmsc_tpu/ops/rand.py · standard_gamma.  The JAX op vectorises
-// Marsaglia-Tsang (2000) rejection as 8 up-front candidate batches with the
-// first accepted candidate selected per element, because the TPU has no
-// cheap per-element loop.  A GPU thread has one, so this kernel runs the
-// rejection loop itself: each round draws one normal (Box-Muller) and one
-// uniform from the thread's Philox counter and stops at the first
-// acceptance.  Shapes a < 1 use the boost Ga(a) = Ga(a+1) U^(1/a), as the
-// JAX op does.  The loop is capped at 64 rounds (acceptance is >= 0.95 a
-// round, so the cap is never met at a finite shape); an element that never
-// accepts (a NaN or non-positive shape) gets the mode d, the JAX op's
-// fallback, and a NaN shape stays NaN.
+// Replaces hmsc_tpu/ops/rand.py · standard_gamma; the draw itself
+// (Marsaglia-Tsang rejection run to the first acceptance, the a < 1 boost)
+// is csrc/gamma.cuh, which the shrinkage form (csrc/shrinkage_gamma.cu)
+// shares.  The sampler's multiplicative-gamma shrinkage block, whose draws
+// were most of this kernel's launches, is the shrinkage form's since it was
+// added; the element form serves GammaV's Wishart diagonal, the residual
+// precisions and the Nf move.
 //
-// What bounds it on the H100: launch latency.  The main path draws at most
-// 4 x 8 x 1000 shapes a call (LambdaPriors' psi), 128 KB in and out; the
-// delta draws are 4 elements.  One thread per element, no shared memory.
+// What bounds it on the H100: launch latency.  Its largest call on the main
+// paths is the Wishart's nc draws or the residual precisions' ns; at 32000
+// shapes (the shrinkage block's psi) it takes ~2 us.  One thread per
+// element, no shared memory.
 
 #include <cuda_runtime.h>
 
-#include "philox.cuh"
+#include "gamma.cuh"
 
 namespace {
-
-constexpr int kMaxRounds = 64;
 
 __global__ void standard_gamma_kernel(const float* __restrict__ a,
                                       float* __restrict__ out, long long n,
@@ -30,34 +25,7 @@ __global__ void standard_gamma_kernel(const float* __restrict__ a,
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x) +
                       threadIdx.x;
   if (i >= n) return;
-  const float ai = a[i];
-  const unsigned lo = static_cast<unsigned>(i);
-  const unsigned hi = static_cast<unsigned>(i >> 32);
-  const bool boost = ai < 1.0f;
-  // fmaxf would turn a NaN shape into 1: keep NaN, as jnp.maximum does
-  const float a_eff = boost ? ai + 1.0f : (ai >= 1.0f || ai != ai ? ai : 1.0f);
-  const float d = a_eff - 1.0f / 3.0f;
-  const float c = 1.0f / sqrtf(9.0f * d);
-  float draw = d;  // the mode: the JAX op's value when no candidate accepts
-  for (int r = 0; r < kMaxRounds; ++r) {
-    const uint4 b = hmsc::philox4x32_10(
-        make_uint4(lo, hi, offset, static_cast<unsigned>(r)), key);
-    const float x = hmsc::box_muller(b.x, b.y);
-    float v = 1.0f + c * x;
-    v = v * v * v;
-    const float u = hmsc::uniform01(b.z);
-    if (v > 0.0f &&
-        logf(u) < 0.5f * x * x + d * (1.0f - v + logf(v))) {
-      draw = d * v;
-      break;
-    }
-  }
-  if (boost) {
-    const uint4 b = hmsc::philox4x32_10(make_uint4(lo, hi, offset, 0xFFFFFFFFu),
-                                        key);
-    draw = draw * powf(hmsc::uniform01(b.x), 1.0f / ai);
-  }
-  out[i] = draw;
+  out[i] = hmsc::standard_gamma_draw(a[i], i, key, offset);
 }
 
 }  // namespace

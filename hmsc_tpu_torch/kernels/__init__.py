@@ -34,6 +34,7 @@ KERNELS = {"probit_z": "probit_z.cu",
            "probit_z_fused": "probit_z.cu",
            "mvn_prec_small": "mvn_prec_small.cu",
            "standard_gamma": "standard_gamma.cu",
+           "shrinkage_gamma": "shrinkage_gamma.cu",
            "poisson_z": "poisson_z.cu",
            "masked_gram": "masked_gram.cu",
            "vecchia_apply": "vecchia_apply.cu",
@@ -133,6 +134,8 @@ def library():
                 u64, u32, p]
             lib.hmsc_mvn_prec_small.argtypes = [p, p, p, p, ll, i, p]
             lib.hmsc_standard_gamma.argtypes = [p, p, ll, u64, u32, p]
+            lib.hmsc_shrinkage_gamma.argtypes = [p] * 10 + [i] * 8 + [
+                u64, u32, u32, p]
             lib.hmsc_poisson_z.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
                                            u64, u32, p]
             lib.hmsc_masked_gram.argtypes = [p, ll, ll, ll, p, ll, ll, p, ll,
@@ -146,7 +149,7 @@ def library():
                 ctypes.c_float, i, p]
             lib.hmsc_nngp_quad_grid.argtypes = [p] * 5 + [i] * 6 + [p]
             lib.hmsc_nngp_quad_at.argtypes = [p] * 6 + [i] * 7 + [p]
-            lib.hmsc_nngp_riw.argtypes = [p, p, p, p, p, i, i, i, i, p]
+            lib.hmsc_nngp_iw.argtypes = [p] * 8 + [i] * 7 + [p]
             lib.hmsc_gpp_unit.argtypes = [p, p, p, p, p, p, i, i, i, p]
             lib.hmsc_gpp_knot.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
                                           i, i, p]
@@ -161,11 +164,12 @@ def library():
                 i] * 13 + [u64, u32, p]
             for fn in (lib.hmsc_probit_z, lib.hmsc_probit_z_fused,
                        lib.hmsc_mvn_prec_small,
-                       lib.hmsc_standard_gamma, lib.hmsc_poisson_z,
+                       lib.hmsc_standard_gamma, lib.hmsc_shrinkage_gamma,
+                       lib.hmsc_poisson_z,
                        lib.hmsc_masked_gram, lib.hmsc_vecchia_fwd,
                        lib.hmsc_vecchia_adj, lib.hmsc_vecchia_cg,
                        lib.hmsc_nngp_quad_grid,
-                       lib.hmsc_nngp_quad_at, lib.hmsc_nngp_riw,
+                       lib.hmsc_nngp_quad_at, lib.hmsc_nngp_iw,
                        lib.hmsc_gpp_unit, lib.hmsc_gpp_knot,
                        lib.hmsc_gpp_quad_grid, lib.hmsc_gpp_quad_at,
                        lib.hmsc_truncnorm_da, lib.hmsc_serve_predict,

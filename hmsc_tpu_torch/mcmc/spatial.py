@@ -9,8 +9,8 @@ leading batch axis.
   as the JAX package leaves them to XLA).
 - ``NNGP`` — the Vecchia precision, stored as neighbour-index/coefficient
   grids.  Up to ``_NNGP_DENSE_MAX`` coefficients (np nf) the precision is
-  densified (kernel B8c writes the factor, its gram is a batched product)
-  and drawn like Full; above it a matrix-free conjugate-gradient sampler
+  densified (kernel B8c writes iW = RiW' RiW in one launch) and drawn like
+  Full; above it a matrix-free conjugate-gradient sampler
   applies the factor only (kernel B8a): perturbation optimisation, so the
   solution has the full conditional's law up to the CG tolerance, warm
   started from the current Eta.
@@ -117,10 +117,9 @@ def update_eta_spatial(spec: ModelSpec, data: ModelData, state: GibbsState,
 
 
 def _nngp_dense_iW(lvd, alpha_idx):
-    """iW = RiW' RiW for each chain's factors (kernel B8c writes RiW; the
-    gram is a batched product)."""
-    RiW = nngp_riw_dense(lvd, alpha_idx.contiguous())    # (C, nf, np, np)
-    return RiW.transpose(2, 3) @ RiW
+    """iW = RiW' RiW for each chain's factors, (C, nf, np, np): kernel B8c,
+    its gram included."""
+    return nngp_riw_dense(lvd, alpha_idx.contiguous())
 
 
 def _eta_nngp_cg(spec, data, state, r, rng, S, noise, tol=CG_TOL,

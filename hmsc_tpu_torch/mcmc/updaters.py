@@ -28,6 +28,7 @@ import torch
 from ..ops.gram import masked_gram
 from ..ops.linalg import chol_spd, sample_mvn_prec, sample_mvn_prec_batched
 from ..ops.rand import (da_intercept_draw, poisson_z, probit_z_fused,
+                        shrinkage_gamma, shrinkage_shapes, shrinkage_update,
                         standard_gamma, truncated_normal_onesided, wishart)
 from .structs import GibbsState, LevelState, ModelData, ModelSpec
 
@@ -267,43 +268,29 @@ def update_lambda_priors(spec: ModelSpec, data: ModelData, state: GibbsState,
                          rng=None, noise=None) -> GibbsState:
     """Multiplicative-gamma shrinkage: psi elementwise conjugate gamma, delta
     sequential over factor index with tau recomputed per step; inactive
-    slots stay neutral (delta = 1).  Every gamma draw is kernel B3.
-    ``noise``: per level ``{"psi": (C, nf, ns, ncr), "delta": (C, nf,
-    ncr)}`` unit-rate gamma draws."""
-    ns = spec.ns
+    slots stay neutral (delta = 1).  On the card each level is one launch
+    of B3's shrinkage form (``shrinkage_gamma``); on the CPU, or with
+    ``noise`` injected, the plain update (``shrinkage_update``) on B3's
+    element draws: psi's, then each factor's delta in turn.  ``noise``: per
+    level ``{"psi": (C, nf, ns, ncr), "delta": (C, nf, ncr)}`` unit-rate
+    gamma draws."""
     new_levels = []
     for r in range(spec.nr):
-        lvd, lv, ls = data.levels[r], state.levels[r], spec.levels[r]
+        lvd, lv = data.levels[r], state.levels[r]
         nz = None if noise is None else noise[r]
-        mask = lv.nf_mask                                # (C, nf)
-        lam2 = (lv.Lambda * mask[:, :, None, None]) ** 2
-        delta = torch.where(mask[:, :, None] > 0, lv.Delta, 1.0)
-        tau = torch.cumprod(delta, dim=1)                # (C, nf, ncr)
-
-        a_psi = lvd.nu / 2 + 0.5
-        b_psi = lvd.nu / 2 + 0.5 * lam2 * tau[:, :, None, :]
-        g = _noise(nz, "psi", lambda: standard_gamma(
-            a_psi.expand(lam2.shape).contiguous(), rng))
-        psi = g / b_psi
-
-        Msum = (psi * lam2).sum(dim=2)                   # (C, nf, ncr)
-        nf_act = mask.sum(dim=1)                         # (C,)
-        n_geq = torch.flip(torch.cumsum(torch.flip(mask, [1]), dim=1), [1])
-        for h in range(ls.nf_max):
-            tau = torch.cumprod(delta, dim=1)
-            if h == 0:
-                ad = lvd.a1 + 0.5 * ns * nf_act[:, None]
-                b0 = lvd.b1
-            else:
-                ad = lvd.a2 + 0.5 * ns * n_geq[:, h, None]
-                b0 = lvd.b2
-            tail = (tau[:, h:] * Msum[:, h:] * mask[:, h:, None]).sum(dim=1)
-            bd = b0 + 0.5 * tail / delta[:, h]
-            gd = (nz["delta"][:, h] if nz is not None
-                  else standard_gamma(ad.contiguous(), rng))
-            draw = gd / bd
-            delta = delta.clone()
-            delta[:, h] = torch.where(mask[:, h, None] > 0, draw, 1.0)
+        if nz is None and lv.Lambda.is_cuda:
+            psi, delta = shrinkage_gamma(lv.Lambda, lv.nf_mask, lv.Delta,
+                                         lvd.nu, lvd.a1, lvd.b1, lvd.a2,
+                                         lvd.b2, rng)
+        else:
+            a_psi, ad = shrinkage_shapes(lv.nf_mask, lvd.nu, lvd.a1, lvd.a2,
+                                         spec.ns)
+            g = _noise(nz, "psi", lambda: standard_gamma(
+                a_psi.expand(lv.Lambda.shape).contiguous(), rng))
+            psi, delta = shrinkage_update(
+                lv.Lambda, lv.nf_mask, lv.Delta, lvd.nu, lvd.b1, lvd.b2, g,
+                lambda h: (nz["delta"][:, h] if nz is not None else
+                           standard_gamma(ad[:, h].contiguous(), rng)))
         new_levels.append(lv.replace(Psi=psi, Delta=delta))
     return state.replace(levels=tuple(new_levels))
 

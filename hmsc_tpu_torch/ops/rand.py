@@ -7,7 +7,11 @@ Some of them are kernels written by hand for Hopper (``csrc/``):
   kernel from X Beta and the level's loadings, a thread a row's four
   columns of four rows (``csrc/probit_z.cu``);
 - B3 :func:`standard_gamma` — per-element Marsaglia-Tsang rejection
-  (``csrc/standard_gamma.cu``);
+  (``csrc/standard_gamma.cu``), and its shrinkage form
+  :func:`shrinkage_gamma` — a level's whole multiplicative-gamma shrinkage
+  update (psi, the species sums, delta's draws and its sequential chain)
+  in one launch (``csrc/shrinkage_gamma.cu``; the draw itself is
+  ``csrc/gamma.cuh``, shared by both);
 - B5 :func:`poisson_z` — the Polya-Gamma Poisson Z draw, one thread per
   cell (``csrc/poisson_z.cu``);
 - B7 :func:`da_intercept_draw` — the probit-DA intercept interweave's
@@ -38,7 +42,9 @@ from .. import kernels as K
 
 __all__ = ["Rng", "truncated_normal", "truncated_normal_onesided",
            "probit_z_fused", "probit_z_geometry",
-           "standard_gamma", "wishart", "polya_gamma", "poisson_z",
+           "standard_gamma", "shrinkage_gamma", "shrinkage_geometry",
+           "shrinkage_shapes", "shrinkage_update", "delta_offset",
+           "wishart", "polya_gamma", "poisson_z",
            "da_intercept_draw"]
 
 _TINY = 1e-38  # smallest safe f32 normal-ish (JAX package rand.py:18)
@@ -351,6 +357,117 @@ def _standard_gamma_plain(a, rng: Rng):
     ub = rng.uniform(a.shape, dtype=a.dtype)
     pow_ = ub ** (1.0 / torch.where(boost, a, torch.ones_like(a)))
     return torch.where(boost, draw * pow_, draw)
+
+
+# ---------------------------------------------------------------------------
+# B3, shrinkage form: a level's multiplicative-gamma shrinkage update
+# ---------------------------------------------------------------------------
+
+def shrinkage_geometry(nf: int, ns: int, ncr: int) -> dict:
+    """The shrinkage form's launch shape (``csrc/shrinkage_gamma.cu``): a
+    cluster of ``S`` <= 16 blocks of ``T`` <= 512 threads a chain (above 8
+    blocks, a cluster size the H100 allows but does not promise), so a lane
+    draws about one psi, with a warp for each of the chain's ``nf ncr`` rows
+    of ``ns`` species at least; each row is cut into ``P`` pieces of
+    ``plen`` species, one warp's item each."""
+    W, R = nf * ns * ncr, nf * ncr
+    S = max(1, min(16, -(-W // 512)))
+    T = min(512, 32 * max(-(-W // (32 * S)), -(-R // S)))
+    P = max(1, (S * T // 32) // R)
+    plen = -(-ns // P)
+    return {"S": S, "T": T, "P": -(-ns // plen), "plen": plen}
+
+
+def delta_offset(offset: int) -> int:
+    """The Philox offset of the shrinkage form's delta draws, from its psi
+    draws' (``offset``): the next one."""
+    return (offset + 1) & 0xFFFFFFFF
+
+
+def shrinkage_shapes(mask, nu, a1, a2, ns: int):
+    """The unit gamma shapes of one level's shrinkage update: psi's
+    ``nu/2 + 1/2`` (ncr,) and delta's (C, nf, ncr), ``a1 + ns nf_act / 2``
+    for the first factor and ``a2 + ns n_geq(h) / 2`` after it (``n_geq(h)``:
+    active factors from h on).  They depend on the mask alone."""
+    nf_act = mask.sum(dim=1)                             # (C,)
+    n_geq = torch.flip(torch.cumsum(torch.flip(mask, [1]), dim=1), [1])
+    ad = torch.cat([(a1 + 0.5 * ns * nf_act[:, None])[:, None],
+                    a2 + 0.5 * ns * n_geq[:, 1:, None]], dim=1)
+    return nu / 2 + 0.5, ad
+
+
+def shrinkage_update(Lambda, mask, Delta, nu, b1, b2, g_psi, delta_gamma):
+    """One level's shrinkage update from its unit gamma draws, the JAX
+    ``update_lambda_priors`` step by step: psi elementwise, then delta
+    sequentially over the factors with tau recomputed each step; inactive
+    slots stay at 1.  ``g_psi`` (C, nf, ns, ncr); ``delta_gamma(h)`` gives
+    factor h's (C, ncr) draws at :func:`shrinkage_shapes`' shapes.  Returns
+    (Psi, Delta)."""
+    lam2 = (Lambda * mask[:, :, None, None]) ** 2
+    delta = torch.where(mask[:, :, None] > 0, Delta, 1.0)
+    tau = torch.cumprod(delta, dim=1)                    # (C, nf, ncr)
+    psi = g_psi / (nu / 2 + 0.5 * lam2 * tau[:, :, None, :])
+    Msum = (psi * lam2).sum(dim=2)                       # (C, nf, ncr)
+    for h in range(Lambda.shape[1]):
+        tau = torch.cumprod(delta, dim=1)
+        tail = (tau[:, h:] * Msum[:, h:] * mask[:, h:, None]).sum(dim=1)
+        bd = (b1 if h == 0 else b2) + 0.5 * tail / delta[:, h]
+        draw = delta_gamma(h) / bd
+        delta = delta.clone()
+        delta[:, h] = torch.where(mask[:, h, None] > 0, draw, 1.0)
+    return psi, delta
+
+
+def shrinkage_gamma(Lambda, mask, Delta, nu, a1, b1, a2, b2, rng: Rng):
+    """One level's multiplicative-gamma shrinkage update, its draws
+    included, in one launch: (Psi (C, nf, ns, ncr), Delta (C, nf, ncr)).
+    ``Lambda`` (C, nf, ns, ncr), ``mask`` (C, nf), ``Delta`` (C, nf, ncr),
+    the hyperparameters (ncr,).  psi's unit draws use the Philox counters
+    :func:`standard_gamma` gives a (C, nf, ns, ncr) array at the launch's
+    (seed, offset), delta's those it gives the (C, nf, ncr) array of
+    :func:`shrinkage_shapes` at (seed, :func:`delta_offset`)."""
+    if not Lambda.is_cuda:
+        return _shrinkage_gamma_plain(Lambda, mask, Delta, nu, a1, b1, a2,
+                                      b2, rng)
+    C, nf, ns, ncr = Lambda.shape
+    args = [Lambda, mask, Delta, nu, a1, b1, a2, b2]
+    for n, (label, shape) in enumerate((
+            ("Lambda", (C, nf, ns, ncr)), ("mask", (C, nf)),
+            ("Delta", (C, nf, ncr)), ("nu", (ncr,)), ("a1", (ncr,)),
+            ("b1", (ncr,)), ("a2", (ncr,)), ("b2", (ncr,)))):
+        t = args[n]
+        if (t.device != Lambda.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape):
+            raise ValueError(f"shrinkage_gamma: {label} must be a float32 "
+                             f"{shape} tensor on {Lambda.device}")
+        args[n] = t.contiguous()
+    Lambda, mask, Delta, nu, a1, b1, a2, b2 = args
+    geo = shrinkage_geometry(nf, ns, ncr)
+    Psi = torch.empty_like(Lambda)
+    Delta_out = torch.empty_like(Delta)
+    seed, offset = rng.philox()
+    with torch.cuda.device(Lambda.device):
+        code = K.library().hmsc_shrinkage_gamma(
+            Lambda.data_ptr(), mask.data_ptr(), Delta.data_ptr(),
+            nu.data_ptr(), a1.data_ptr(), b1.data_ptr(), a2.data_ptr(),
+            b2.data_ptr(), Psi.data_ptr(), Delta_out.data_ptr(), C, nf, ns,
+            ncr, geo["S"], geo["T"], geo["P"], geo["plen"], seed, offset,
+            delta_offset(offset), K.stream_of(Lambda))
+    K.check(code, "shrinkage_gamma")
+    K.launches["shrinkage_gamma"] += 1
+    return Psi, Delta_out
+
+
+def _shrinkage_gamma_plain(Lambda, mask, Delta, nu, a1, b1, a2, b2,
+                           rng: Rng):
+    """:func:`shrinkage_update` on the plain gamma draws of
+    :func:`_standard_gamma_plain`, delta's drawn up front."""
+    a_psi, ad = shrinkage_shapes(mask, nu, a1, a2, Lambda.shape[2])
+    g_psi = _standard_gamma_plain(a_psi.expand(Lambda.shape).contiguous(),
+                                  rng)
+    g_delta = _standard_gamma_plain(ad, rng)
+    return shrinkage_update(Lambda, mask, Delta, nu, b1, b2, g_psi,
+                            lambda h: g_delta[:, h])
 
 
 # ---------------------------------------------------------------------------

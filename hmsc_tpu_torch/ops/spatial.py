@@ -11,8 +11,9 @@ wrappers:
   over the alpha grid, or at each factor's alpha with the location move's
   ones-forms (``csrc/nngp_quad.cu``; ``eta_quad_grid``, ``eta_quad_at``,
   ``eta_ones_forms_at``);
-- B8c :func:`nngp_riw_dense` — the dense factor ``RiW`` below the dense/CG
-  crossover (``csrc/nngp_riw.cu``; ``_nngp_dense_iW``);
+- B8c :func:`nngp_riw_dense` — the dense precision ``iW = RiW' RiW`` below
+  the dense/CG crossover, in one launch (``csrc/nngp_riw.cu``;
+  ``_nngp_dense_iW``);
 - B8d-1 :func:`gpp_unit` — the per-unit Woodbury blocks ``iA`` and
   ``chol(iA)`` of the GPP Eta draw (``csrc/gpp_unit.cu``; ``gpp_factor``);
 - B8d-2 :func:`gpp_knot` — the knot correction ``H = blockdiag(F) - M' iA
@@ -46,8 +47,9 @@ from .linalg import chol_spd
 
 __all__ = ["vecchia_riw", "vecchia_riw_t", "vecchia_pmv", "vecchia_cg",
            "cg_geometry", "cg_frozen", "nngp_quad_grid",
-           "nngp_quad_at", "nngp_riw_dense", "gpp_unit", "gpp_knot",
-           "gpp_quad_grid", "gpp_quad_at", "gpp_alpha_zero", "gpp_m1_at"]
+           "nngp_quad_at", "nngp_riw_dense", "iw_geometry", "gpp_unit",
+           "gpp_knot", "gpp_quad_grid", "gpp_quad_at", "gpp_alpha_zero",
+           "gpp_m1_at"]
 
 # the per-unit blocks of B8d-1 are held in registers up to this many factors
 # (csrc/gpp_unit.cu instantiates 1..16)
@@ -409,30 +411,61 @@ def _nngp_quad_at_plain(lvd, alpha_idx, eta):
 
 
 # ---------------------------------------------------------------------------
-# B8c: the dense Vecchia factor
+# B8c: the dense Vecchia precision
 # ---------------------------------------------------------------------------
 
+# B8c: rows of iW a block (a warp a row), and the shared memory a block of
+# the H100 can use
+_IW_ROWS = 8
+_IW_SMEM_MAX = 227 * 1024
+
+
+def iw_geometry(npr: int, k: int, nnz: int) -> dict:
+    """B8c's launch shape: ``rows`` rows of iW a block of ``rows`` warps,
+    ``tiles`` blocks a factor, and the block's dynamic shared memory in
+    bytes: 1 / sqrt(D) and the counts (np each), the lists and scaled
+    coefficients (np k each), the tile's slice of the reverse-neighbour
+    positions (nnz at most), its rows' offsets there (rows + 1) and its
+    rows of iW (rows np)."""
+    rows = max(1, min(_IW_ROWS, npr, 32))
+    smem = 4 * (2 * npr + 2 * npr * k + nnz + rows + 1 + rows * npr)
+    return {"rows": rows, "tiles": -(-npr // rows), "smem": smem}
+
+
 def nngp_riw_dense(lvd, alpha_idx):
-    """The dense ``RiW`` of each chain's factors at their alpha: (C, nf, np,
-    np), rows ``(e_i - sum_k A[i,k] e_nn[i,k]) / sqrt(D_i)``."""
+    """The dense Vecchia precision ``iW = RiW' RiW`` of each chain's factors
+    at their alpha: (C, nf, np, np), ``RiW`` rows ``(e_i - sum_k A[i,k]
+    e_nn[i,k]) / sqrt(D_i)``, in one launch."""
     if not lvd.nn_coef.is_cuda:
         return _nngp_riw_dense_plain(lvd, alpha_idx)
     C, nf = alpha_idx.shape
     npr, k = lvd.nn_idx.shape
-    _check("nngp_riw_dense", lvd, alpha_idx)
+    _check("nngp_riw_dense", lvd, alpha_idx,
+           ("nn_n", lvd.nn_n, torch.int32),
+           ("rev_ptr", lvd.rev_ptr, torch.int32),
+           ("rev_pos", lvd.rev_pos, torch.int32))
+    nnz = lvd.rev_pos.numel()
+    geo = iw_geometry(npr, k, nnz)
+    if geo["smem"] > _IW_SMEM_MAX:
+        raise ValueError(f"nngp_riw_dense: np {npr} with {k} neighbours "
+                         f"needs {geo['smem']} bytes of shared memory a "
+                         f"block (at most {_IW_SMEM_MAX})")
     out = lvd.nn_coef.new_empty((C, nf, npr, npr))
     with torch.cuda.device(out.device):
-        code = K.library().hmsc_nngp_riw(
-            lvd.nn_idx.data_ptr(), lvd.nn_coef.data_ptr(),
-            lvd.nn_D.data_ptr(), alpha_idx.data_ptr(), out.data_ptr(), C,
-            npr, nf, k, K.stream_of(out))
+        code = K.library().hmsc_nngp_iw(
+            lvd.nn_idx.data_ptr(), lvd.nn_n.data_ptr(),
+            lvd.nn_coef.data_ptr(), lvd.nn_D.data_ptr(),
+            lvd.rev_ptr.data_ptr(), lvd.rev_pos.data_ptr(),
+            alpha_idx.data_ptr(), out.data_ptr(), C, nf, npr, k, nnz,
+            geo["rows"], geo["smem"], K.stream_of(out))
     K.check(code, "nngp_riw")
     K.launches["nngp_riw"] += 1
     return out
 
 
-def _nngp_riw_dense_plain(lvd, alpha_idx):
-    """The JAX ``_nngp_dense_iW`` scatter (before its gram), per chain."""
+def _nngp_riw_scatter(lvd, alpha_idx):
+    """The JAX ``_nngp_dense_iW`` scatter (before its gram), per chain: the
+    dense factor ``RiW`` (C, nf, np, np)."""
     coef, D = _grid_at(lvd, alpha_idx)                   # (C, nf, np, k)
     C, nf, npr, k = coef.shape
     RiW = coef.new_zeros((C, nf, npr, npr))
@@ -442,6 +475,12 @@ def _nngp_riw_dense_plain(lvd, alpha_idx):
                     lvd.nn_idx.long()[None, None]), -coef, accumulate=True)
     RiW = RiW + torch.eye(npr, dtype=coef.dtype, device=coef.device)
     return RiW / torch.sqrt(D)[..., None]
+
+
+def _nngp_riw_dense_plain(lvd, alpha_idx):
+    """The JAX ``_nngp_dense_iW``, per chain: the scatter, then its gram."""
+    RiW = _nngp_riw_scatter(lvd, alpha_idx)
+    return RiW.transpose(2, 3) @ RiW
 
 
 # ---------------------------------------------------------------------------

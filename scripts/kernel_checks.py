@@ -83,6 +83,8 @@ def main(argv=None) -> int:
     checks = {
         "mvn_prec_small": lambda: cs.check_b2(torch, linalg, dev, card),
         "standard_gamma": lambda: cs.check_b3(torch, rand, dev, card),
+        "shrinkage_gamma": lambda: cs.check_b3_shrinkage(torch, rand, dev,
+                                                         card),
         "poisson_z": lambda: cs.check_b5(torch, rand, dev, card),
         "masked_gram": lambda: cs.check_b6(torch, gram, dev, card),
         "vecchia_apply": lambda: cs.check_b8a(torch, spatial, dev, card),

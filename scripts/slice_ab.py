@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""The headline's and config 3b's sampler and the serve path's conditional
-query from one checkout, for A/B comparisons of two commits on one card.
+"""The headline's, config 3b's and the dense NNGP path's sampler and the
+serve path's conditional query from one checkout, for A/B comparisons of
+two commits on one card.
 
-    python3 scripts/slice_ab.py ROOT [REPEATS] [--paths headline,config3b,conditional]
+    python3 scripts/slice_ab.py ROOT [REPEATS]
+        [--paths headline,config3b,dense_nngp,conditional]
 
 Imports ``hmsc_tpu_torch`` and ``chip_smoke`` from the checkout at ROOT
 (this repository, or an older commit unpacked with ``git archive``) and
-prints one JSON line with the card and, for each path asked for (all
-three by default):
+prints one JSON line with the card and, for each path asked for (the
+headline, config 3b and the conditional query by default):
 
 - the headline (``chip_smoke.HEADLINE``: 1000 x 1000 probit, nf_max 8, 4
-  chains, 10 + 200 sweeps) and config 3b (NNGP, np 1000, the CG Eta draw;
-  ``chip_smoke.CONFIG3``): samples/s of REPEATS fits (default 2) after a
-  warm-up fit, their kernel launches, and a torch.profiler window over 10
-  sweeps: kernel launches, device kernel time and its share of the
+  chains, 10 + 200 sweeps), config 3b (NNGP, np 1000, the CG Eta draw;
+  ``chip_smoke.CONFIG3``) and the dense NNGP path (its generator at np 100,
+  the dense Eta draw on kernel B8c): samples/s of REPEATS fits (default 2)
+  after a warm-up fit, their kernel launches, and a torch.profiler window
+  over 10 sweeps: kernel launches, device kernel time and its share of the
   window's wall time (the busy share), as ``chip_smoke.profile_sweeps``
   prints them;
 - for each sampler path, ``blocks``: the host time of each block of the
@@ -176,6 +179,12 @@ def main() -> int:
         out["config3b"]["cg_loop_mean"] = float(np.mean(
             post.cg_iterations["loop"]))
         out["config3b"]["quad_wrapper_host_us"] = quad_wrapper_us(torch, cs)
+    if "dense_nngp" in paths:
+        c = cs.CONFIG3["dense_nngp"]
+        m = cs.config3_model(ht, "dense_nngp")
+        out["dense_nngp"], _ = sampler_path(
+            torch, cs, ht, K, m, c["n_chains"], c["samples"],
+            c["transient"], cs.CONFIG3_SEED, cs.CONFIG3_NF, repeats)
     if "conditional" in paths:
         if post_h is None:
             post_h = ht.sample_mcmc(hM, samples=h["samples"],

@@ -402,20 +402,27 @@ def test_nngp_level_carries_its_grids_unit_last(odd_nngp):
             == lvd.nn_coef.numpy()[g, i, t]).all()
 
 
-def test_b8c_plain_matches_jax_dense_iw(built):
-    """The dense factor's gram against _nngp_dense_iW (rtol 1e-5), and the
-    factor itself exactly: the scatter, identity and scaling are the same
-    operations in the same order."""
+@pytest.mark.parametrize("form", ["iw", "riw"])
+def test_b8c_plain_matches_jax_dense_iw(built, form):
+    """B8c's plain version, iW (the wrapper's on the CPU and
+    ``_nngp_dense_iW``'s), against _nngp_dense_iW (rtol 1e-5); and its
+    scatter, the factor RiW, exactly: the scatter, identity and scaling are
+    the same operations in the same order."""
     b = built["NNGP"]
     lvd_j, lvd = b["data_j"].levels[0], b["data_t"].levels[0]
     alpha = np.asarray(ALPHA, np.int32)
-    RiW = tops.nngp_riw_dense(lvd, _t(alpha)).numpy()
-    iW = TS._nngp_dense_iW(lvd, _t(alpha)).numpy()
+    if form == "iw":
+        for iW in (tops._nngp_riw_dense_plain(lvd, _t(alpha)),
+                   TS._nngp_dense_iW(lvd, _t(alpha))):
+            for c in range(alpha.shape[0]):
+                np.testing.assert_allclose(
+                    iW[c].numpy(), np.asarray(JS._nngp_dense_iW(
+                        lvd_j, jnp.asarray(alpha[c]), NP)),
+                    rtol=OP_RTOL, atol=OP_RTOL)
+        return
+    RiW = tops._nngp_riw_scatter(lvd, _t(alpha)).numpy()
     for c in range(alpha.shape[0]):
         a = jnp.asarray(alpha[c])
-        np.testing.assert_allclose(
-            iW[c], np.asarray(JS._nngp_dense_iW(lvd_j, a, NP)),
-            rtol=OP_RTOL, atol=OP_RTOL)
         coef = np.asarray(lvd_j.nn_coef[a])
         D = np.asarray(lvd_j.nn_D[a])
         for f in range(2):
@@ -424,6 +431,73 @@ def test_b8c_plain_matches_jax_dense_iw(built):
                       -coef[f])
             R = (R + np.eye(NP, dtype=np.float32)) / np.sqrt(D[f])[:, None]
             np.testing.assert_array_equal(RiW[c, f], R)
+
+
+def _iw_replay(nn_idx, nn_n, coef, D, rev_ptr, rev_pos, rows):
+    """B8c's kernel (csrc/nngp_riw.cu) replayed in float32 for one factor at
+    its alpha's grid slices ``coef`` (np, k), ``D`` (np,): a block a tile
+    of ``rows`` rows that stages the units from its first row on, a warp a
+    row j that adds r_i[j] r_i, nonzero at i and unit i's real neighbours
+    (all below i), for i = j, then for the units that list j in the
+    reverse-neighbour CSR's order.  Vectorised over l."""
+    npr, k = nn_idx.shape
+    f32 = np.float32
+    sq = np.sqrt(D.astype(f32))
+    vv = -coef.astype(f32) / sq[:, None]
+    di = f32(1) / sq
+    out = np.full((npr, npr), np.nan, f32)
+    for j0 in range(0, npr, rows):
+        for j in range(j0, min(npr, j0 + rows)):
+            def row(i):                       # r_i[l] over l
+                r = np.zeros(npr, f32)
+                r[i] = di[i]
+                n = nn_n[i]
+                assert (nn_idx[i, :n] < i).all()
+                r[nn_idx[i, :n]] = vv[i, :n]
+                return r
+            acc = di[j] * row(j)
+            for e in range(rev_ptr[j], rev_ptr[j + 1]):
+                i, slot = divmod(int(rev_pos[e]), k)
+                assert i >= j0                # staged by this block
+                acc = acc + vv[i, slot] * row(i)
+            out[j] = acc
+    return out
+
+
+@pytest.mark.parametrize("npr,nf", [(97, 2), (128, 2), (256, 1)])
+def test_b8c_kernel_sum_over_reverse_neighbours_matches_jax(npr, nf):
+    """B8c's per-entry sum over the reverse-neighbour CSR, replayed on the
+    CPU at ``iw_geometry``'s tiles, against _nngp_dense_iW (rtol 1e-5) on a
+    10-neighbour level (unit 0 with no neighbour, the first units' lists
+    padded), 4 chains with alpha 0 among their factors; the block's shared
+    memory fits the card's."""
+    from types import SimpleNamespace
+
+    from hmsc_tpu_torch.precompute import _nngp_grids
+
+    g = np.random.default_rng(npr)
+    pts = g.uniform(size=(npr, 2)) * 10.0
+    lp = _nngp_grids(pts, 10, np.linspace(0.0, 14.0, 11))
+    nn_idx, nn_n = lp.nn_idx, lp.nn_n
+    assert nn_n[0] == 0 and (nn_n < 10).sum() >= 10
+    rev_ptr, rev_pos = tstructs.reverse_neighbours(nn_idx, nn_n)
+    geo = tops.iw_geometry(npr, 10, len(rev_pos))
+    assert geo["tiles"] * geo["rows"] >= npr > (geo["tiles"] - 1) * geo["rows"]
+    assert geo["smem"] <= tops._IW_SMEM_MAX
+    coef = lp.nn_coef.astype(np.float32)
+    D = lp.nn_D.astype(np.float32)
+    lvd_j = SimpleNamespace(nn_coef=jnp.asarray(coef), nn_D=jnp.asarray(D),
+                            nn_idx=jnp.asarray(nn_idx, jnp.int32))
+    alpha = g.integers(0, 11, (4, nf))
+    alpha[0, 0] = 0
+    for c in range(4):
+        want = np.asarray(JS._nngp_dense_iW(lvd_j, jnp.asarray(alpha[c]), npr))
+        for f in range(nf):
+            a = alpha[c, f]
+            got = _iw_replay(nn_idx, nn_n, coef[a], D[a], rev_ptr, rev_pos,
+                             geo["rows"])
+            np.testing.assert_allclose(got, want[f], rtol=OP_RTOL,
+                                       atol=OP_RTOL * np.abs(want[f]).max())
 
 
 # --- the updaters -----------------------------------------------------------

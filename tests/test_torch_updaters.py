@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+import hmsc_tpu
 from hmsc_tpu.mcmc import sweep as jsweep
 from hmsc_tpu.mcmc import updaters as JU
 from hmsc_tpu.ops.rand import _TINY, standard_gamma as jgamma
@@ -18,8 +19,10 @@ from hmsc_tpu.ops.rand import _TINY, standard_gamma as jgamma
 from hmsc_tpu_torch.mcmc import sweep as tsweep
 from hmsc_tpu_torch.mcmc import updaters as TU
 from hmsc_tpu_torch.mcmc.structs import build_spec
+from hmsc_tpu_torch.ops import rand as trand
 
-from test_torch_model import flatten, jax_triple, make_models, to_torch
+from test_torch_model import (flatten, jax_triple, make_models, model_inputs,
+                              to_torch)
 
 pytestmark = pytest.mark.torch
 torch.set_num_threads(1)
@@ -235,6 +238,156 @@ def test_update_lambda_priors():
                     for s, k in zip(states_j, keys)])
     out = TU.update_lambda_priors(spec_t, data_t, state_t, noise=noise)
     _compare(out, ref, fields={"Psi", "Delta"})
+
+
+def _shrinkage_replay(Lambda, mask, Delta, nu, a1, b1, a2, b2, g_psi,
+                      g_delta):
+    """B3's shrinkage form (csrc/shrinkage_gamma.cu) replayed in float32 on
+    the CPU from its unit draws: each (row, piece) item of
+    ``shrinkage_geometry`` summed by its warp's lanes over the piece's
+    species in turn, the xor-shuffle tree; a row's pieces by a warp (a
+    lane's pieces in order, the same tree); each step's
+    tail as the product of the deltas drawn before it times the sum over
+    the factors from it on at their entry deltas; then the chain over the
+    factors a column.  Returns (Psi, Delta, items a species was drawn
+    in)."""
+    f32 = np.float32
+    C, nf, ns, ncr = Lambda.shape
+    geo = trand.shrinkage_geometry(nf, ns, ncr)
+    P, plen = geo["P"], geo["plen"]
+    R = nf * ncr
+    Psi = np.zeros(Lambda.shape, f32)
+    hits = np.zeros(Lambda.shape, np.int64)
+    Dout = np.zeros(Delta.shape, f32)
+    lane = np.arange(32)
+    for c in range(C):
+        m = mask[c]
+        tau0 = np.ones((nf, ncr), f32)
+        p = np.ones(ncr, f32)
+        for f in range(nf):
+            p = p * np.where(m[f] > 0, Delta[c, f], f32(1))
+            tau0[f] = p
+        part = np.zeros(R * P, f32)
+        for it in range(R * P):
+            row, piece = divmod(it, P)
+            f, col = divmod(row, ncr)
+            sl = slice(piece * plen, min(ns, (piece + 1) * plen))
+            lm = Lambda[c, f, sl, col] * m[f]
+            lam2 = lm * lm
+            b = f32(0.5) * nu[col] + (f32(0.5) * lam2) * tau0[f, col]
+            psi = g_psi[c, f, sl, col] / b
+            Psi[c, f, sl, col] = psi
+            hits[c, f, sl, col] += 1
+            x = psi * lam2
+            x = np.concatenate([x, np.zeros(-len(x) % 32, f32)])
+            acc = np.zeros(32, f32)
+            for r in x.reshape(-1, 32):
+                acc = acc + r
+            for o in (16, 8, 4, 2, 1):
+                acc = acc + acc[lane ^ o]
+            part[it] = acc[0]
+        msum = np.zeros(R, f32)
+        for t in range(R):
+            acc = np.zeros(32, f32)
+            for q in range(P):
+                acc[q % 32] = acc[q % 32] + part[t * P + q]
+            for o in (16, 8, 4, 2, 1):
+                acc = acc + acc[lane ^ o]
+            msum[t] = acc[0]
+        msum = msum.reshape(nf, ncr)
+        d0 = np.where(m[:, None] > 0, Delta[c], f32(1)).astype(f32)
+        q = np.zeros((nf, ncr), f32)
+        for h in range(nf):
+            p = np.ones(ncr, f32)
+            for f in range(h, nf):
+                p = p * d0[f]
+                q[h] = q[h] + (p * msum[f]) * m[f]
+        pre = np.ones(ncr, f32)
+        for h in range(nf):
+            bd = (b1 if h == 0 else b2) + (f32(0.5) * (pre * q[h])) / d0[h]
+            Dout[c, h] = np.where(m[h] > 0, g_delta[c, h] / bd, f32(1))
+            pre = pre * Dout[c, h]
+    return Psi, Dout, hits
+
+
+def test_shrinkage_form_summation_order_and_up_front_draws_match_jax():
+    """B3's shrinkage form, replayed on the CPU (its launch shape, its
+    fixed order of summation, delta's draws taken up front at the shapes
+    ``shrinkage_shapes`` gives), against the JAX ``update_lambda_priors``
+    with the same unit gamma draws injected: nf_max 8, masks with inactive
+    slots, 300 species (3 blocks a chain, 9 pieces a row); Psi and Delta to
+    rtol 1e-5, each species drawn once.  The plain update
+    (``shrinkage_update``) fed the draws through a per-factor callable
+    agrees too."""
+    Y, hkw, units = model_inputs("probit", ny=30, ns=300)
+    rl = hmsc_tpu.HmscRandomLevel(units=units[0])
+    hmsc_tpu.set_priors_random_level(rl, nf_max=8, nf_min=2)
+    mj = hmsc_tpu.Hmsc(Y=Y, ran_levels={"unit": rl}, **hkw)
+    spec, data, states = jax_triple(mj, seeds=(0, 1, 2))
+    assert spec.levels[0].nf_max == 8
+    geo = trand.shrinkage_geometry(8, 300, 1)
+    assert geo["S"] > 1 and geo["P"] > 1
+    g = np.random.default_rng(5)
+    masks = np.array([[1, 1, 1, 1, 1, 0, 0, 0], [1, 1, 1, 1, 1, 1, 1, 1],
+                      [1, 1, 0, 0, 0, 0, 0, 0]], np.float32)
+    states = [s.replace(levels=(s.levels[0].replace(
+        Lambda=jnp.asarray(g.standard_normal((8, 300, 1)) * 0.7,
+                           jnp.float32),
+        Delta=jnp.asarray(g.uniform(0.5, 3.0, (8, 1)), jnp.float32),
+        nf_mask=jnp.asarray(mk)),)) for s, mk in zip(states, masks)]
+    keys = [jax.random.key(300 + c) for c in range(3)]
+    ref = [JU.update_lambda_priors(spec, data, s, k).levels[0]
+           for s, k in zip(states, keys)]
+    noise = [lambda_priors_noise(spec, data, s, k)[0]
+             for s, k in zip(states, keys)]
+    g_psi = np.stack([np.asarray(n["psi"]) for n in noise])
+    g_delta = np.stack([np.asarray(n["delta"]) for n in noise])
+    lvd = data.levels[0]
+    hyp = [np.array(getattr(lvd, k), np.float32)
+           for k in ("nu", "a1", "b1", "a2", "b2")]
+    Lambda = np.stack([np.asarray(s.levels[0].Lambda) for s in states])
+    Delta = np.stack([np.asarray(s.levels[0].Delta) for s in states])
+    # delta's shapes, up front, as the JAX updater forms them step by step
+    nu, a1, b1, a2, b2 = (torch.from_numpy(h) for h in hyp)
+    _, ad = trand.shrinkage_shapes(torch.from_numpy(masks), nu, a1, a2, 300)
+    for c, mk in enumerate(masks):
+        n_geq = np.cumsum(mk[::-1])[::-1]
+        want = [hyp[1] + 0.5 * 300 * mk.sum()] + [
+            hyp[3] + 0.5 * 300 * n_geq[h] for h in range(1, 8)]
+        np.testing.assert_array_equal(ad[c].numpy(),
+                                      np.asarray(want, np.float32))
+    Psi, Dl, hits = _shrinkage_replay(Lambda, masks, Delta, *hyp, g_psi,
+                                      g_delta)
+    assert (hits == 1).all()
+    psi_t, delta_t = trand.shrinkage_update(
+        torch.from_numpy(Lambda), torch.from_numpy(masks),
+        torch.from_numpy(Delta), nu, b1, b2, torch.from_numpy(g_psi),
+        lambda h: torch.from_numpy(g_delta[:, h]))
+    for c, lv in enumerate(ref):
+        for got in (Psi[c], psi_t[c].numpy()):
+            np.testing.assert_allclose(got, np.asarray(lv.Psi), rtol=1e-5)
+        for got in (Dl[c], delta_t[c].numpy()):
+            np.testing.assert_allclose(got, np.asarray(lv.Delta), rtol=1e-5)
+
+
+@pytest.mark.parametrize("nf,ns,ncr", [(8, 1000, 1), (2, 90, 1), (2, 50, 1),
+                                       (20, 10, 1), (30, 5000, 1),
+                                       (3, 7, 2)])
+def test_shrinkage_geometry_covers_every_species(nf, ns, ncr):
+    """The shrinkage form's launch shape: a cluster of at most 16 blocks of
+    at most 512 threads (whole warps) a chain, each row's pieces covering
+    its species once with none empty, and at most ~2 psi a lane where the
+    cluster's threads allow (1 at the headline's nf 8, ns 1000)."""
+    geo = trand.shrinkage_geometry(nf, ns, ncr)
+    S, T, P, plen = geo["S"], geo["T"], geo["P"], geo["plen"]
+    assert 1 <= S <= 16 and 32 <= T <= 512 and T % 32 == 0
+    assert P * plen >= ns and (P - 1) * plen < ns
+    warps = S * T // 32
+    rounds = -(-(nf * ncr * P) // warps) * -(-plen // 32)
+    if nf * ns * ncr <= 8 * 1024 and nf * ncr <= 256:
+        assert rounds <= 2
+    if (nf, ns) == (8, 1000):
+        assert (S, T, P, plen, rounds) == (16, 512, 32, 32, 1)
 
 
 @pytest.mark.parametrize("n_units", [None, 10])
