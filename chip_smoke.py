@@ -37,7 +37,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    5000, its law by KS and moments, bit-identical reruns; B8c (iW in one
    launch) to 1e-5 of its plain version at np 97, 100, 128 (nf 2) and 256
    (nf 1), alpha 0 giving I, bit-identical reruns, timed beside its first
-   version (scripts/older/nngp_riw_factor.cu, built here) and its gram.
+   version (scripts/older/nngp_riw_factor.cu, built here) and its gram;
+   B4 (the GammaV block, the Wishart draw included, in one launch) against
+   the plain block fed the same draws (1e-4 relative on iV and Gamma) at
+   the headline's nc 2 / nt 1, nc 8 / nt 4 and its cap nc 16 / nt 4 x ns
+   5000, a NaN in Beta giving NaN in its chain, bit-identical reruns, and
+   the law of its in-kernel draws (iV's mean against df (A + V0)^-1,
+   Gamma's conditional mean and covariance); B2 in its three forms (the
+   element form, BetaLambda from a chain's gram and from a gram a species,
+   Eta from a chain's gram scaled by the row counts and from a gram a
+   unit) against the plain assembly and draw (1e-4), planted indefinite
+   systems NaN on both sides, bit-identical reruns, the law of its
+   in-kernel eps, each timed beside the draw as the sampler ran it before
+   (the assembly's torch ops and B2's first version,
+   scripts/older/mvn_prec_small.cu, built here).
 3. Times: each kernel's device time per launch (torch.profiler, after
    warm-up) beside its plain version's device time per call, the one-call
    PyTorch yardstick where there is one, and the least time the card could
@@ -57,14 +70,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    run), the draws must be finite, no chain may diverge and the simulated
    slopes must be recovered:
    a. the headline: the 1000-site x 1000-species probit JSDM, nf_max = 8,
-      4 chains (B1's fused form, B2, B3's two forms: the sweep forms no linear
-      predictor), whose posterior-mean Beta must match the JAX
+      4 chains (B1's fused form, B2, B3's two forms, B4: the sweep forms no
+      linear predictor), whose posterior-mean Beta must match the JAX
       package's (scripts/headline_jax_moments.json, written on the CPU by
       scripts/headline_jax_moments.py) by entrywise z-scores, max < 5 and
       mean < 1.5 (C3);
    b. config 5 of BASELINE.md at its published size: 300 x 90, normal /
       probit / lognormal-Poisson columns, nf 2, 4 chains, 125 + 250 sweeps
-      (B1's E-reading form, B2, B3, B5);
+      (B1's E-reading form, B2, B3, B4, B5);
    c. the headline with 10% of Y missing, 10 + 50 sweeps (B1-B3, B6);
    d. the headline with the probit-DA intercept interweave on
       (``updater={"InterweaveDA": True}``), 10 + 50 sweeps (B1-B3, B7);
@@ -646,56 +659,257 @@ def check_b1(torch, trand, dev, card):
     return res
 
 
-def check_b2(torch, tlinalg, dev, card):
+B2_FIRST_SOURCE = "scripts/older/mvn_prec_small.cu"
+
+
+def first_b2(torch, lib, prec, rhs, eps):
+    """B2's first version on the card (one system a thread, the element
+    form): the draw the sampler ran before the assembly was fused."""
+    import ctypes
+
+    fn = lib.hmsc_mvn_prec_small
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_void_p]
+    P = rhs.shape[-1]
+    out = torch.empty_like(rhs)
+    code = fn(prec.data_ptr(), rhs.data_ptr(), eps.data_ptr(),
+              out.data_ptr(), rhs.numel() // P, P,
+              torch.cuda.current_stream().cuda_stream)
+    assert code == 0, f"B2 first version: cudaError {code}"
+    return out
+
+
+def b2_inputs(torch, dev, form, seed):
+    """Inputs of one B2 form at the headline's shapes (C 4; BetaLambda: ns
+    1000, nc 2, nf 8, P 10; Eta: np 1000, nf 8), with three planted
+    systems that are not positive definite; returns (kwargs of the
+    wrapper, the planted flat system indices)."""
     C, ns, nf = HEADLINE["n_chains"], HEADLINE["ns"], HEADLINE["nf"]
-    g = torch.Generator(device=dev).manual_seed(1)
-    res = {}
-    for P in (nf, 2 + nf):                       # Eta and BetaLambda systems
-        B = C * ns
-        M = torch.randn((B, P, P), generator=g, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device=dev)
+    ru = lambda *s: torch.rand(s, generator=g, device=dev)
+    bad = torch.tensor([3, ns + 17, C * ns - 1], device=dev)
+    if form == "element":                        # BetaLambda's P, as given
+        P, B = 2 + nf, C * ns
+        M = rn(B, P, P)
         prec = M @ M.transpose(1, 2) / P + torch.eye(P, device=dev)
-        bad = torch.tensor([3, B // 2 + 1, B - 1], device=dev)
-        prec[bad] -= 10.0 * torch.eye(P, device=dev)   # indefinite systems
-        rhs = torch.randn((B, P), generator=g, device=dev)
-        eps = torch.randn((B, P), generator=g, device=dev)
-        xk = tlinalg.sample_mvn_prec_batched(prec, rhs, eps)
-        xp = tlinalg._sample_mvn_prec_small_plain(prec, rhs, eps)
-        nan_k = torch.isnan(xk).all(1)
-        nan_p = torch.isnan(xp).all(1)
-        assert torch.equal(nan_k, nan_p), "B2: NaN rows differ"
-        assert torch.equal(torch.nonzero(nan_k)[:, 0], bad), "B2: NaN rows"
+        prec[bad] -= 10.0 * torch.eye(P, device=dev)
+        return dict(prec=prec, rhs=rn(B, P), eps=rn(B, P)), bad
+    if form.startswith("beta_lambda"):
+        nc, nt, P = 2, 1, 2 + nf
+        XE = rn(C, 1000, P)
+        XE[:, :, 0] = 1.0
+        G = (XE.transpose(1, 2) @ XE)[:, None]   # (C, 1, P, P)
+        if form == "beta_lambda_na":             # a gram a species
+            M = rn(C, ns, P, P)
+            G = (G * (0.8 + 0.2 * ru(C, ns, 1, 1))
+                 + M @ M.transpose(2, 3)).contiguous()
+        A = rn(C, nc, nc)
+        prior = 0.5 + 2.0 * ru(C, P - nc, ns)
+        prior.view(C * (P - nc), ns)[0, 3] = -1e7
+        prior.view(C, P - nc, ns)[1, 2, 17] = -1e7
+        prior.view(C, P - nc, ns)[C - 1, P - nc - 1, ns - 1] = -1e7
+        return dict(G=G, rhs_lik=10.0 * rn(C, ns, P),
+                    iSigma=0.5 + ru(C, ns),
+                    iV=A @ A.transpose(1, 2) + torch.eye(nc, device=dev),
+                    prior=prior, Gamma=rn(C, nc, nt), Tr=rn(ns, nt),
+                    eps=rn(C, ns, P)), bad
+    npr = ns                                     # Eta: a unit a site
+    L = 0.3 * rn(C, nf, 1000)
+    G = (L @ L.transpose(1, 2))[:, None]         # (C, 1, nf, nf)
+    scale = torch.randint(1, 4, (npr,), generator=g, device=dev).float()
+    if form == "eta_na":                         # a gram a unit
+        M = rn(C, npr, nf, nf)
+        G = (M @ M.transpose(2, 3) / nf).contiguous()
+        scale = None
+        G.view(C * npr, nf, nf)[bad] -= 10.0 * torch.eye(nf, device=dev)
+    else:                                        # negative row counts
+        bad = torch.tensor([3, 17, npr - 1], device=dev)
+        scale[bad] = -1e4
+        bad = (bad[None, :] + npr * torch.arange(C, device=dev)[:, None]
+               ).flatten().sort().values
+    return dict(G=G, rhs=rn(C, npr, nf), scale=scale, eps=rn(C, npr, nf)), \
+        bad
+
+
+def b2_calls(torch, tlinalg, form, kw):
+    """(kernel, plain) draws of one form from ``kw`` (its eps injected)."""
+    plain = tlinalg._sample_mvn_prec_small_plain
+    if form == "element":
+        return (lambda: tlinalg.sample_mvn_prec_batched(**kw),
+                lambda: plain(**kw))
+    if form.startswith("beta_lambda"):
+        sys_kw = {k: v for k, v in kw.items() if k != "eps"}
+        return (lambda: tlinalg.sample_beta_lambda(**kw),
+                lambda: plain(*tlinalg._beta_lambda_system(**sys_kw),
+                              kw["eps"]))
+
+    def eta_plain():
+        G, s = kw["G"], kw["scale"]
+        LiSL = G if s is None else s[:, None, None] * G
+        P = G.shape[-1]
+        return plain(LiSL + torch.eye(P, device=G.device), kw["rhs"],
+                     kw["eps"])
+    return lambda: tlinalg.sample_mvn_prec_shifted(**kw), eta_plain
+
+
+# B2's forms: the element form (the JAX op's signature), BetaLambda from the
+# chain's shared gram (the headline) and from a gram a species (NA), the
+# Eta draw from the shared gram scaled by the row counts and from a gram a
+# unit (NA)
+B2_FORMS = ("element", "beta_lambda", "beta_lambda_na", "eta", "eta_na")
+
+
+def b2_law(torch, tlinalg, trand, dev):
+    """The in-kernel Philox eps: 4096 copies of one Eta system (I + G) drawn
+    with eps from the kernel; mean and covariance against float64."""
+    nf, n = HEADLINE["nf"], 4096
+    g = torch.Generator(device=dev).manual_seed(71)
+    L = 0.5 * torch.randn((1, nf, 20), generator=g, device=dev)
+    G = (L @ L.transpose(1, 2))[:, None]
+    rhs = torch.randn((1, 1, nf), generator=g, device=dev).expand(
+        1, n, nf).contiguous()
+    x = tlinalg.sample_mvn_prec_shifted(G, rhs, None, None,
+                                        trand.Rng(72, dev))[0].double()
+    prec = G[0, 0].double() + torch.eye(nf, device=dev, dtype=torch.float64)
+    prec = prec + (1e-6 / nf) * torch.trace(prec) * torch.eye(
+        nf, device=dev, dtype=torch.float64)
+    cov = torch.linalg.inv(prec)
+    mean = cov @ rhs[0, 0].double()
+    se = (torch.diagonal(cov) / n).sqrt()
+    z = ((x.mean(0) - mean).abs() / se).max().item()
+    xc = x - x.mean(0)
+    S = xc.T @ xc / (n - 1)
+    d = torch.diagonal(cov)
+    se_cov = ((d[:, None] * d[None, :] + cov ** 2) / n).sqrt()
+    zc = ((S - cov).abs() / se_cov).max().item()
+    assert z < 4.5 and zc < 5.0, f"B2 Philox eps: mean z {z}, cov z {zc}"
+    return z, zc
+
+
+def check_b2(torch, tlinalg, trand, dev, card):
+    """B2 in every form (``B2_FORMS``) against its plain version (the
+    assembly as torch ops, then the unrolled draw) on the same inputs and
+    eps: max |kernel - plain| / max |plain| <= 1e-4; the planted indefinite
+    systems NaN on both sides and no other; a rerun, with the eps injected
+    and with Philox eps at a fixed (seed, offset), to the same bits; the
+    law of the in-kernel eps.  Each form timed with the sampler's own call
+    (Philox eps) beside the plain version and the draw as the sampler ran
+    it before: the assembly's torch ops, a torch.randn and B2's first
+    version (``scripts/older/mvn_prec_small.cu``, built here)."""
+    first = build_source(B2_FIRST_SOURCE, "mvn_prec_small_first")
+    res, worst = {}, 0.0
+    for form in B2_FORMS:
+        kw, bad = b2_inputs(torch, dev, form, seed=len(form))
+        kern, plain = b2_calls(torch, tlinalg, form, kw)
+        xk, xp = kern(), plain()
+        P = xk.shape[-1]
+        xk2, xp2 = xk.reshape(-1, P), xp.reshape(-1, P)
+        nan_k, nan_p = torch.isnan(xk2).all(1), torch.isnan(xp2).all(1)
+        assert torch.equal(nan_k, nan_p), f"B2 {form}: NaN rows differ"
+        assert torch.equal(torch.nonzero(nan_k)[:, 0], bad), \
+            f"B2 {form}: NaN rows {torch.nonzero(nan_k)[:, 0].tolist()}"
         ok = ~nan_k
-        assert torch.isfinite(xk[ok]).all(), "B2: non-finite draws"
-        abs_err = (xk[ok] - xp[ok]).abs().max().item()
-        rel = abs_err / xp[ok].abs().max().item()
-        assert rel <= 1e-4, f"B2 P={P}: max rel diff {rel} > 1e-4"
+        assert torch.isfinite(xk2[ok]).all(), f"B2 {form}: non-finite draws"
+        abs_err = (xk2[ok] - xp2[ok]).abs().max().item()
+        rel = abs_err / xp2[ok].abs().max().item()
+        assert rel <= 1e-4, f"B2 {form}: max rel diff {rel} > 1e-4"
+        assert torch.equal(torch.nan_to_num(kern()), torch.nan_to_num(xk)), \
+            f"B2 {form}: a rerun gave other bits"
+        worst = max(worst, abs_err)
+        # the sampler's own call: eps from Philox in the kernel
+        kw_s = dict(kw, eps=None)
+        if form == "element":
+            kw_s = kw                            # the JAX op takes its eps
+        else:
+            fixed = [getattr(tlinalg, "sample_beta_lambda"
+                             if form.startswith("beta") else
+                             "sample_mvn_prec_shifted")(
+                **kw_s, rng=FixedPhilox(0x5EED, 77)) for _ in range(2)]
+            assert torch.equal(torch.nan_to_num(fixed[0]),
+                               torch.nan_to_num(fixed[1])), \
+                f"B2 {form}: a Philox rerun gave other bits"
+        rng = trand.Rng(5, dev)
+        fn = {"element": lambda: tlinalg.sample_mvn_prec_batched(**kw_s),
+              "beta_lambda": lambda: tlinalg.sample_beta_lambda(**kw_s,
+                                                                rng=rng),
+              "eta": lambda: tlinalg.sample_mvn_prec_shifted(**kw_s,
+                                                             rng=rng)}[
+            form.replace("_na", "")]
 
-        def kern():
-            tlinalg.sample_mvn_prec_batched(prec, rhs, eps)
+        def before():
+            if form == "element":
+                p_, r_ = kw["prec"], kw["rhs"]
+            elif form.startswith("beta"):
+                p_, r_ = tlinalg._beta_lambda_system(
+                    **{k: v for k, v in kw.items() if k != "eps"})
+            else:
+                G, s = kw["G"], kw["scale"]
+                p_ = (G if s is None else s[:, None, None] * G) \
+                    + torch.eye(P, device=dev)
+                r_ = kw["rhs"]
+            e_ = kw["eps"] if form == "element" else torch.randn(
+                r_.shape, device=dev)
+            return first_b2(torch, first, p_.expand(
+                r_.shape + (P,)).contiguous(), r_, e_)
 
-        def plain():
-            tlinalg._sample_mvn_prec_small_plain(prec, rhs, eps)
-
-        ms = device_ms(torch, kern, "mvn_prec_small_kernel")
+        xb = before()
+        if form == "element":
+            xb2 = xb.reshape(-1, P)
+            rel_first = ((xb2[ok] - xp2[ok]).abs().max()
+                         / xp2[ok].abs().max()).item()
+            assert rel_first <= 1e-4, f"B2 first version: {rel_first}"
+        ms = device_ms(torch, fn, "mvn_prec_small_kernel")
         plain_ms = device_ms(torch, plain, calls=10)
-        ev, plain_ev = event_ms(torch, kern), event_ms(torch, plain, batch=5)
-        held = held_event_ms(torch, kern)
-        # bytes: prec, rhs, eps in and the draw out; operations: P^3/3
-        # (factor) + 2 P^2 (two solves) + 2 P (sqrt, reciprocal) per system
-        b, by = bound_ms(4.0 * B * (P * P + 3 * P),
-                         B * (P ** 3 / 3 + 2 * P * P + 2 * P))
-        print(f"B2 check: P={P}, {B} systems, shared eps: max |diff| "
-              f"{abs_err:.3g}, max rel diff {rel:.3g} (tolerance 1e-4); "
-              f"planted indefinite rows NaN on both sides")
-        print(f"B2 mvn_prec_small device time P={P}: {ms:.5f} ms (plain "
-              f"{plain_ms:.4f} ms, bound {b:.5f} ms by {by}; held stream "
-              f"{held:.5f} ms, with enqueue {ev:.4f} ms, plain "
-              f"{plain_ev:.4f} ms) at {B} systems [{card}]")
-        res[P] = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                      bound_ms=b, bound_by=by, library_ms=None, event_ms=ev,
-                      plain_event_ms=plain_ev, held_ms=held)
-    # the line reports the BetaLambda shape, the larger of the two per sweep
-    return res[2 + nf]
+        before_ms = device_ms(torch, before)
+        first_ms = device_ms(torch, before, "mvn_prec_small_kernel")
+        ev, plain_ev = event_ms(torch, fn), event_ms(torch, plain, batch=5)
+        before_ev = event_ms(torch, before)
+        held = held_event_ms(torch, fn)
+        B = xk2.shape[0]
+        # bytes: what the form reads (the element form its precisions; the
+        # others their grams, a chain's or a system's, the right-hand sides,
+        # the scale, priors, iV, Gamma, Tr) and the draw out; operations:
+        # P^3/3 (factor) + 2 P^2 (two solves) + 2 P (sqrt, reciprocal), P^2
+        # for the assembly and ~130 for each in-kernel normal (a Philox
+        # call and Box-Muller), a system
+        G = kw.get("G", kw.get("prec"))
+        nbytes = 4.0 * (G.numel() + 2 * B * P + sum(
+            kw[k].numel() for k in ("iSigma", "iV", "prior", "Gamma", "Tr",
+                                    "scale") if kw.get(k) is not None))
+        if form == "element":
+            nbytes += 4.0 * B * P                # its eps
+        ops = B * (P ** 3 / 3 + 2 * P * P + 2 * P + (
+            0 if form == "element" else P * P + 130 * P))
+        b, by = bound_ms(nbytes, ops)
+        print(f"B2 check {form}: {B} systems of P={P}, shared eps: max "
+              f"|diff| {abs_err:.3g}, max rel diff {rel:.3g} (tolerance "
+              f"1e-4); planted indefinite systems NaN on both sides, no "
+              f"other; reruns give the same bits")
+        print(f"B2 mvn_prec_small {form} device time: {ms:.5f} ms (the draw "
+              f"as the sampler ran it before: {before_ms:.5f} ms of device "
+              f"work, its first-version B2 launch {first_ms:.5f} ms, with "
+              f"enqueue {before_ev:.4f} ms; plain {plain_ms:.4f} ms, bound "
+              f"{b:.6f} ms by {by}; held stream {held:.5f} ms, with enqueue "
+              f"{ev:.4f} ms, plain {plain_ev:.4f} ms) at {B} systems "
+              f"[{card}]")
+        res[form] = dict(max_abs_err=abs_err, rel_err=rel, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                         library_ms=None, event_ms=ev,
+                         plain_event_ms=plain_ev, held_ms=held,
+                         before_ms=before_ms, before_event_ms=before_ev,
+                         first_ms=first_ms)
+    z, zc = b2_law(torch, tlinalg, trand, dev)
+    print(f"B2 law of the in-kernel eps: 4096 draws of one Eta system, max "
+          f"|z| of the mean {z:.3g} (< 4.5), of the covariance {zc:.3g} "
+          f"(< 5) against float64")
+    # the line reports the BetaLambda form from the shared gram (the
+    # headline's call), with every form's numbers beside it
+    out = dict(res["beta_lambda"], max_abs_err=worst)
+    out["by_form"] = {f: {k: r[k] for k in (
+        "ms", "event_ms", "bound_ms", "plain_ms", "before_ms",
+        "before_event_ms", "first_ms", "rel_err")} for f, r in res.items()}
+    return out
 
 
 def check_b3(torch, trand, dev, card):
@@ -929,26 +1143,182 @@ def check_b3_shrinkage(torch, trand, dev, card):
                 before_ms=before_ms, before_event_ms=before_ev)
 
 
-def time_b4(torch, trand, dev, card):
-    """B4, the Wishart draw: plain PyTorch on B3 (no kernel of its own),
-    timed at the headline's GammaV draw (4 chains, nc 2, df f0 + ns)."""
-    C, nc = HEADLINE["n_chains"], 2
-    rng = trand.Rng(17, dev)
-    T = torch.eye(nc, device=dev).expand(C, nc, nc).contiguous() * 0.05
-    df = nc + 1.0 + HEADLINE["ns"]
+# B4's shapes (nc, nt, ns): the headline's, a model with traits, and the
+# kernel's cap (nc 16, nc nt 64) at 5000 species
+B4_SHAPES = ((2, 1, HEADLINE["ns"]), (8, 4, 1000), (16, 4, 5000))
 
-    def call():
-        trand.wishart(df, T, rng)
 
-    W = trand.wishart(df, T, rng)
-    assert torch.isfinite(W).all(), "B4: non-finite Wishart draw"
-    ms, ev = device_ms(torch, call), event_ms(torch, call)
-    # bytes: the factor in, the draw out, the nc gamma and nc^2 normal draws
-    # between; operations: two nc x nc products per chain
-    b, by = bound_ms(4.0 * C * (3 * nc * nc + nc), 4.0 * C * nc ** 3)
-    print(f"B4 wishart (plain PyTorch on B3) device time: {ms:.5f} ms a call "
-          f"(bound {b:.7f} ms by {by}; with enqueue {ev:.4f} ms) at {C} "
-          f"chains x nc {nc} [{card}]")
+def b4_inputs(torch, trand, dev, C, nc, nt, ns, seed):
+    """The GammaV block's inputs on the card (Tr with an intercept column,
+    a random prior on Gamma, V0 = I, df = f0 + ns with f0 = nc + 1) and
+    injected draws of the plain update's shapes: (args, df, noise)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *s: torch.randn(s, generator=g, device=dev)
+    n = nc * nt
+    Tr = rn(ns, nt)
+    Tr[:, 0] = 1.0
+    U = rn(n, n)
+    iUG = U @ U.T / n + torch.eye(n, device=dev)
+    mG = 0.3 * rn(n)
+    Gamma = 0.3 * rn(C, nc, nt)
+    Beta = Gamma @ Tr.T + 0.7 * rn(C, nc, ns)
+    args = dict(Beta=Beta, Gamma=Gamma, Tr=Tr,
+                V0=torch.eye(nc, device=dev), TtT=Tr.T @ Tr, iUGamma=iUG,
+                iUGmG=iUG @ mG)
+    df = float(nc + 1 + ns)
+    dfs = (df - torch.arange(nc, device=dev, dtype=torch.float32)) / 2.0
+    noise = {"wishart": {"normal": rn(C, nc, nc),
+                         "gamma": trand.standard_gamma(
+                             dfs.expand(C, nc).contiguous(),
+                             trand.Rng(seed, dev))},
+             "gamma": {"eps": rn(C, n)}}
+    return args, df, noise
+
+
+def b4_law(torch, trand, dev, nc, nt, ns, n=4096):
+    """The law of B4's in-kernel draws at one shape, n copies of one chain:
+    the mean of iV against df (A + V0 + jitter)^-1 (A = E E' in float64),
+    then, with the Wishart draws injected (one iV for every copy), Gamma's
+    mean and covariance against the float64 conditional.  Returns the
+    largest |z| of each."""
+    args, df, noise = b4_inputs(torch, trand, dev, 1, nc, nt, ns, seed=nc)
+    rep = dict(args, Beta=args["Beta"].expand(n, nc, ns).contiguous(),
+               Gamma=args["Gamma"].expand(n, nc, nt).contiguous())
+    iV, _ = trand.gamma_v(**rep, df=df, rng=trand.Rng(90 + nc, dev))
+    d64 = {k: v.double() for k, v in args.items()}
+    E = d64["Beta"][0] - d64["Gamma"][0] @ d64["Tr"].T
+    M = E @ E.T + d64["V0"]
+    M = M + 1e-6 * torch.diagonal(M).mean() * torch.eye(
+        nc, device=dev, dtype=torch.float64)
+    want = df * torch.linalg.inv(M)
+    x = iV.double()
+    z_iv = ((x.mean(0) - want).abs() / (x.std(0) / n ** 0.5)).max().item()
+    nz = {"wishart": {k: v.expand((n,) + v.shape[1:]).contiguous()
+                      for k, v in noise["wishart"].items()}}
+    iV2, Gm = trand.gamma_v(**rep, df=df, rng=trand.Rng(95 + nc, dev),
+                            noise=nz)
+    assert torch.equal(iV2, iV2[:1].expand_as(iV2)), "B4: injected iV"
+    iv = iV2[0].double()
+    N = nc * nt
+    prec = d64["iUGamma"] + torch.kron(d64["TtT"], iv)
+    prec = prec + 1e-6 * torch.diagonal(prec).mean() * torch.eye(
+        N, device=dev, dtype=torch.float64)
+    BT = d64["Beta"][0] @ d64["Tr"]
+    rhs = d64["iUGmG"] + (iv @ BT).T.reshape(-1)
+    cov = torch.linalg.inv(prec)
+    mean = cov @ rhs
+    g = Gm.double().transpose(1, 2).reshape(n, N)      # vec, trait-major
+    se = (torch.diagonal(cov) / n).sqrt()
+    z_m = ((g.mean(0) - mean).abs() / se).max().item()
+    gc = g - g.mean(0)
+    S = gc.T @ gc / (n - 1)
+    dg = torch.diagonal(cov)
+    z_c = ((S - cov).abs()
+           / ((dg[:, None] * dg[None, :] + cov ** 2) / n).sqrt()).max().item()
+    assert z_iv < 4.5, f"B4 nc {nc}: iV mean z {z_iv}"
+    assert z_m < 4.5 and z_c < 5.0, f"B4 nc {nc}: Gamma z {z_m}, {z_c}"
+    return z_iv, z_m, z_c
+
+
+def check_b4(torch, trand, dev, card):
+    """B4, the whole GammaV block in one launch (``ops/rand.py ·
+    gamma_v``), against the plain block (``gamma_v_plain``: the torch ops
+    and B3's element form) with the same injected draws at ``B4_SHAPES``:
+    iV and Gamma to 1e-4 relative (max |kernel - plain| / max |plain|); a
+    NaN in Beta gives NaN in its chain, the other chains unchanged, no
+    exception; reruns (injected draws, and Philox at a fixed (seed,
+    offset)) to the same bits; the law of its in-kernel draws
+    (``b4_law``).  Timed at each shape beside the plain block with its own
+    draws (the block as the sampler ran it before) and, at the headline,
+    torch.distributions.Wishart's draw of iV alone."""
+    C = HEADLINE["n_chains"]
+    res = {}
+    for nc, nt, ns in B4_SHAPES:
+        assert trand.gamma_v_route(nc, nt)
+        args, df, noise = b4_inputs(torch, trand, dev, C, nc, nt, ns,
+                                    seed=nc * nt)
+        iVk, Gk = trand.gamma_v(**args, df=df, noise=noise)
+        iVp, Gp = trand.gamma_v_plain(**args, df=df, noise=noise)
+        rel = max(_rel(iVk, iVp), _rel(Gk, Gp))
+        assert rel <= 1e-4, f"B4 nc {nc} nt {nt}: max rel diff {rel}"
+        assert torch.isfinite(iVk).all() and torch.isfinite(Gk).all()
+        assert torch.equal(iVk, iVk.transpose(1, 2)), "B4: iV not symmetric"
+        again = trand.gamma_v(**args, df=df, noise=noise)
+        assert torch.equal(again[0], iVk) and torch.equal(again[1], Gk), \
+            f"B4 nc {nc}: a rerun gave other bits"
+        fixed = [trand.gamma_v(**args, df=df, rng=FixedPhilox(0x5EED, nc))
+                 for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(*fixed)), \
+            f"B4 nc {nc}: a Philox rerun gave other bits"
+        bad = dict(args, Beta=args["Beta"].clone())
+        bad["Beta"][0, nc - 1, ns // 2] = float("nan")
+        iVn, Gn = trand.gamma_v(**bad, df=df, noise=noise)
+        assert torch.isnan(iVn[0]).all() and torch.isnan(Gn[0]).all(), \
+            f"B4 nc {nc}: a NaN in Beta did not give NaN"
+        assert torch.equal(iVn[1:], iVk[1:]) and torch.equal(Gn[1:], Gk[1:])
+        print(f"B4 check C {C}, nc {nc}, nt {nt}, ns {ns}: max relative "
+              f"|kernel - plain| on iV and Gamma {rel:.3g} (1e-4) with the "
+              f"same draws; iV symmetric; reruns give the same bits; a NaN "
+              f"in Beta gives NaN in its chain and leaves the others")
+        rng = trand.Rng(31, dev)
+
+        def kern():
+            trand.gamma_v(**args, df=df, rng=rng)
+
+        def before():
+            trand.gamma_v_plain(**args, df=df, rng=rng)
+
+        ms = device_ms(torch, kern, "gamma_v_kernel")
+        before_ms = device_ms(torch, before, calls=20)
+        ev, before_ev = event_ms(torch, kern), event_ms(torch, before)
+        held = held_event_ms(torch, kern)
+        lib_ms = None
+        if (nc, nt, ns) == B4_SHAPES[0]:
+            E = args["Beta"] - args["Gamma"] @ args["Tr"].T
+            S = torch.linalg.inv(E @ E.transpose(1, 2) + args["V0"])
+            W = torch.distributions.Wishart(
+                torch.full((C,), df, device=dev),
+                scale_tril=torch.linalg.cholesky(S), validate_args=False)
+            with warnings.catch_warnings():      # its resampling warning
+                warnings.simplefilter("ignore")
+                lib_ms = device_ms(torch, W.sample)
+        # bytes: Beta, Tr, Gamma, V0, Tr'Tr, iUGamma, iUGamma mGamma in, iV
+        # and Gamma out; operations a chain: the species sums (E, E E' and
+        # Beta Tr, 2 nc nt + nc (nc + 1) + 2 nc nt a species), the two
+        # factorisations and solves, the Bartlett product, the precision,
+        # and ~180 a unit gamma and ~130 a normal drawn
+        n = nc * nt
+        nbytes = 4.0 * (C * nc * ns + ns * nt + 2 * C * nc * nt + nc * nc
+                        + nt * nt + n * n + n + C * nc * nc)
+        ops = C * (ns * (4 * nc * nt + nc * (nc + 1)) + nc ** 3 + 4 * nc ** 3
+                   + 2 * n * n + n ** 3 / 3 + 4 * n * n + 180 * nc
+                   + 130 * (nc * (nc - 1) / 2 + n))
+        b, by = bound_ms(nbytes, ops)
+        lib = "" if lib_ms is None else \
+            f"; torch.distributions.Wishart's iV draw alone {lib_ms:.5f} ms"
+        print(f"B4 gamma_v device time at C {C}, nc {nc}, nt {nt}, ns {ns}: "
+              f"{ms:.5f} ms (the block as the sampler ran it before: "
+              f"{before_ms:.5f} ms of device work, with enqueue "
+              f"{before_ev:.4f} ms{lib}; bound {b:.6f} ms by {by}; held "
+              f"stream {held:.5f} ms, with enqueue {ev:.4f} ms) [{card}]")
+        res[nc, nt, ns] = dict(
+            max_abs_err=max(float((iVk - iVp).abs().max()),
+                            float((Gk - Gp).abs().max())), rel_err=rel,
+            ms=ms, plain_ms=before_ms, bound_ms=b, bound_by=by,
+            library_ms=lib_ms, event_ms=ev, plain_event_ms=before_ev,
+            held_ms=held, shape=[C, nc, nt, ns])
+    for nc, nt, ns in B4_SHAPES[:2]:
+        z_iv, z_m, z_c = b4_law(torch, trand, dev, nc, nt, ns)
+        print(f"B4 law of the in-kernel draws at nc {nc}, nt {nt}, ns {ns} "
+              f"(4096 copies of one chain): max |z| of iV's mean against df "
+              f"(A + V0)^-1 {z_iv:.3g} (< 4.5); with the Wishart draws "
+              f"injected, of Gamma's mean {z_m:.3g} (< 4.5) and covariance "
+              f"{z_c:.3g} (< 5) against the float64 conditional")
+    out = dict(res[B4_SHAPES[0]])
+    out["by_shape"] = {f"nc {k[0]} nt {k[1]} ns {k[2]}": {f: r[f] for f in (
+        "ms", "event_ms", "plain_ms", "plain_event_ms", "bound_ms",
+        "rel_err")} for k, r in res.items()}
+    return out
 
 
 def _moments_agree(label, a, b):
@@ -2938,10 +3308,12 @@ def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
     branch is the linear predictor's only reader, ``updaters.fused_z``,
     else its E-reading form) and for Poisson columns (B5);
     BetaLambda and each level's Eta systems (B2, where P <= 16) each sweep;
-    the Wishart diagonal and, where a dispersion is estimated, the
-    residual precisions each sweep, plus the Nf move's psi and delta draws
-    while it <= adapt_nf (B3's element form); each level's shrinkage
-    update each sweep (B3's shrinkage form); with missing values the
+    the GammaV block each sweep (B4, where ``ops.rand.gamma_v_route``
+    allows; else its Wishart diagonal through B3's element form); where a
+    dispersion is estimated, the residual precisions each sweep, plus the
+    Nf move's psi and delta draws while it <= adapt_nf (B3's element
+    form); each level's shrinkage update each sweep (B3's shrinkage form);
+    with missing values the
     BetaLambda and each level's masked grams each sweep (B6).
     On an NNGP level, each sweep: the alpha grid quadratics and the
     scale interweave's quadratic, plus the location interweave's
@@ -2958,9 +3330,12 @@ def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
     from hmsc_tpu_torch.mcmc import updaters as tupd
     from hmsc_tpu_torch.mcmc.structs import _find_ones_column
 
+    from hmsc_tpu_torch.ops.rand import gamma_v_route
+
     sweeps = transient + samples * thin
     nf_sweeps = sum(min(a, sweeps) for a in adapt_nf)
-    per_sweep_gamma = 1 + int(spec.any_estimated_sigma)
+    gv = gamma_v_route(spec.nc, spec.nt)
+    per_sweep_gamma = int(not gv) + int(spec.any_estimated_sigma)
     systems = int(spec.nc + spec.nf_total <= 16) + sum(
         int(ls.nf_max <= 16) for ls in spec.levels if ls.spatial is None)
     nngp = [ls for ls in spec.levels if ls.spatial == "NNGP"]
@@ -2977,6 +3352,7 @@ def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
             "mvn_prec_small": sweeps * systems,
             "standard_gamma": sweeps * per_sweep_gamma + 2 * nf_sweeps,
             "shrinkage_gamma": sweeps * spec.nr,
+            "gamma_v": sweeps * gv,
             "poisson_z": (1 + sweeps) * spec.any_poisson,
             "masked_gram": sweeps * (1 + spec.nr) * spec.has_na,
             "vecchia_apply": len(cg_loop),
@@ -3336,9 +3712,10 @@ def main() -> int:
           f"{len(K.KERNELS)} kernels (nvcc, sm_90a)")
 
     results = {**check_b1(torch, trand, dev, card),
-               "mvn_prec_small": check_b2(torch, tlinalg, dev, card),
+               "mvn_prec_small": check_b2(torch, tlinalg, trand, dev, card),
                "standard_gamma": check_b3(torch, trand, dev, card),
                "shrinkage_gamma": check_b3_shrinkage(torch, trand, dev, card),
+               "gamma_v": check_b4(torch, trand, dev, card),
                "poisson_z": check_b5(torch, trand, dev, card),
                "masked_gram": check_b6(torch, tgram, dev, card),
                "vecchia_apply": check_b8a(torch, tsp, dev, card),
@@ -3349,7 +3726,6 @@ def main() -> int:
                "serve_predict": check_b9a(torch, tserve, K, dev, card),
                "serve_quantile": check_b9c(torch, tserve, dev, card),
                "serve_conditional": check_b9b(torch, tserve, dev, card)}
-    time_b4(torch, trand, dev, card)
 
     # recovery: posterior-mean slopes against the simulated ones
     X, Y, Beta = simulate_probit(200, 30, seed=3)
@@ -3455,6 +3831,8 @@ def main() -> int:
         "shrinkage_gamma": ("B3 shrinkage_gamma",
                             "hmsc_tpu_torch/csrc/shrinkage_gamma.cu",
                             "hmsc_tpu/mcmc/updaters.py:539", "headline"),
+        "gamma_v": ("B4 gamma_v", "hmsc_tpu_torch/csrc/gamma_v.cu",
+                    "hmsc_tpu/ops/rand.py:217", "headline"),
         "poisson_z": ("B5 poisson_z", "hmsc_tpu_torch/csrc/poisson_z.cu",
                       "hmsc_tpu/ops/rand.py:172", "config5"),
         "masked_gram": ("B6 masked_gram",

@@ -35,6 +35,7 @@ KERNELS = {"probit_z": "probit_z.cu",
            "mvn_prec_small": "mvn_prec_small.cu",
            "standard_gamma": "standard_gamma.cu",
            "shrinkage_gamma": "shrinkage_gamma.cu",
+           "gamma_v": "gamma_v.cu",
            "poisson_z": "poisson_z.cu",
            "masked_gram": "masked_gram.cu",
            "vecchia_apply": "vecchia_apply.cu",
@@ -132,10 +133,13 @@ def library():
                                           u32, p]
             lib.hmsc_probit_z_fused.argtypes = [p] * 11 + [i] * 7 + [
                 u64, u32, p]
-            lib.hmsc_mvn_prec_small.argtypes = [p, p, p, p, ll, i, p]
+            lib.hmsc_mvn_prec_small.argtypes = [p, i, p, i] + [p] * 5 + [
+                i, i, p, p, ll, i, i, i, u64, u32, p]
             lib.hmsc_standard_gamma.argtypes = [p, p, ll, u64, u32, p]
             lib.hmsc_shrinkage_gamma.argtypes = [p] * 10 + [i] * 8 + [
                 u64, u32, u32, p]
+            lib.hmsc_gamma_v.argtypes = [p] * 12 + [i] * 4 + [
+                ctypes.c_float, u64, u32, u32, u32, p]
             lib.hmsc_poisson_z.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
                                            u64, u32, p]
             lib.hmsc_masked_gram.argtypes = [p, ll, ll, ll, p, ll, ll, p, ll,
@@ -165,6 +169,7 @@ def library():
             for fn in (lib.hmsc_probit_z, lib.hmsc_probit_z_fused,
                        lib.hmsc_mvn_prec_small,
                        lib.hmsc_standard_gamma, lib.hmsc_shrinkage_gamma,
+                       lib.hmsc_gamma_v,
                        lib.hmsc_poisson_z,
                        lib.hmsc_masked_gram, lib.hmsc_vecchia_fwd,
                        lib.hmsc_vecchia_adj, lib.hmsc_vecchia_cg,

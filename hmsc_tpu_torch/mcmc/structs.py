@@ -153,6 +153,10 @@ class ModelData(_Replace):
     # shifts.  Without the by-value detection the move silently turns off
     # for raw-matrix designs whose first column is ones.
     x_ones_ind: int | None = None
+    # constants of the GammaV block, formed once from the fields above by
+    # data_from_numpy: Tr'Tr and iUGamma mGamma
+    TtT: Any = None              # (nt, nt)
+    iUGmG: Any = None            # (nc*nt,)
 
 
 @dataclasses.dataclass
@@ -425,7 +429,8 @@ def unit_last_grids(nn_idx, nn_coef):
 def data_from_numpy(d: dict, device, dtype=torch.float32) -> ModelData:
     """``ModelData`` from numpy arrays keyed by field name (per-level fields
     as ``levels.<r>.<field>``).  Fields the port does not use are ignored;
-    intercept indices may be None or integer scalars.  An NNGP level's
+    intercept indices may be None or integer scalars.  The GammaV block's
+    constants ``TtT`` and ``iUGmG`` are formed here.  An NNGP level's
     ``nn_n`` is derived when absent, and its reverse-neighbour lists and
     its lists and grid with the unit last (:func:`unit_last_grids`) are
     built here."""
@@ -453,6 +458,9 @@ def data_from_numpy(d: dict, device, dtype=torch.float32) -> ModelData:
         else:
             kw[f.name] = None if v is None else _tensor(f.name, v, device,
                                                         dtype)
+    # the GammaV block's constants (they never change during a fit)
+    kw["TtT"] = kw["Tr"].T @ kw["Tr"]
+    kw["iUGmG"] = kw["iUGamma"] @ kw["mGamma"]
     return ModelData(levels=levels, **kw)
 
 

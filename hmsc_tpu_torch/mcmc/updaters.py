@@ -11,7 +11,8 @@ the very numbers the JAX updater drew.
 Plain GEMMs (``X'X``, ``XE'Z``, ``S Lambda'``) are ``torch.matmul``, as the
 JAX package left them to XLA; the tiny nc x nc / nf x nf Cholesky
 factorisations are ``chol_spd``.  The hot per-cell and per-system work
-goes through the hand-written kernels B1-B3 and B5 (:mod:`..ops`), and
+goes through the hand-written kernels B1-B5 (:mod:`..ops`; B2 forms the
+BetaLambda and Eta precisions itself, B4 is the whole GammaV block), and
 with missing values in Y the per-species and per-row masked grams through
 B6 (:mod:`..ops.gram`); the opt-in probit-DA intercept interweave through
 B7.  The spatial Eta and alpha updates live in
@@ -26,16 +27,18 @@ import math
 import torch
 
 from ..ops.gram import masked_gram
-from ..ops.linalg import chol_spd, sample_mvn_prec, sample_mvn_prec_batched
-from ..ops.rand import (da_intercept_draw, poisson_z, probit_z_fused,
-                        shrinkage_gamma, shrinkage_shapes, shrinkage_update,
-                        standard_gamma, truncated_normal_onesided, wishart)
+from ..ops.linalg import (chol_spd, sample_beta_lambda, sample_mvn_prec,
+                          sample_mvn_prec_shifted)
+from ..ops.rand import (da_intercept_draw, gamma_v, poisson_z,
+                        probit_z_fused, shrinkage_gamma, shrinkage_shapes,
+                        shrinkage_update, standard_gamma,
+                        truncated_normal_onesided)
 from .structs import GibbsState, LevelState, ModelData, ModelSpec
 
 __all__ = ["lambda_effective", "linear_fixed", "level_loading",
            "total_loading", "eta_star", "fused_z", "update_z",
-           "update_beta_lambda",
-           "update_gamma_v", "gamma_given_beta", "update_lambda_priors",
+           "beta_lambda_inputs", "update_beta_lambda",
+           "update_gamma_v", "update_lambda_priors",
            "update_eta_nonspatial", "interweave_scale", "location_gate",
            "interweave_location", "da_intercept_gate",
            "interweave_da_intercept", "update_inv_sigma", "update_nf"]
@@ -181,19 +184,15 @@ def update_z(spec: ModelSpec, data: ModelData, state: GibbsState, rng=None,
 # updateBetaLambda, joint (reference R/updateBetaLambda.R)
 # ---------------------------------------------------------------------------
 
-def update_beta_lambda(spec: ModelSpec, data: ModelData, state: GibbsState,
-                       rng=None, noise=None) -> GibbsState:
-    """Joint (Beta, Lambda) draw: one (nc+K)^2 system per species, all of
-    them in one batched draw (kernel B2).  Without missing values the
-    species share one gram ``XE'XE``; with them each species has its own
-    masked gram and right-hand side (kernel B6).  ``noise``: ``{"eps": (C,
-    ns, nc+K)}``."""
+def beta_lambda_inputs(spec: ModelSpec, data: ModelData, state: GibbsState):
+    """The joint draw's gram, likelihood right-hand side and stacked factor
+    priors: ``(G, rhs_lik, prior_lam)``, G (C, 1, P, P) the chains' shared
+    ``XE'XE`` or, with missing values, (C, ns, P, P) a masked gram a
+    species (kernel B6); rhs_lik (C, ns, P); prior_lam (C, K, ns)."""
     C = state.n_chains
-    P = spec.nc + spec.nf_total
     XE = torch.cat([data.X.expand(C, -1, -1), eta_star(spec, data, state)],
                    dim=2)                                # (C, ny, P)
     prior_lam = _stacked_lambda_prior(spec, state)       # (C, K, ns)
-    Mu_beta = state.Gamma @ data.Tr.T                    # (C, nc, ns)
     if spec.has_na:
         # (C, ns, P, P) and (C, ns, P): o = species, k = row
         G, rhs_lik = masked_gram(XE, data.Ymask.T, state.Z.transpose(1, 2))
@@ -201,22 +200,23 @@ def update_beta_lambda(spec: ModelSpec, data: ModelData, state: GibbsState,
         XEt = XE.transpose(1, 2)
         G = (XEt @ XE)[:, None]                          # (C, 1, P, P)
         rhs_lik = (XEt @ state.Z).transpose(1, 2)        # (C, ns, P)
+    return G, rhs_lik, prior_lam
 
-    # per-species posterior precision = blkdiag(iV, diag(psi*tau)) + iSigma_j*G
-    eyeP = torch.eye(P, dtype=G.dtype, device=G.device)
-    prior_diag = torch.cat([G.new_zeros((C, spec.nc, spec.ns)), prior_lam],
-                           dim=1)                        # (C, P, ns)
-    P0 = G.new_zeros((C, spec.ns, P, P))
-    P0[:, :, :spec.nc, :spec.nc] = state.iV[:, None]
-    P0 = P0 + eyeP * prior_diag.transpose(1, 2)[..., None]
-    prec = P0 + state.iSigma[:, :, None, None] * G
 
-    mu0 = torch.cat([Mu_beta, G.new_zeros((C, spec.nf_total, spec.ns))],
-                    dim=1)                               # (C, P, ns)
-    rhs = torch.einsum("cjpq,cqj->cjp", P0, mu0) \
-        + state.iSigma[:, :, None] * rhs_lik
-    eps = _noise(noise, "eps", lambda: rng.normal((C, spec.ns, P), G.dtype))
-    BL = sample_mvn_prec_batched(prec, rhs, eps)         # (C, ns, P)
+def update_beta_lambda(spec: ModelSpec, data: ModelData, state: GibbsState,
+                       rng=None, noise=None) -> GibbsState:
+    """Joint (Beta, Lambda) draw: one (nc+K)^2 system per species, all of
+    them in one batched draw (kernel B2's BetaLambda form, which forms
+    each species' precision and right-hand side itself).  Without missing
+    values the species share one gram ``XE'XE``; with them each species
+    has its own masked gram and right-hand side (kernel B6).  ``noise``:
+    ``{"eps": (C, ns, nc+K)}``."""
+    G, rhs_lik, prior_lam = beta_lambda_inputs(spec, data, state)
+    # per-species posterior precision blkdiag(iV, diag(psi*tau)) +
+    # iSigma_j G, its right-hand side and the draw: B2's BetaLambda form
+    BL = sample_beta_lambda(G, rhs_lik, state.iSigma, state.iV, prior_lam,
+                            state.Gamma, data.Tr,
+                            None if noise is None else noise["eps"], rng)
     Beta, levels = _unstack_lambda(spec, BL.transpose(1, 2), state)
     return state.replace(Beta=Beta, levels=levels)
 
@@ -225,39 +225,18 @@ def update_beta_lambda(spec: ModelSpec, data: ModelData, state: GibbsState,
 # updateGammaV (reference R/updateGammaV.R), no phylogeny
 # ---------------------------------------------------------------------------
 
-def gamma_given_beta(spec: ModelSpec, data: ModelData, state: GibbsState,
-                     rng=None, noise=None) -> GibbsState:
-    """Gamma | Beta, iV: Gaussian full conditional with precision
-    iUGamma + kron(Tr'Tr, iV).  ``noise``: ``{"eps": (C, nc*nt)}``."""
-    C, nc, nt = state.n_chains, spec.nc, spec.nt
-    TtT = data.Tr.T @ data.Tr                            # (nt, nt)
-    kron = (TtT[None, :, None, :, None] * state.iV[:, None, :, None, :]
-            ).reshape(C, nt * nc, nt * nc)
-    prec = data.iUGamma + kron
-    rhs0 = data.iUGamma @ data.mGamma
-    t2 = (state.iV @ state.Beta) @ data.Tr               # (C, nc, nt)
-    rhs = rhs0 + t2.transpose(1, 2).reshape(C, -1)
-    L = chol_spd(prec)
-    eps = _noise(noise, "eps", lambda: rng.normal(rhs.shape, rhs.dtype))
-    gvec = sample_mvn_prec(L, rhs, eps)
-    return state.replace(Gamma=gvec.reshape(C, nt, nc).transpose(1, 2))
-
-
 def update_gamma_v(spec: ModelSpec, data: ModelData, state: GibbsState,
                    rng=None, noise=None) -> GibbsState:
-    """Conjugate draws: iV ~ Wishart(f0+ns, (E E' + V0)^{-1}) with the
-    Bartlett diagonal from kernel B3, then Gamma | Beta, iV.  ``noise``:
-    ``{"wishart": {"normal", "gamma"}, "gamma": {"eps"}}``."""
-    E = state.Beta - state.Gamma @ data.Tr.T
-    A = E @ E.transpose(1, 2)
-    Lw = chol_spd(A + data.V0)
-    eye = torch.eye(spec.nc, dtype=A.dtype, device=A.device)
-    T = torch.linalg.solve_triangular(Lw.transpose(1, 2), eye.expand_as(Lw),
-                                      upper=True)        # T T' = (A+V0)^-1
-    iV = wishart(spec.f0 + spec.ns, T, rng,
-                 None if noise is None else noise["wishart"])
-    return gamma_given_beta(spec, data, state.replace(iV=iV), rng,
-                            None if noise is None else noise["gamma"])
+    """Conjugate draws: iV ~ Wishart(f0+ns, (E E' + V0)^{-1}) by Bartlett,
+    then Gamma | Beta, iV.  On the card, where ``gamma_v_route`` allows,
+    the whole block is one launch of kernel B4 (``ops/rand.py ·
+    gamma_v``); otherwise the plain block (B3's element form for the
+    Bartlett diagonal, then torch ops).  ``noise``: ``{"wishart":
+    {"normal", "gamma"}, "gamma": {"eps"}}``."""
+    iV, Gamma = gamma_v(state.Beta, state.Gamma, data.Tr, data.V0, data.TtT,
+                        data.iUGamma, data.iUGmG, spec.f0 + spec.ns, rng,
+                        noise)
+    return state.replace(iV=iV, Gamma=Gamma)
 
 
 # ---------------------------------------------------------------------------
@@ -299,39 +278,51 @@ def update_lambda_priors(spec: ModelSpec, data: ModelData, state: GibbsState,
 # updateEta, non-spatial (reference R/updateEta.R)
 # ---------------------------------------------------------------------------
 
-def _level_gram(spec, data, lvd, ls, lv, iSigma, S):
-    """Per-unit factor precision contributions and RHS (x_dim = 0):
-    (LiSL (C, np, nf, nf), F (C, np, nf)).  Without missing values every
-    row shares one gram, scaled by its unit's row count; with them each row
-    has its own masked gram and right-hand side (kernel B6).  The unit sums
-    are ``index_add_`` over ``pi_row``."""
+def _level_gram_parts(spec, data, lvd, ls, lv, iSigma, S):
+    """A level's per-unit factor precision contributions as ``(G, scale,
+    F)``: without missing values every row shares one gram, so G is (C, 1,
+    nf, nf) and ``scale`` the units' row counts (np,); with them each row
+    has its own masked gram and right-hand side (kernel B6), summed into G
+    (C, np, nf, nf), and ``scale`` is None.  F (C, np, nf).  The unit sums
+    are ``index_add_`` over ``pi_row`` (x_dim = 0)."""
     lam = lambda_effective(lv)[..., 0]                   # (C, nf, ns)
     lamT = lam.transpose(1, 2)
     C = lam.shape[0]
     if spec.has_na:
         # (C, ny, nf, nf) and (C, ny, nf): o = row, k = species
         rows, Fr = masked_gram(lamT, data.Ymask, S, iSigma)
-        LiSL = rows.new_zeros((C, ls.n_units, ls.nf_max, ls.nf_max))
-        LiSL.index_add_(1, lvd.pi_row, rows)
+        G = rows.new_zeros((C, ls.n_units, ls.nf_max, ls.nf_max))
+        G.index_add_(1, lvd.pi_row, rows)
+        scale = None
     else:
-        shared = (lam * iSigma[:, None, :]) @ lamT       # (C, nf, nf)
-        LiSL = lvd.unit_count[:, None, None] * shared[:, None]
+        G = ((lam * iSigma[:, None, :]) @ lamT)[:, None]  # (C, 1, nf, nf)
+        scale = lvd.unit_count
         Fr = (S * iSigma[:, None, :]) @ lamT             # (C, ny, nf)
     F = Fr.new_zeros((C, ls.n_units, ls.nf_max))
     F.index_add_(1, lvd.pi_row, Fr)
-    return LiSL, F
+    return G, scale, F
+
+
+def _level_gram(spec, data, lvd, ls, lv, iSigma, S):
+    """Per-unit factor precision contributions and RHS (x_dim = 0):
+    (LiSL (C, np, nf, nf), F (C, np, nf)), from
+    :func:`_level_gram_parts`."""
+    G, scale, F = _level_gram_parts(spec, data, lvd, ls, lv, iSigma, S)
+    return (G if scale is None else scale[:, None, None] * G), F
 
 
 def update_eta_nonspatial(spec, data, state, r: int, rng=None, S=None,
                           noise=None) -> LevelState:
     """Eta_r | rest for one unstructured level: one nf x nf system per unit,
-    all in one batched draw (kernel B2); inactive factors fall back to
-    their N(0,1) prior.  ``noise``: ``{"eps": (C, np, nf)}``."""
+    ``I + LiSL_u``, all in one batched draw (kernel B2's identity form,
+    which scales the shared gram by each unit's row count itself);
+    inactive factors fall back to their N(0,1) prior.  ``noise``:
+    ``{"eps": (C, np, nf)}``."""
     lvd, lv, ls = data.levels[r], state.levels[r], spec.levels[r]
-    LiSL, F = _level_gram(spec, data, lvd, ls, lv, state.iSigma, S)
-    prec = LiSL + torch.eye(ls.nf_max, dtype=F.dtype, device=F.device)
-    eps = _noise(noise, "eps", lambda: rng.normal(F.shape, F.dtype))
-    return lv.replace(Eta=sample_mvn_prec_batched(prec, F, eps))
+    G, scale, F = _level_gram_parts(spec, data, lvd, ls, lv, state.iSigma,
+                                    S)
+    eps = None if noise is None else noise["eps"]
+    return lv.replace(Eta=sample_mvn_prec_shifted(G, F, scale, eps, rng))
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,18 @@
 """Dense linear-algebra helpers for the Gibbs engine (port of
 ``hmsc_tpu/ops/linalg.py``).
 
-B2 :func:`sample_mvn_prec_batched` is a kernel written by hand for Hopper
-(``csrc/mvn_prec_small.cu``, one small system per thread) for P <= 16; the
-wrapper launches it for a CUDA tensor and runs the plain unrolled version
-only for a CPU tensor.  Larger systems, like the JAX op, go through
-:func:`chol_spd` + :func:`sample_mvn_prec` on either device.
+B2 is a kernel written by hand for Hopper (``csrc/mvn_prec_small.cu``, a
+group of P lanes a system) for P <= 16, in three forms that all count
+under ``mvn_prec_small``: :func:`sample_mvn_prec_batched`, the JAX op's
+own signature (the precisions as given); :func:`sample_mvn_prec_shifted`,
+the unstructured Eta draw's ``I + s_b G`` from one gram a chain or one a
+unit; and :func:`sample_beta_lambda`, BetaLambda's ``blkdiag(iV, psi tau)
++ iSigma_j G`` with its right-hand side, formed in the kernel from the
+gram, the priors and ``Gamma Tr'``.  Each wrapper launches the kernel for
+a CUDA tensor and runs the plain version (the assembly as torch ops, then
+the unrolled draw) only for a CPU tensor.  Larger systems, like the JAX
+op, go through :func:`chol_spd` + :func:`sample_mvn_prec` on either
+device, after the same assembly.
 
 Every factorisation returns NaN on an indefinite matrix and never raises:
 divergence containment (the sampler's ``first_bad_update``) depends on NaN
@@ -21,13 +28,16 @@ import torch
 
 from .. import kernels as K
 
-__all__ = ["chol_spd", "sample_mvn_prec", "sample_mvn_prec_batched"]
+__all__ = ["chol_spd", "sample_mvn_prec", "sample_mvn_prec_batched",
+           "sample_mvn_prec_shifted", "sample_beta_lambda"]
 
 # Relative jitter added to diagonals before cholesky; f32 MCMC insurance.
 # csrc/mvn_prec_small.cu hard-codes the same value.
 _JITTER = 1e-6
 # Above this size the plain factorisation replaces the small-system kernel
 _SMALL_P_MAX = 16
+# B2's forms (csrc/mvn_prec_small.cu · Form)
+_ELEMENT, _IDENTITY, _BETA_LAMBDA = 0, 1, 2
 
 
 def chol_spd(A, jitter=_JITTER):
@@ -60,7 +70,8 @@ def sample_mvn_prec(L, rhs, eps):
 
 def sample_mvn_prec_batched(prec, rhs, eps):
     """Fused Cholesky + N(P^{-1} rhs, P^{-1}) draw for a batch of small SPD
-    precisions ``prec`` (..., P, P) with ``rhs``, ``eps`` (..., P)."""
+    precisions ``prec`` (..., P, P) with ``rhs``, ``eps`` (..., P): B2's
+    element form."""
     P = prec.shape[-1]
     if P > _SMALL_P_MAX:
         return sample_mvn_prec(chol_spd(prec), rhs, eps)
@@ -70,19 +81,119 @@ def sample_mvn_prec_batched(prec, rhs, eps):
     if rhs.shape != batch_shape + (P,) or eps.shape != rhs.shape:
         raise ValueError(f"mvn_prec_small: prec {tuple(prec.shape)}, rhs "
                          f"{tuple(rhs.shape)}, eps {tuple(eps.shape)}")
-    for name, t in (("prec", prec), ("rhs", rhs), ("eps", eps)):
-        if t.device != prec.device or t.dtype != torch.float32:
-            raise ValueError(f"mvn_prec_small: {name} must be float32 on "
-                             "prec's device")
-    prec, rhs, eps = prec.contiguous(), rhs.contiguous(), eps.contiguous()
-    out = torch.empty_like(rhs)
     batch = rhs.numel() // P
     if batch == 0:
+        return torch.empty_like(rhs)
+    out = _launch(_ELEMENT, prec.reshape(1, batch, P, P),
+                  rhs.reshape(1, batch, P), eps.reshape(1, batch, P))
+    return out.reshape(rhs.shape)
+
+
+def sample_mvn_prec_shifted(G, rhs, scale=None, eps=None, rng=None):
+    """The unstructured Eta draw's systems: x_b ~ N(prec_b^{-1} rhs_b,
+    prec_b^{-1}) with ``prec_b = I + scale_b G_b``.  ``rhs`` (C, n, P);
+    ``G`` (C, 1, P, P), one gram a chain (stride 0 over its systems), or
+    (C, n, P, P); ``scale`` (n,) or None for 1.  ``eps`` (C, n, P), or None
+    to draw it (``rng.normal``; in the kernel, Philox keyed by
+    ``rng.philox()``).  B2's identity form; the plain version is
+    ``scale G + I`` then :func:`sample_mvn_prec_batched`."""
+    P = rhs.shape[-1]
+    if not rhs.is_cuda or P > _SMALL_P_MAX:
+        LiSL = G if scale is None else scale[:, None, None] * G
+        prec = LiSL + torch.eye(P, dtype=rhs.dtype, device=rhs.device)
+        if eps is None:
+            eps = rng.normal(rhs.shape, rhs.dtype)
+        return sample_mvn_prec_batched(prec, rhs, eps)
+    return _launch(_IDENTITY, G, rhs, eps, rng, scale=scale)
+
+
+def _beta_lambda_system(G, rhs_lik, iSigma, iV, prior, Gamma, Tr):
+    """BetaLambda's per-species precisions and right-hand sides as torch
+    ops (the plain version of B2's BetaLambda form): ``blkdiag(iV,
+    diag(prior_j)) + iSigma_j G`` and ``P0 mu0 + iSigma_j rhs_lik``."""
+    C, ns, P = rhs_lik.shape
+    nc = iV.shape[-1]
+    Mu_beta = Gamma @ Tr.T                               # (C, nc, ns)
+    eyeP = torch.eye(P, dtype=G.dtype, device=G.device)
+    prior_diag = torch.cat([G.new_zeros((C, nc, ns)), prior],
+                           dim=1)                        # (C, P, ns)
+    P0 = G.new_zeros((C, ns, P, P))
+    P0[:, :, :nc, :nc] = iV[:, None]
+    P0 = P0 + eyeP * prior_diag.transpose(1, 2)[..., None]
+    prec = P0 + iSigma[:, :, None, None] * G
+    mu0 = torch.cat([Mu_beta, G.new_zeros((C, P - nc, ns))],
+                    dim=1)                               # (C, P, ns)
+    rhs = torch.einsum("cjpq,cqj->cjp", P0, mu0) \
+        + iSigma[:, :, None] * rhs_lik
+    return prec, rhs
+
+
+def sample_beta_lambda(G, rhs_lik, iSigma, iV, prior, Gamma, Tr, eps=None,
+                       rng=None):
+    """The joint (Beta, Lambda) draw of every species: (C, ns, P) with
+    species j's precision ``blkdiag(iV, diag(prior[:, :, j])) + iSigma_j
+    G_j`` and right-hand side ``blkdiag(...) [Gamma Tr'_j; 0] + iSigma_j
+    rhs_lik_j``.  ``G`` (C, 1, P, P), the chain's gram ``XE'XE``, or (C,
+    ns, P, P) with missing values; ``rhs_lik`` (C, ns, P); ``iSigma`` (C,
+    ns); ``iV`` (C, nc, nc); ``prior`` (C, P - nc, ns); ``Gamma`` (C, nc,
+    nt); ``Tr`` (ns, nt).  ``eps`` (C, ns, P) or None, as for
+    :func:`sample_mvn_prec_shifted`.  B2's BetaLambda form; the plain
+    version is :func:`_beta_lambda_system` then
+    :func:`sample_mvn_prec_batched`."""
+    C, ns, P = rhs_lik.shape
+    if not rhs_lik.is_cuda or P > _SMALL_P_MAX:
+        prec, rhs = _beta_lambda_system(G, rhs_lik, iSigma, iV, prior,
+                                        Gamma, Tr)
+        if eps is None:
+            eps = rng.normal((C, ns, P), rhs.dtype)
+        return sample_mvn_prec_batched(prec, rhs, eps)
+    return _launch(_BETA_LAMBDA, G, rhs_lik, eps, rng, scale=iSigma,
+                   iV=iV, prior=prior, Gamma=Gamma, Tr=Tr)
+
+
+def _launch(form, G, rhs, eps, rng=None, scale=None, iV=None, prior=None,
+            Gamma=None, Tr=None):
+    """One launch of B2 over ``rhs``'s (C, n) systems of size P."""
+    C, n, P = rhs.shape
+    dev = rhs.device
+    shapes = {"G": (G, ((C, 1, P, P), (C, n, P, P)) if form != _ELEMENT
+                    else ((C, n, P, P),)),
+              "eps": (eps, ((C, n, P),))}
+    if scale is not None:
+        shapes["scale"] = (scale, ((C, n),) if form == _BETA_LAMBDA
+                           else ((n,),))
+    if form == _BETA_LAMBDA:
+        nc, nt = iV.shape[-1], Gamma.shape[-1]
+        shapes.update(iV=(iV, ((C, nc, nc),)),
+                      prior=(prior, ((C, P - nc, n),)),
+                      Gamma=(Gamma, ((C, nc, nt),)), Tr=(Tr, ((n, nt),)))
+    else:
+        nc = nt = 0
+    args = {"rhs": rhs.contiguous()}
+    for name, (t, allowed) in shapes.items():
+        if t is None:
+            args[name] = None
+            continue
+        if tuple(t.shape) not in allowed or t.device != dev \
+                or t.dtype != torch.float32:
+            raise ValueError(f"mvn_prec_small: {name} {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}; expected float32 "
+                             f"{' or '.join(map(str, allowed))} on {dev}")
+        args[name] = t.contiguous()
+    if rhs.dtype != torch.float32:
+        raise ValueError("mvn_prec_small: rhs must be float32")
+    out = torch.empty_like(args["rhs"])
+    if C * n == 0:
         return out
-    with torch.cuda.device(prec.device):
+    seed, offset = (0, 0) if eps is not None else rng.philox()
+    ptr = lambda name: None if args.get(name) is None \
+        else args[name].data_ptr()
+    with torch.cuda.device(dev):
         code = K.library().hmsc_mvn_prec_small(
-            prec.data_ptr(), rhs.data_ptr(), eps.data_ptr(), out.data_ptr(),
-            batch, P, K.stream_of(prec))
+            ptr("G"), int(form != _ELEMENT and G.shape[1] == 1), ptr("scale"),
+            int(form == _BETA_LAMBDA), ptr("rhs"), ptr("iV"), ptr("prior"),
+            ptr("Gamma"), ptr("Tr"), nc, nt, ptr("eps"), out.data_ptr(),
+            C * n, n, P, form, seed, offset, K.stream_of(rhs))
     K.check(code, "mvn_prec_small")
     K.launches["mvn_prec_small"] += 1
     return out

@@ -14,6 +14,10 @@ Some of them are kernels written by hand for Hopper (``csrc/``):
   ``csrc/gamma.cuh``, shared by both);
 - B5 :func:`poisson_z` — the Polya-Gamma Poisson Z draw, one thread per
   cell (``csrc/poisson_z.cu``);
+- B4 :func:`gamma_v` — the whole GammaV block (the species sums, the
+  Wishart draw of iV by Bartlett, Gamma | Beta, iV) in one launch, a block
+  a chain (``csrc/gamma_v.cu``), where :func:`gamma_v_route` allows; its
+  plain version is :func:`gamma_v_plain` on :func:`wishart`;
 - B7 :func:`da_intercept_draw` — the probit-DA intercept interweave's
   per-species two-sided truncated normal, with its truncation interval
   reduced over the rows and the ``Z`` shift (``csrc/truncnorm_da.cu``);
@@ -39,12 +43,14 @@ import math
 import torch
 
 from .. import kernels as K
+from .linalg import chol_spd, sample_mvn_prec
 
 __all__ = ["Rng", "truncated_normal", "truncated_normal_onesided",
            "probit_z_fused", "probit_z_geometry",
            "standard_gamma", "shrinkage_gamma", "shrinkage_geometry",
            "shrinkage_shapes", "shrinkage_update", "delta_offset",
-           "wishart", "polya_gamma", "poisson_z",
+           "wishart", "gamma_v", "gamma_v_route", "gamma_v_plain",
+           "polya_gamma", "poisson_z",
            "da_intercept_draw"]
 
 _TINY = 1e-38  # smallest safe f32 normal-ish (JAX package rand.py:18)
@@ -682,3 +688,104 @@ def wishart(df, scale_factor, rng: Rng | None = None, noise=None):
     A = torch.tril(z, -1) + torch.diag_embed(torch.sqrt(2.0 * g))
     TA = scale_factor @ A
     return TA @ TA.transpose(-1, -2)
+
+
+# ---------------------------------------------------------------------------
+# B4: the GammaV block
+# ---------------------------------------------------------------------------
+
+# the largest nc and nc nt that csrc/gamma_v.cu takes (its warps' entries,
+# and its second factorisation a thread a row on at most two warps)
+GAMMA_V_MAX_NC, GAMMA_V_MAX_N = 16, 64
+
+
+def gamma_v_route(nc: int, nt: int) -> bool:
+    """Whether the GammaV block of a model with ``nc`` covariates and ``nt``
+    traits runs as kernel B4 on the card: nc <= 16 and nc nt <= 64.  Larger
+    models take :func:`gamma_v_plain` on the card too (a route chosen by
+    size, as B2's P > 16; not a fallback on failure)."""
+    return nc <= GAMMA_V_MAX_NC and nc * nt <= GAMMA_V_MAX_N
+
+
+def gamma_v_plain(Beta, Gamma, Tr, V0, TtT, iUGamma, iUGmG, df,
+                  rng: Rng | None = None, noise=None):
+    """The GammaV block as torch ops (JAX package ``update_gamma_v``,
+    ``updaters.py:462-511``, no phylogeny, no tenants): iV ~ Wishart(df,
+    (E E' + V0)^{-1}) with E = Beta - Gamma Tr', by :func:`wishart` on
+    B3's element form, then Gamma | Beta, iV (``updaters.py:444-459``).
+    ``noise`` as for :func:`gamma_v`.  Returns (iV, Gamma)."""
+    noise = noise or {}
+    E = Beta - Gamma @ Tr.T
+    A = E @ E.transpose(1, 2)
+    Lw = chol_spd(A + V0)
+    eye = torch.eye(V0.shape[-1], dtype=A.dtype, device=A.device)
+    T = torch.linalg.solve_triangular(Lw.transpose(1, 2), eye.expand_as(Lw),
+                                      upper=True)        # T T' = (A+V0)^-1
+    iV = wishart(df, T, rng, noise.get("wishart"))
+    # Gamma | Beta, iV: precision iUGamma + kron(Tr'Tr, iV), right-hand
+    # side iUGamma mGamma + vec((iV Beta Tr)')
+    C, nc, nt = iV.shape[0], iV.shape[-1], TtT.shape[0]
+    kron = (TtT[None, :, None, :, None] * iV[:, None, :, None, :]
+            ).reshape(C, nt * nc, nt * nc)
+    t2 = (iV @ Beta) @ Tr                                # (C, nc, nt)
+    rhs = iUGmG + t2.transpose(1, 2).reshape(C, -1)
+    eps = (noise["gamma"]["eps"] if "gamma" in noise
+           else rng.normal(rhs.shape, rhs.dtype))
+    gvec = sample_mvn_prec(chol_spd(iUGamma + kron), rhs, eps)
+    return iV, gvec.reshape(C, nt, nc).transpose(1, 2)
+
+
+def gamma_v(Beta, Gamma, Tr, V0, TtT, iUGamma, iUGmG, df,
+            rng: Rng | None = None, noise=None):
+    """One GammaV update for C chains, its draws included: (iV (C, nc, nc),
+    Gamma (C, nc, nt)).  ``Beta`` (C, nc, ns), ``Gamma`` (C, nc, nt),
+    ``Tr`` (ns, nt), ``V0`` (nc, nc), ``TtT = Tr'Tr`` (nt, nt),
+    ``iUGamma`` (n, n) and ``iUGmG = iUGamma mGamma`` (n,), n = nc nt;
+    ``df = f0 + ns``.  ``noise`` injects any of ``{"wishart": {"normal":
+    (C, nc, nc), "gamma": (C, nc)}, "gamma": {"eps": (C, n)}}``; the
+    kernel draws the rest from Philox keyed by ``rng.philox()``: the unit
+    gammas at the counters :func:`standard_gamma` gives a (C, nc) array at
+    (seed, offset), the normals at offset + 1, eps at offset + 2.  On the
+    card, where :func:`gamma_v_route` holds, kernel B4; else, and on the
+    CPU, :func:`gamma_v_plain`."""
+    C, nc, ns = Beta.shape
+    nt = Tr.shape[-1]
+    if not Beta.is_cuda or not gamma_v_route(nc, nt):
+        return gamma_v_plain(Beta, Gamma, Tr, V0, TtT, iUGamma, iUGmG, df,
+                             rng, noise)
+    n = nc * nt
+    noise = noise or {}
+    nw = noise.get("wishart") or {}
+    draws = {"normal": nw.get("normal"), "gamma": nw.get("gamma"),
+             "eps": (noise.get("gamma") or {}).get("eps")}
+    args = {"Beta": Beta, "Gamma": Gamma, "Tr": Tr, "V0": V0, "TtT": TtT,
+            "iUGamma": iUGamma, "iUGmG": iUGmG, **draws}
+    shapes = {"Beta": (C, nc, ns), "Gamma": (C, nc, nt), "Tr": (ns, nt),
+              "V0": (nc, nc), "TtT": (nt, nt), "iUGamma": (n, n),
+              "iUGmG": (n,), "normal": (C, nc, nc), "gamma": (C, nc),
+              "eps": (C, n)}
+    for name, t in args.items():
+        if t is None:
+            continue
+        if (tuple(t.shape) != shapes[name] or t.device != Beta.device
+                or t.dtype != torch.float32):
+            raise ValueError(f"gamma_v: {name} must be a float32 "
+                             f"{shapes[name]} tensor on {Beta.device}")
+        args[name] = t.contiguous()
+    iV = Beta.new_empty((C, nc, nc))
+    G_out = Beta.new_empty((C, nc, nt))
+    if C == 0:
+        return iV, G_out
+    seed, offset = ((0, 0) if all(v is not None for v in draws.values())
+                    else rng.philox())
+    ptr = lambda name: None if args[name] is None else args[name].data_ptr()
+    with torch.cuda.device(Beta.device):
+        code = K.library().hmsc_gamma_v(
+            ptr("Beta"), ptr("Gamma"), ptr("Tr"), ptr("V0"), ptr("TtT"),
+            ptr("iUGamma"), ptr("iUGmG"), ptr("normal"), ptr("gamma"),
+            ptr("eps"), iV.data_ptr(), G_out.data_ptr(), C, nc, nt, ns,
+            float(df), seed, offset, (offset + 1) & 0xFFFFFFFF,
+            (offset + 2) & 0xFFFFFFFF, K.stream_of(Beta))
+    K.check(code, "gamma_v")
+    K.launches["gamma_v"] += 1
+    return iV, G_out

@@ -81,7 +81,9 @@ def main(argv=None) -> int:
     if opts.ptxas:
         ptxas_report(K, opts.names)
     checks = {
-        "mvn_prec_small": lambda: cs.check_b2(torch, linalg, dev, card),
+        "mvn_prec_small": lambda: cs.check_b2(torch, linalg, rand, dev,
+                                              card),
+        "gamma_v": lambda: cs.check_b4(torch, rand, dev, card),
         "standard_gamma": lambda: cs.check_b3(torch, rand, dev, card),
         "shrinkage_gamma": lambda: cs.check_b3_shrinkage(torch, rand, dev,
                                                          card),

@@ -4,7 +4,7 @@ serve path's conditional query from one checkout, for A/B comparisons of
 two commits on one card.
 
     python3 scripts/slice_ab.py ROOT [REPEATS]
-        [--paths headline,config3b,dense_nngp,conditional]
+        [--paths headline,na_headline,config5,config3b,dense_nngp,conditional]
 
 Imports ``hmsc_tpu_torch`` and ``chip_smoke`` from the checkout at ROOT
 (this repository, or an older commit unpacked with ``git archive``) and
@@ -12,7 +12,9 @@ prints one JSON line with the card and, for each path asked for (the
 headline, config 3b and the conditional query by default):
 
 - the headline (``chip_smoke.HEADLINE``: 1000 x 1000 probit, nf_max 8, 4
-  chains, 10 + 200 sweeps), config 3b (NNGP, np 1000, the CG Eta draw;
+  chains, 10 + 200 sweeps), the headline with 10% of Y missing
+  (``chip_smoke.NA_HEADLINE``, 10 + 50 sweeps, as chip_smoke makes it),
+  BASELINE.md config 5 (``chip_smoke.CONFIG5``), config 3b (NNGP, np 1000, the CG Eta draw;
   ``chip_smoke.CONFIG3``) and the dense NNGP path (its generator at np 100,
   the dense Eta draw on kernel B8c): samples/s of REPEATS fits (default 2)
   after a warm-up fit, their kernel launches, and a torch.profiler window
@@ -179,6 +181,21 @@ def main() -> int:
         out["config3b"]["cg_loop_mean"] = float(np.mean(
             post.cg_iterations["loop"]))
         out["config3b"]["quad_wrapper_host_us"] = quad_wrapper_us(torch, cs)
+    if "config5" in paths:
+        c5 = cs.CONFIG5
+        out["config5"], _ = sampler_path(
+            torch, cs, ht, K, cs.config5_model(ht), c5["n_chains"],
+            c5["samples"], c5["transient"], c5["seed"], c5["nf"], repeats)
+    if "na_headline" in paths:
+        na = cs.NA_HEADLINE
+        X, Y, _ = cs.simulate_probit(na["ny"], na["ns"],
+                                     seed=cs.HEADLINE_DATA_SEED)
+        Y[np.random.default_rng(7).uniform(size=Y.shape)
+          < na["na_share"]] = np.nan
+        m = cs.probit_model(ht, X, Y, nf=na["nf"])
+        out["na_headline"], _ = sampler_path(
+            torch, cs, ht, K, m, na["n_chains"], na["samples"],
+            na["transient"], 1, na["nf"], repeats)
     if "dense_nngp" in paths:
         c = cs.CONFIG3["dense_nngp"]
         m = cs.config3_model(ht, "dense_nngp")

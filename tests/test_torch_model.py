@@ -150,6 +150,13 @@ def test_spec_data_state_match_jax(kind):
         elif f.name in ("x_intercept_ind", "tr_intercept_ind", "x_ones_ind"):
             ref = getattr(data_j, f.name)
             assert v == (None if ref is None else int(ref)), f.name
+        elif f.name in ("TtT", "iUGmG"):
+            # the GammaV block's constants, formed from the JAX fields
+            Tr, iU, mG = (flat[k].astype(np.float32)
+                          for k in ("Tr", "iUGamma", "mGamma"))
+            ref = Tr.T @ Tr if f.name == "TtT" else iU @ mG
+            np.testing.assert_allclose(v.numpy(), ref, rtol=1e-6,
+                                       atol=1e-6, err_msg=f.name)
         else:
             np.testing.assert_array_equal(v.numpy(), flat[f.name],
                                           err_msg=f.name)
