@@ -50,7 +50,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    systems NaN on both sides, bit-identical reruns, the law of its
    in-kernel eps, each timed beside the draw as the sampler ran it before
    (the assembly's torch ops and B2's first version,
-   scripts/older/mvn_prec_small.cu, built here).
+   scripts/older/mvn_prec_small.cu, built here); B3's shrinkage form at
+   the cluster size the card's occupancy query allows and at 8 blocks, to
+   the same bits; B5, one kernel for the whole Z update (normal, probit,
+   Poisson cells and imputation), through poisson_z (the Poisson columns
+   alone) and z_mixed against their plain versions with injected draws
+   (1e-4; probit cells 1e-4 sd plus a slack for s near 1, capped at 1e-3
+   sd, and against a float64 draw, B1 held the same on these cells),
+   non-finite draws keeping Zprev, bit-identical reruns, the law of the
+   in-kernel draws a column at a time, timed beside B5's first version
+   (scripts/older/poisson_z.cu) and the Z block as the sampler ran it
+   before; B9c (a radix select of
+   the wanted ranks) exactly equal to its plain version at 1 to 40000
+   draws with ties, +-inf, -0.0 beside +0.0 and NaN columns, timed beside
+   its first version (scripts/older/serve_quantile.cu).
 3. Times: each kernel's device time per launch (torch.profiler, after
    warm-up) beside its plain version's device time per call, the one-call
    PyTorch yardstick where there is one, and the least time the card could
@@ -77,7 +90,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
       mean < 1.5 (C3);
    b. config 5 of BASELINE.md at its published size: 300 x 90, normal /
       probit / lognormal-Poisson columns, nf 2, 4 chains, 125 + 250 sweeps
-      (B1's E-reading form, B2, B3, B4, B5);
+      (B5's mixed form, the whole Z update in one launch, B2, B3, B4);
    c. the headline with 10% of Y missing, 10 + 50 sweeps (B1-B3, B6);
    d. the headline with the probit-DA intercept interweave on
       (``updater={"InterweaveDA": True}``), 10 + 50 sweeps (B1-B3, B7);
@@ -97,7 +110,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
       conditional query that must beat the marginal Brier score on
       held-out species, 64 concurrent queries coalesced, random query
       sizes and an epoch flip with no plan built, one HTTP query; every
-      sampler kernel 0 launches; latencies printed.
+      sampler kernel 0 launches; latencies printed (the 64-row quantile
+      query's p50 and p99 over 20 queries among them).
    The spatial paths must also recover the posterior mean of the GP range
    (alpha) within a stated margin of the JAX package's own value; and the
    alpha sampler, given an Eta drawn at an interior range on the 3a, 3b and
@@ -112,6 +126,7 @@ and a CUDA card, and exits non-zero without either.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -580,8 +595,10 @@ def check_b1(torch, trand, dev, card):
     injected uniforms at the headline's and config 3b's shapes, the fused
     form against the E-reading one on the same uniforms and on the same
     in-kernel Philox stream, each form's in-kernel draws by moments; then
-    both forms' times at each shape.  Returns both kernels' numbers at the
-    headline shape."""
+    both forms' times at each shape; last the E-reading form on the probit
+    cells of B5's mixed-form inputs, where s = u P(W > t) nears 1, by
+    ``_probit_gate``.  Returns both kernels' numbers at the headline
+    shape."""
     res = {}
     for label, sh in B1_SHAPES:
         C, ny, ns, nc, npr, nf = (sh[k] for k in ("C", "ny", "ns", "nc",
@@ -656,6 +673,24 @@ def check_b1(torch, trand, dev, card):
             else:
                 res[name][f"{label}_ms"] = ms
                 res[name][f"{label}_bound_ms"] = b
+    # the probit cells of check_b5's mixed-form inputs at the headline's
+    # shape, where s = u P(W > t) comes within ~1e-6 of 1 and the
+    # quantile's slope is steep: the E-reading form held as check_b5 holds
+    # the mixed form's probit cells there
+    args, nz = mixed_inputs(torch, dev, HEADLINE["n_chains"], HEADLINE["ny"],
+                            HEADLINE["ns"], seed=9, na=0.1)
+    Y, _, E, iSigma, fam, _ = args
+    pc = fam == 2
+    E, Y, u = (E[..., pc].contiguous(), Y[:, pc].contiguous(),
+               nz["u"][..., pc].contiguous())
+    std = (iSigma[:, pc] ** -0.5).contiguous()
+    zk = trand.truncated_normal_onesided(E, std, Y, u=u)
+    zp = trand._truncated_normal_onesided_plain(E, std, Y, u)
+    line = _probit_gate(torch, "B1 the mixed form's probit cells", zk, zp,
+                        E, std[:, None, :].expand_as(zk), Y, u,
+                        torch.ones_like(zk, dtype=torch.bool))
+    print(f"B1 check at the mixed form's probit cells (C {E.shape[0]}, ny "
+          f"{E.shape[1]}, {E.shape[2]} columns), injected uniforms: {line}")
     return res
 
 
@@ -964,9 +999,24 @@ def check_b3(torch, trand, dev, card):
           f"{plain_ms:.4f} ms, torch._standard_gamma {lib_ms:.5f} ms, bound "
           f"{b:.5f} ms by {by}; held stream {held:.5f} ms, with enqueue "
           f"{ev:.4f} ms, plain {plain_ev:.4f} ms) at {m} shapes [{card}]")
+    # config 5's launches: InvSigma's draw at (C, ns) = 4 x 90 shapes each
+    # sweep, Nf's at (C, 1) in burn-in
+    small = {}
+    for shape in ((C, CONFIG5["ns"]), (C, 1)):
+        a5 = torch.full(shape, 46.0, device=dev)
+        t5 = device_ms(torch, lambda: trand.standard_gamma(a5, rng),
+                       "standard_gamma_kernel")
+        ev5 = event_ms(torch, lambda: trand.standard_gamma(a5, rng))
+        m5 = a5.numel()
+        b5, _ = bound_ms(8.0 * m5, 180.0 * m5)
+        small[f"{shape[0]}x{shape[1]}"] = dict(ms=t5, event_ms=ev5,
+                                               bound_ms=b5)
+        print(f"B3 standard_gamma device time at config 5's {shape} "
+              f"shapes: {t5:.5f} ms (bound {b5:.7f} ms; with enqueue "
+              f"{ev5:.4f} ms) [{card}]")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by, library_ms=lib_ms, event_ms=ev,
-                plain_event_ms=plain_ev, held_ms=held)
+                plain_event_ms=plain_ev, held_ms=held, config5=small)
 
 
 class FixedPhilox:
@@ -1025,6 +1075,20 @@ def _delta_units(torch, trand, Lam, mask, Delta, prior, Psi, Dout):
     return gd[act], ad.double()[act]
 
 
+@contextlib.contextmanager
+def shrinkage_cluster(trand, S):
+    """B3's shrinkage form launched with clusters of at most ``S`` blocks:
+    the wrapper's launch shape (``shrinkage_launch``) overridden, as
+    ``scripts/shrinkage_sweep.py`` overrides it."""
+    base = trand.shrinkage_launch
+    trand.shrinkage_launch = (
+        lambda dev, nf, ns, ncr: trand.shrinkage_geometry(nf, ns, ncr, S))
+    try:
+        yield
+    finally:
+        trand.shrinkage_launch = base
+
+
 def check_b3_shrinkage(torch, trand, dev, card):
     """B3's shrinkage form (a level's whole update in one launch) against
     the plain update (``shrinkage_update``) fed with the element form's own
@@ -1045,6 +1109,12 @@ def check_b3_shrinkage(torch, trand, dev, card):
         seed, off = 0x5EED + ns, 1000 + nf
         Pk, Dk = trand.shrinkage_gamma(Lam, mask, Delta, *prior,
                                        FixedPhilox(seed, off))
+        # at most 8 blocks a cluster (the portable size): the same bits
+        with shrinkage_cluster(trand, 8):
+            P8, D8 = trand.shrinkage_gamma(Lam, mask, Delta, *prior,
+                                           FixedPhilox(seed, off))
+        assert torch_equal_bits(Pk, P8) and torch_equal_bits(Dk, D8), \
+            f"B3 shrinkage nf {nf} ns {ns}: 8-block clusters differ"
         a_psi, ad = trand.shrinkage_shapes(mask, *prior[:2], prior[3], ns)
         g_psi = trand.standard_gamma(a_psi.expand(Lam.shape).contiguous(),
                                      FixedPhilox(seed, off))
@@ -1064,12 +1134,15 @@ def check_b3_shrinkage(torch, trand, dev, card):
             f"B3 shrinkage nf {nf} ns {ns}: a rerun gave other bits"
         worst = max(worst, float((Pk - Pp).abs().max()),
                     float((Dk - Dp).abs().max()))
-        geo = trand.shrinkage_geometry(nf, ns, 1)
+        geo = trand.shrinkage_launch(dev, nf, ns, 1)
+        g8 = trand.shrinkage_geometry(nf, ns, 1, 8)
         print(f"B3 shrinkage check C {C}, nf {nf}, ns {ns} (clusters of "
-              f"{geo['S']} x {geo['T']} threads, {geo['P']} pieces a row): "
-              f"max relative |kernel - plain| on Psi and Delta {rel:.3g} "
-              f"(1e-5) from the element form's draws at the same counters; a "
-              f"rerun gives the same bits")
+              f"{geo['S']} x {geo['T']} threads, the size the occupancy "
+              f"query allows, {geo['P']} pieces a row): max relative "
+              f"|kernel - plain| on Psi and Delta {rel:.3g} (1e-5) from the "
+              f"element form's draws at the same counters; a rerun gives "
+              f"the same bits, and so do clusters of {g8['S']} x "
+              f"{g8['T']} threads")
     # the law: psi's unit draws (Psi b_psi) and delta's (recovered), as
     # their gamma CDFs, kernel against the plain version over many launches
     nf, ns = HEADLINE["nf"], HEADLINE["ns"]
@@ -1120,6 +1193,9 @@ def check_b3_shrinkage(torch, trand, dev, card):
                                    ad[:, h].contiguous(), rng))
 
     ms = device_ms(torch, kern, "shrinkage_gamma_kernel")
+    with shrinkage_cluster(trand, 8):
+        ms8 = device_ms(torch, kern, "shrinkage_gamma_kernel")
+    geo = trand.shrinkage_launch(dev, nf, ns, 1)
     plain_ms = device_ms(torch, plain, calls=10)
     before_ms = device_ms(torch, before, calls=20)
     ev, plain_ev = event_ms(torch, kern), event_ms(torch, plain, batch=5)
@@ -1132,15 +1208,17 @@ def check_b3_shrinkage(torch, trand, dev, card):
     b, by = bound_ms(8.0 * m + 4.0 * (2 * C * nf + C * nf + 5),
                      180.0 * (m + C * nf))
     print(f"B3 shrinkage_gamma device time at C {C}, nf {nf}, ns {ns}: "
-          f"{ms:.5f} ms (the block as the sampler ran it before: "
+          f"{ms:.5f} ms with the queried clusters of {geo['S']} blocks "
+          f"({ms8:.5f} ms at 8; the block as the sampler ran it before: "
           f"{before_ms:.5f} ms of device work, with enqueue {before_ev:.4f} "
           f"ms; plain {plain_ms:.4f} ms, bound {b:.6f} ms by {by}; held "
           f"stream {held:.5f} ms, with enqueue {ev:.4f} ms, plain "
-          f"{plain_ev:.4f} ms) [{card}]")
+          f"{plain_ev:.4f} ms)) [{card}]")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by, library_ms=None, event_ms=ev,
                 plain_event_ms=plain_ev, held_ms=held,
-                before_ms=before_ms, before_event_ms=before_ev)
+                before_ms=before_ms, before_event_ms=before_ev,
+                cluster=geo["S"], ms_cluster8=ms8)
 
 
 # B4's shapes (nc, nt, ns): the headline's, a model with traits, and the
@@ -1361,74 +1439,360 @@ def poisson_inputs(torch, dev, C, ny, ns, seed):
     return Y, Zprev, E, iSigma, fam, eps[0], eps[1]
 
 
+def first_b5(torch, lib, Y, Zprev, E, iSigma, fam, seed, offset):
+    """B5's first version on the card (``scripts/older/poisson_z.cu``, one
+    thread a cell), its normals from Philox: Z (C, ny, ns)."""
+    import ctypes
+
+    C, ny, ns = Zprev.shape
+    fn = lib.hmsc_poisson_z
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+        ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_void_p]
+    Z = torch.empty_like(Zprev)
+    code = fn(Y.data_ptr(), Zprev.data_ptr(), E.data_ptr(), iSigma.data_ptr(),
+              fam.data_ptr(), None, None, Z.data_ptr(), C, ny, ns, seed,
+              offset, torch.cuda.current_stream().cuda_stream)
+    assert code == 0, f"B5 first version: cudaError {code}"
+    return Z
+
+
+def config5_families(torch, dev, ns=None):
+    """Config 5's column families: a third each normal, probit and
+    lognormal-Poisson, in that order."""
+    ns = CONFIG5["ns"] if ns is None else ns
+    fam = torch.full((ns,), 1, dtype=torch.int32, device=dev)
+    fam[ns // 3:2 * ns // 3], fam[2 * ns // 3:] = 2, 3
+    return fam
+
+
+def mixed_inputs(torch, dev, C, ny, ns, seed, na=0.0):
+    """B5's mixed form's inputs: poisson_inputs with config 5's families
+    (normal columns' Y continuous, probit's 0 / 1), iSigma 1 on probit
+    columns, a mask with ``na`` of the cells missing (None at 0), and the
+    four injected draws."""
+    Y, Zprev, E, iSigma, _, e1, e2 = poisson_inputs(torch, dev, C, ny, ns,
+                                                    seed)
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    fam = config5_families(torch, dev, ns)
+    Y = torch.where(fam == 1, torch.randn((ny, ns), generator=g,
+                                          device=dev), Y)
+    Y = torch.where(fam == 2, (Y > 5).float(), Y)
+    iSigma = torch.where(fam == 2, 1.0, iSigma)
+    mask = None
+    if na:
+        mask = (torch.rand((ny, ns), generator=g, device=dev) >= na).float()
+    u = torch.rand((C, ny, ns), generator=g, device=dev).clamp_min(1e-38)
+    en = torch.randn((C, ny, ns), generator=g, device=dev)
+    return (Y, Zprev, E, iSigma, fam, mask), dict(u=u, eps_pg=e1, eps_z=e2,
+                                                  eps_na=en)
+
+
+def _z_block_before(torch, trand, first, Y, Zprev, E, iSigma, fam, mask,
+                    rng):
+    """The Z block of a model with Poisson columns as the sampler ran it
+    before the mixed form: the torch ops selecting and imputing, B1's
+    E-reading form and B5's first version."""
+    Z = torch.where(fam == 1, Y, Zprev)
+    std = iSigma ** -0.5
+    z_tn = trand.truncated_normal_onesided(E, std, Y, rng)
+    Z = torch.where(fam == 2, z_tn, Z)
+    z_p = first_b5(torch, first, Y, Zprev, E, iSigma, fam, *rng.philox())
+    Z = torch.where(fam == 3, z_p, Z)
+    if mask is not None:
+        eps = rng.normal(E.shape)
+        Z = torch.where(mask > 0, Z, E + std[:, None, :] * eps)
+    return Z
+
+
+def torch_equal_bits(a, b):
+    """Whether two float32 tensors hold the same bits."""
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _probit_slack(torch, E, sd, Y, u):
+    """Per cell, in sd units: 8 float32 ulps of the survival probability s
+    = u P(W > t) of the one-sided truncated normal's inverse-CDF branch
+    times the quantile's slope 1 / phi(ndtri(s)) (float64 on the host; 0
+    on the far-tail branch), as ``_b7_quantile_slack`` for B7."""
+    from scipy.special import ndtr, ndtri
+
+    dev = u.device
+    E, sd, Y, u = (x.double().cpu().numpy() for x in (E, sd, Y, u))
+    with np.errstate(invalid="ignore", over="ignore", divide="ignore"):
+        t = -E / sd
+        t = np.where(Y > 0.5, t, -t)
+        s = np.clip(u * ndtr(-t), 1e-30, 1 - 2.0 ** -24)
+        x = ndtri(s)
+        slack = 8 * 2.0 ** -23 * s * np.sqrt(2 * np.pi) * np.exp(x * x / 2)
+    slack = np.where(t > 9.0, 0.0, np.nan_to_num(slack, posinf=1e30))
+    return torch.tensor(np.minimum(slack, PROBIT_SLACK_CAP),
+                        dtype=torch.float32, device=dev)
+
+
+# the most ``_probit_slack`` adds to a probit cell's 1e-4 sd, in sd units
+PROBIT_SLACK_CAP = 1e-3
+
+
+def _probit_f64(torch, E, sd, Y, u):
+    """The one-sided truncated normal draw of the plain version on the
+    same float32 inputs, evaluated in float64 on the host (its clip of s
+    to [1e-30, 1 - 2^-24] and its far tail included)."""
+    from scipy.special import ndtr, ndtri
+
+    E, sd, Y, u = (x.double().cpu().numpy() for x in (E, sd, Y, u))
+    with np.errstate(invalid="ignore", over="ignore", divide="ignore"):
+        t = -E / sd
+        t = np.where(Y > 0.5, t, -t)
+        x = -ndtri(np.clip(u * ndtr(-t), 1e-30, 1 - 2.0 ** -24))
+        x_far = t - np.log1p(-u) / np.maximum(t, 1.0)
+        x = np.maximum(np.where(t > 9.0, x_far, x), t)
+        return E + sd * np.where(Y > 0.5, x, -x)
+
+
+def _probit_gate(torch, label, zk, zp, E, sd, Y, u, cells):
+    """Probit cells of a kernel's draw ``zk`` against the plain version's
+    ``zp`` (all (C, ny, ns); ``cells`` a bool mask that broadcasts to
+    them): |kernel - plain| / sd within 1e-4 plus ``_probit_slack`` (8
+    float32 ulps of s through the quantile's slope, at most
+    ``PROBIT_SLACK_CAP``), and the kernel within the same of the float64
+    draw.  Returns a line that counts the cells past 1e-4 sd and says how
+    far kernel and plain lie from the float64 draw there."""
+    cells = cells.expand_as(zk)
+    tol = 1e-4 + _probit_slack(torch, E, sd, Y, u)
+    d = (zk - zp).abs() / sd
+    z64 = _probit_f64(torch, E, sd, Y, u)
+    sd64 = sd.double().cpu().numpy()
+    dk64 = np.abs(zk.double().cpu().numpy() - z64) / sd64
+    dp64 = np.abs(zp.double().cpu().numpy() - z64) / sd64
+    m = cells.cpu().numpy()
+    used = (d / tol)[cells].max().item()
+    used64 = (dk64 / tol.double().cpu().numpy())[m].max()
+    assert used <= 1.0 and used64 <= 1.0, \
+        f"{label}: probit cells at {used:.3g} of their tolerance against " \
+        f"the plain version, {used64:.3g} against the float64 draw"
+    past = (d > 1e-4) & cells
+    n_past = int(past.sum())
+    pm = past.cpu().numpy()
+    far = (f"; there kernel and plain lie {dk64[pm].max():.3g} and "
+           f"{dp64[pm].max():.3g} sd from the float64 draw"
+           if n_past else "")
+    return (f"probit cells at {used:.3g} of their tolerance (1e-4 sd plus "
+            f"8 ulps of s, capped at {PROBIT_SLACK_CAP:g} sd), "
+            f"{used64:.3g} against the float64 draw; {n_past} of "
+            f"{int(cells.sum())} cells past 1e-4 sd of the plain version "
+            f"(max {d[cells].max().item():.3g} sd){far}")
+
+
+def _column_law(label, torch, kern, plain, keep, reps):
+    """The law of a form's in-kernel draws: per column, the mean and
+    variance of Z over ``reps`` calls and the column's cells where
+    ``keep`` (C, ny, ns), kernel against the plain version's, within 4
+    standard errors (``_moments_agree``).  Returns the columns checked."""
+    ks = torch.stack([kern() for _ in range(reps)])
+    ps = torch.stack([plain() for _ in range(reps)])
+    done = 0
+    for j in range(ks.shape[-1]):
+        m = keep[..., j].expand(reps, *keep.shape[:2])
+        a, b = ks[..., j][m], ps[..., j][m]
+        if a.numel() == 0 or float(b.var()) == 0.0:
+            continue
+        _moments_agree(f"{label} column {j}", a, b)
+        done += 1
+    return done
+
+
 def check_b5(torch, trand, dev, card):
+    """B5, one kernel (the whole Z update), through both wrappers:
+    ``poisson_z`` (the Poisson columns alone, the others kept) and
+    ``z_mixed`` (every column, with missing cells), against their plain
+    versions with injected draws (1e-4 relative to max(|plain|, 1);
+    probit cells by ``_probit_gate``), the NaN guard (a cell whose draw is
+    not finite keeps Zprev), bit-identical reruns from one Philox key, the
+    law of the in-kernel draws (each column's mean and variance against
+    the plain version's over 300 calls, 4 SE); timed at 4 x 1000 x 1000,
+    every column Poisson, beside B5's first version
+    (``scripts/older/poisson_z.cu``), and at config 5's shape beside the Z
+    block as the sampler ran it before."""
     C, ny, ns = HEADLINE["n_chains"], HEADLINE["ny"], HEADLINE["ns"]
+    n5, s5 = CONFIG5["ny"], CONFIG5["ns"]
+    first = build_source("scripts/older/poisson_z.cu", "poisson_z_first")
     worst = 0.0
-    for shape in ((C, CONFIG5["ny"], CONFIG5["ns"]), (C, ny, ns)):
+    for shape in ((C, n5, s5), (C, ny, ns), (C, 37, 30)):
         Y, Zprev, E, iSigma, fam, e1, e2 = poisson_inputs(torch, dev, *shape,
                                                           seed=5)
+        E = E.clone()
+        E[:, 6, ::3] = float("inf")            # draws that are not finite
         zk = trand.poisson_z(Y, Zprev, E, iSigma, fam, eps_pg=e1, eps_z=e2)
         zp = trand._poisson_z_plain(Y, Zprev, E, iSigma, fam, e1, e2)
         assert torch.isfinite(zk).all(), "B5: non-finite draws"
         assert torch.equal(zk[..., fam != 3], Zprev[..., fam != 3]), \
             "B5: a non-Poisson column changed"
+        assert torch.equal(zk[:, 6, ::3], Zprev[:, 6, ::3]), "B5: NaN guard"
         err = ((zk - zp).abs() / zp.abs().clamp_min(1.0)).max().item()
         assert err <= 1e-4, f"B5 injected normals: rel diff {err} > 1e-4"
         worst = max(worst, (zk - zp).abs().max().item())
+        key = FixedPhilox(0x5EED + shape[1], 77)
+        r1 = trand.poisson_z(Y, Zprev, E, iSigma, fam, key)
+        r2 = trand.poisson_z(Y, Zprev, E, iSigma, fam, key)
+        assert torch_equal_bits(r1, r2), "B5: a rerun gave other bits"
         print(f"B5 check: injected normals at {shape}, max |kernel - plain| "
-              f"/ max(|plain|, 1) = {err:.3g} (tolerance 1e-4)")
+              f"/ max(|plain|, 1) = {err:.3g} (tolerance 1e-4); non-finite "
+              f"draws keep Zprev; a rerun gives the same bits")
+    # the mixed form: config 5's families, with and without missing cells
+    for shape, na in (((C, n5, s5), 0.0), ((C, n5, s5), 0.1),
+                      ((C, ny, ns), 0.1), ((C, 37, 30), 0.1)):
+        args, nz = mixed_inputs(torch, dev, *shape, seed=9, na=na)
+        Y, Zprev, E, iSigma, fam, mask = args
+        obs = (mask > 0 if mask is not None else torch.ones_like(Y) > 0)
+        guard = ((fam == 3) & obs[6]
+                 & (torch.arange(shape[2], device=dev) % 3 == 0))
+        E = E.clone()                         # Poisson draws not finite
+        E[:, 6, guard] = float("inf")
+        args = (Y, Zprev, E, iSigma, fam, mask)
+        zk = trand.z_mixed(*args, **nz)
+        zp = trand._z_mixed_plain(*args, **nz)
+        assert guard.any() and torch.equal(zk[:, 6][:, guard],
+                                           Zprev[:, 6][:, guard]), \
+            "B5 mixed: NaN guard"
+        assert torch.isfinite(zk).all(), "B5 mixed: non-finite draws"
+        # probit cells: B1's draw (bit for bit B1's E-reading kernel on the
+        # same uniforms), held as check_b1 holds it on these cells
+        # (``_probit_gate``: near s -> 1 kernel and plain round s apart);
+        # every other cell to 1e-4 of max(|plain|, 1)
+        sd = (iSigma ** -0.5)[:, None, :].expand_as(zk)
+        prob = (fam == 2) & obs
+        zb = trand.truncated_normal_onesided(E, iSigma ** -0.5, Y,
+                                             u=nz["u"])
+        assert torch_equal_bits(zk[:, prob], zb[:, prob]), \
+            "B5 mixed: probit cells differ from B1's E-reading form"
+        probit_line = _probit_gate(torch, f"B5 mixed {shape} na {na}", zk,
+                                   zp, E, sd, Y, nz["u"], prob)
+        other = ~prob.expand_as(zk)
+        err = ((zk - zp).abs() / zp.abs().clamp_min(1.0))[other].max().item()
+        assert err <= 1e-4, f"B5 mixed {shape} na {na}: rel diff {err}"
+        worst = max(worst, (zk - zp).abs()[other].max().item())
+        key = FixedPhilox(0x5EED + shape[1], 78)
+        r1 = trand.z_mixed(*args, key)
+        r2 = trand.z_mixed(*args, key)
+        assert torch_equal_bits(r1, r2), "B5 mixed: a rerun gave other bits"
+        # its Poisson cells draw what poisson_z (the other columns kept)
+        # draws at one key
+        if mask is None:
+            re = trand.poisson_z(Y, Zprev, E, iSigma, fam, key)
+            assert torch_equal_bits(r1[..., fam == 3], re[..., fam == 3]), \
+                "B5 mixed: Poisson cells differ from poisson_z's"
+        print(f"B5 mixed form check at {shape}, {na:.0%} missing, with u, "
+              f"eps_pg, eps_z, eps_na injected: max |kernel - plain| / "
+              f"max(|plain|, 1) = {err:.3g} (tolerance 1e-4) on normal, "
+              f"Poisson and imputed cells; probit cells bit for bit B1's, "
+              f"{probit_line}; non-finite draws keep Zprev; a rerun gives "
+              f"the same bits"
+              + ("" if mask is not None else "; its Poisson cells equal "
+                 "poisson_z's at one key"))
+    # the law of the in-kernel draws, a column at a time
+    Y, Zprev, E, iSigma, fam, _, _ = poisson_inputs(torch, dev, C, 64, 32,
+                                                    seed=7)
     rng = trand.Rng(13, dev)
-    zk = trand.poisson_z(Y, Zprev, E, iSigma, fam, rng)
-    zp = trand._poisson_z_plain(Y, Zprev, E, iSigma, fam,
-                                rng.normal(E.shape), rng.normal(E.shape))
-    pois = (fam == 3).expand_as(E)
-    for label, cls in (("Y=0", Y == 0), ("Y>0", Y > 0)):
-        m = cls.expand_as(E) & pois
-        print(f"B5 check: in-kernel Philox, {label}: "
-              + _moments_agree(f"B5 Philox {label}", zk[m], zp[m]))
+    cols = _column_law(
+        "B5 law", torch, lambda: trand.poisson_z(Y, Zprev, E, iSigma, fam,
+                                                 rng),
+        lambda: trand._poisson_z_plain(Y, Zprev, E, iSigma, fam,
+                                       rng.normal(E.shape),
+                                       rng.normal(E.shape)),
+        (fam == 3).expand(C, 64, 32), 300)
+    args, _ = mixed_inputs(torch, dev, C, 64, 30, seed=8, na=0.1)
+    Ym, Zm, Em, iSm, fm, mk = args
+    cols_m = _column_law(
+        "B5 mixed law", torch, lambda: trand.z_mixed(*args, rng),
+        lambda: trand._z_mixed_plain(
+            *args, rng.uniform(Em.shape), rng.normal(Em.shape),
+            rng.normal(Em.shape), rng.normal(Em.shape)),
+        torch.ones_like(Zm) > 0, 300)
+    print(f"B5 law of the in-kernel draws: each column's mean and variance "
+          f"over 300 calls within 4 SE of the plain version's ({cols} "
+          f"Poisson columns; mixed form {cols_m} columns: probit, Poisson "
+          f"and imputed cells) [{card}]")
 
-    fam3 = torch.full_like(fam, 3)            # timed with every column Poisson
+    Y, Zprev, E, iSigma, fam, e1, e2 = poisson_inputs(torch, dev, C, ny, ns,
+                                                      seed=5)
+    # timed as a Poisson-only model runs it: the whole Z update, every
+    # column Poisson, no missing cells
+    fam3 = torch.full_like(fam, 3)
 
     def kern():
-        trand.poisson_z(Y, Zprev, E, iSigma, fam3, rng)
+        trand.z_mixed(Y, Zprev, E, iSigma, fam3, None, rng)
 
     def plain():
-        trand._poisson_z_plain(Y, Zprev, E, iSigma, fam3,
-                               rng.normal(E.shape), rng.normal(E.shape))
+        trand._z_mixed_plain(Y, Zprev, E, iSigma, fam3, None, None,
+                             rng.normal(E.shape), rng.normal(E.shape), None)
+
+    def first_v():
+        first_b5(torch, first, Y, Zprev, E, iSigma, fam3, *rng.philox())
 
     ms = device_ms(torch, kern, "poisson_z_kernel")
+    first_ms = device_ms(torch, first_v, "poisson_z_kernel")
     plain_ms = device_ms(torch, plain, calls=10)
     ev, plain_ev = event_ms(torch, kern), event_ms(torch, plain, batch=5)
     held = held_event_ms(torch, kern)
     cells = C * ny * ns
     # bytes: Zprev, E and Z per cell, Y per site x species, iSigma per chain
-    # x species, fam per species; operations: ~150 per cell (a Philox call,
-    # two Box-Muller normals, tanhf, the PG moments and the Gaussian draw)
+    # x species, fam per species; operations: ~150 per cell (a Philox call
+    # a pair of cells, two Box-Muller normals, tanhf, the PG moments and the
+    # Gaussian draw)
     b, by = bound_ms(4.0 * (3 * cells + ny * ns + C * ns + ns), 150.0 * cells)
-    print(f"B5 poisson_z device time: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-          f"bound {b:.4f} ms by {by}; held stream {held:.5f} ms, with "
-          f"enqueue {ev:.4f} ms, plain {plain_ev:.4f} ms) at {C}x{ny}x{ns}, "
-          f"every column Poisson [{card}]")
+    print(f"B5 device time of the whole Z update at {C}x{ny}x{ns}, every "
+          f"column Poisson: {ms:.5f} ms (first version {first_ms:.5f} ms in "
+          f"this call; plain {plain_ms:.4f} ms, bound {b:.4f} ms by {by}; "
+          f"held stream {held:.5f} ms, with enqueue {ev:.4f} ms, plain "
+          f"{plain_ev:.4f} ms) [{card}]")
     # config 5's own shape, the path B5 runs on: 300 x 90, its last 30
-    # columns lognormal-Poisson (the bound counts those cells)
-    n5, s5 = CONFIG5["ny"], CONFIG5["ns"]
+    # columns lognormal-Poisson; poisson_z draws those alone (the bound
+    # counts their cells), the sampler's launch every column
     Y5, Z5, E5, iS5, _, _, _ = poisson_inputs(torch, dev, C, n5, s5, seed=6)
-    fam5 = torch.full((s5,), 1, dtype=torch.int32, device=dev)
-    fam5[30:60], fam5[60:] = 2, 3
+    fam5 = config5_families(torch, dev)
 
     def kern5():
         trand.poisson_z(Y5, Z5, E5, iS5, fam5, rng)
 
+    def first5():
+        first_b5(torch, first, Y5, Z5, E5, iS5, fam5, *rng.philox())
+
+    def mixed5():
+        trand.z_mixed(Y5, Z5, E5, iS5, fam5, None, rng)
+
+    def before5():
+        _z_block_before(torch, trand, first, Y5, Z5, E5, iS5, fam5, None,
+                        rng)
+
     ms5 = device_ms(torch, kern5, "poisson_z_kernel")
+    first5_ms = device_ms(torch, first5, "poisson_z_kernel")
+    mixed_ms = device_ms(torch, mixed5, "poisson_z_kernel")
+    before_ms = device_ms(torch, before5, calls=20)
+    mixed_ev, before_ev = event_ms(torch, mixed5), event_ms(torch, before5)
     pc = C * n5 * int((fam5 == 3).sum())
     b5, by5 = bound_ms(4.0 * (3 * pc + n5 * s5 + C * s5 + s5), 150.0 * pc)
-    print(f"B5 poisson_z device time at config 5's shape {C}x{n5}x{s5}, 30 "
-          f"columns Poisson: {ms5:.5f} ms (bound {b5:.6f} ms by {by5}) "
+    c5 = C * n5 * s5
+    bm, bym = bound_ms(4.0 * (3 * c5 + n5 * s5 + C * s5 + s5), 150.0 * c5)
+    print(f"B5 at config 5's shape {C}x{n5}x{s5}: the whole Z update (the "
+          f"sampler's launch) {mixed_ms:.5f} ms (bound {bm:.6f} ms by {bym}),"
+          f" with enqueue {mixed_ev:.4f} ms, against the Z block as the "
+          f"sampler ran it before (B1, B5's first version, the torch ops) "
+          f"{before_ms:.5f} ms of device work, with enqueue {before_ev:.4f} "
+          f"ms; poisson_z, its 30 Poisson columns alone, {ms5:.5f} ms "
+          f"(first version {first5_ms:.5f} ms; bound {b5:.6f} ms by {by5}) "
           f"[{card}]")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by, library_ms=None, event_ms=ev,
                 plain_event_ms=plain_ev, held_ms=held, shape=[C, ny, ns],
-                config5_ms=ms5, config5_bound_ms=b5)
+                first_ms=first_ms, config5_ms=mixed_ms,
+                config5_bound_ms=bm, config5_event_ms=mixed_ev,
+                config5_before_ms=before_ms,
+                config5_before_event_ms=before_ev,
+                config5_poisson_ms=ms5, config5_poisson_first_ms=first5_ms,
+                config5_poisson_bound_ms=b5)
 
 
 def gram_inputs(torch, dev, C, ny, ns, P, seed):
@@ -2020,8 +2384,9 @@ def build_source(path, tag):
     src = pathlib.Path(__file__).resolve().parent / path
     out = K._build_dir() / f"{tag}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run([K._nvcc(), *K._FLAGS, "-shared", str(src), "-o",
-                    str(out)], check=True, capture_output=True, timeout=600)
+    subprocess.run([K._nvcc(), *K._FLAGS, "-shared", "-I", str(K._CSRC),
+                    str(src), "-o", str(out)], check=True,
+                   capture_output=True, timeout=600)
     return ctypes.CDLL(str(out))
 
 
@@ -2651,6 +3016,8 @@ def check_b7(torch, trand, dev, card):
 # species; query blocks of 1 and 64 rows (the largest bucket)
 SERVE = dict(n=800, nc=2, nf=8, ns=1000, units=1000)
 SERVE_Q = (0.05, 0.5, 0.95)
+# the serve path's timed 64-row quantile queries (p50 and p99)
+QUANTILE_QUERIES = 20
 
 
 def serve_inputs(torch, dev, B, seed, dtype=None, fam=None, sig=None,
@@ -3025,32 +3392,101 @@ def check_b9a(torch, tserve, K, dev, card):
                 shape=[SERVE["n"], 64, SERVE["ns"]])
 
 
+def first_b9c(torch, lib, y, q):
+    """B9c's first version on the card (``scripts/older/serve_quantile.cu``,
+    a bitonic sort of each column in shared memory, at most 32768 draws):
+    (nq, ...) quantiles."""
+    import ctypes
+
+    n, cols = y.shape[0], y[0].numel()
+    P = 1 << max(0, (n - 1).bit_length())
+    cpb = 8
+    while cpb > 1 and P * cpb * 4 > 48 * 1024:
+        cpb //= 2
+    fn = lib.hmsc_serve_quantile
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    out = torch.empty((q.numel(),) + tuple(y.shape[1:]), device=y.device)
+    code = fn(y.data_ptr(), cols, n, P, cpb, q.data_ptr(), q.numel(),
+              out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert code == 0, f"B9c first version: cudaError {code}"
+    return out
+
+
+def b9c_specials(torch, dev, n, B, ns, seed):
+    """(n, B, ns) draws on the card: a wide normal law, and where B ns
+    allows a constant column, one of a few repeated values, one of 0 / 1
+    (sampled probit draws), one with +-inf, one with -0.0 beside +0.0 and
+    one with a NaN."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    w = 30.0 * torch.randn((n, B * ns), generator=g, device=dev)
+    if B * ns >= 7:
+        w[:, 0] = 1.0
+        w[:, 1] = torch.randint(-3, 4, (n,), generator=g, device=dev) * 0.5
+        w[:, 2] = torch.randint(0, 2, (n,), generator=g, device=dev).float()
+        w[: max(1, n // 3), 3] = float("inf")
+        w[n // 2:, 3] = float("-inf")
+        zero = torch.rand(n, generator=g, device=dev) < 0.5
+        sign = torch.rand(n, generator=g, device=dev) < 0.5
+        w[:, 4] = torch.where(zero, torch.where(sign, -0.0, 0.0), w[:, 4])
+        w[n // 2, 5] = float("nan")
+    return w.reshape(n, B, ns).contiguous()
+
+
+def _b9c_equal(a, b):
+    """Equal values (-0.0 as +0.0, NaN where NaN)."""
+    import torch
+
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a, nan=0.0), torch.nan_to_num(b, nan=0.0))
+
+
 def check_b9c(torch, tserve, dev, card):
-    """B9c against its plain version (exact) and torch.quantile (1e-6) on
-    B9a's expected draws at B 64; a planted NaN column gives NaN; 37 and
-    1025 draws of a wider law exact against the plain version."""
+    """B9c against its plain version, exact (a sort, ``jnp.quantile``'s
+    arithmetic), and torch.quantile (1e-6) on B9a's expected draws at B
+    64; exact on wide laws with ties, +-inf, -0.0 beside +0.0 and a NaN
+    column at 1, 2, 37, 1025 and 40000 draws, at B 1, and at 40
+    quantiles (two launches); a rerun gives the same bits.  Timed beside
+    its first version (``scripts/older/serve_quantile.cu``, built here) at
+    the headline posterior's 800 draws and at 37 and 1025."""
     q = torch.tensor(SERVE_Q, device=dev)
+    first = build_source("scripts/older/serve_quantile.cu",
+                         "serve_quantile_first")
     args = serve_inputs(torch, dev, 64, seed=52)
     _, _, y = tserve.serve_predict(*args, expected=True, moments=False,
                                    draws=True)
     qk = tserve.draw_quantiles(y, q)
     qp = tserve._draw_quantiles_plain(y, q)
     ql = torch.quantile(y, q, dim=0)
-    assert torch.equal(qk, qp), "B9c: kernel != plain"
+    assert _b9c_equal(qk, qp), "B9c: kernel != plain"
+    assert torch_equal_bits(qk, tserve.draw_quantiles(y, q)), \
+        "B9c: a rerun gave other bits"
+    assert _b9c_equal(first_b9c(torch, first, y, q), qp), \
+        "B9c first version != plain"
     err = (qk - ql).abs().max().item()
     assert err <= 1e-6, f"B9c vs torch.quantile: {err} > 1e-6"
-    g = torch.Generator(device=dev).manual_seed(5)
-    for n in (37, 1025):
-        w = 30.0 * torch.randn((n, 3, 50), generator=g, device=dev)
-        w[:, 1, 7] = float("nan")
-        a = tserve.draw_quantiles(w, q)
-        b = tserve._draw_quantiles_plain(w, q)
-        assert torch.isnan(a[:, 1, 7]).all(), "B9c: a NaN column"
-        assert torch.equal(torch.nan_to_num(a), torch.nan_to_num(b)), \
-            f"B9c at {n} draws: kernel != plain"
+    y1 = y[:, :1].contiguous()
+    assert _b9c_equal(tserve.draw_quantiles(y1, q),
+                      tserve._draw_quantiles_plain(y1, q)), "B9c at B 1"
+    q40 = torch.linspace(0.0, 1.0, 40, device=dev)
+    cases = [(1, 3, 50), (2, 3, 50), (37, 3, 50), (1025, 3, 50),
+             (40000, 3, 50), (800, 1, 1000), (37, 64, 1000)]
+    for n, B, ns in cases:
+        w = b9c_specials(torch, dev, n, B, ns, seed=n + B)
+        for qq in (q, q40):
+            a = tserve.draw_quantiles(w, qq)
+            b = tserve._draw_quantiles_plain(w, qq)
+            assert _b9c_equal(a, b), f"B9c at {n} x {B} x {ns}: kernel != " \
+                                     f"plain ({qq.numel()} quantiles)"
+            assert torch_equal_bits(a, tserve.draw_quantiles(w, qq)), \
+                f"B9c at {n} draws: a rerun gave other bits"
+            if B * ns >= 7:
+                assert torch.isnan(a[:, 0, 5]).all(), "B9c: a NaN column"
     print(f"B9c check: {tuple(y.shape)} draws, q {SERVE_Q}: kernel == plain "
-          f"exactly, max |kernel - torch.quantile| = {err:.3g} (tolerance "
-          "1e-6); 37 and 1025 draws with a NaN column exact")
+          f"exactly (and its first version), max |kernel - torch.quantile| "
+          f"= {err:.3g} (tolerance 1e-6); at B 1; draws (n, B, ns) "
+          f"{cases} with ties, +-inf, -0.0 beside +0.0 and a NaN column, "
+          f"3 and 40 quantiles, exact; reruns give the same bits")
 
     def kern():
         tserve.draw_quantiles(y, q)
@@ -3062,24 +3498,41 @@ def check_b9c(torch, tserve, dev, card):
         torch.quantile(y, q, dim=0)
 
     ms = device_ms(torch, kern, "serve_quantile_kernel")
+    first_ms = device_ms(torch, lambda: first_b9c(torch, first, y, q),
+                         "serve_quantile_kernel")
     plain_ms = device_ms(torch, plain, calls=5)
     lib_ms = device_ms(torch, library, calls=5)
     ev, plain_ev = event_ms(torch, kern), event_ms(torch, plain, batch=3)
     held = held_event_ms(torch, kern)
     n, cols = y.shape[0], y[0].numel()
-    # bytes: the draws read once, the quantiles written once; operations:
-    # n log2 n comparisons a column (a comparison sort's least)
-    b, by = bound_ms(4.0 * (n * cols + q.numel() * cols),
-                     n * math.log2(n) * cols)
-    print(f"B9c serve_quantile device time: {ms:.4f} ms (plain {plain_ms:.4f} "
-          f"ms, torch.quantile {lib_ms:.4f} ms, bound {b:.4f} ms by {by}; "
-          f"held stream {held:.5f} ms, with enqueue {ev:.4f} ms, plain "
+    # bytes: the draws read once, the quantiles written once (a selection
+    # needs no comparison sort's n log2 n)
+    b, by = bound_ms(4.0 * (n * cols + q.numel() * cols), 0.0)
+    print(f"B9c serve_quantile device time: {ms:.5f} ms (first version "
+          f"{first_ms:.5f} ms in this call; plain {plain_ms:.4f} ms, "
+          f"torch.quantile {lib_ms:.4f} ms, bound {b:.4f} ms by {by}; held "
+          f"stream {held:.5f} ms, with enqueue {ev:.4f} ms, plain "
           f"{plain_ev:.4f} ms) at {n} x 64 x {SERVE['ns']}, {q.numel()} "
           f"quantiles [{card}]")
+    more = {}
+    for n2, B2, ns2, old in ((800, 1, 1000, True), (37, 64, 1000, True),
+                             (1025, 64, 1000, True), (40000, 3, 50, False)):
+        w = 0.3 * torch.randn((n2, B2, ns2), device=dev)
+        t = device_ms(torch, lambda: tserve.draw_quantiles(w, q),
+                      "serve_quantile_kernel")
+        t_old = (device_ms(torch, lambda: first_b9c(torch, first, w, q),
+                           "serve_quantile_kernel") if old else None)
+        bb, _ = bound_ms(4.0 * (n2 + q.numel()) * B2 * ns2, 0.0)
+        more[f"{n2}x{B2}x{ns2}"] = dict(ms=t, first_ms=t_old, bound_ms=bb)
+        was = ("not run: above its 32768 draws" if t_old is None
+               else f"{t_old:.5f} ms")
+        print(f"B9c serve_quantile device time at {n2} x {B2} x {ns2}: "
+              f"{t:.5f} ms (first version {was}; bound {bb:.5f} ms by "
+              f"bytes) [{card}]")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b,
                 bound_by=by, library_ms=lib_ms, event_ms=ev,
-                plain_event_ms=plain_ev, held_ms=held,
-                shape=[n, 64, SERVE["ns"], q.numel()])
+                plain_event_ms=plain_ev, held_ms=held, first_ms=first_ms,
+                shape=[n, 64, SERVE["ns"], q.numel()], shapes=more)
 
 
 def b9b_ops(n, B, ns, observed, nc, nf, steps):
@@ -3304,9 +3757,11 @@ def check_b9b(torch, tserve, dev, card, steps=3):
 def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
                       cg_loop=(), updater=None):
     """Kernel launches the sweep schedule implies: Z once at start and once
-    a sweep, for probit columns (B1: its fused form where Z's probit
-    branch is the linear predictor's only reader, ``updaters.fused_z``,
-    else its E-reading form) and for Poisson columns (B5);
+    a sweep: on a model with Poisson columns the whole Z update is B5's
+    mixed form (``updaters.mixed_z``: no B1 launch), else for probit
+    columns B1 (its fused form where Z's probit branch is the linear
+    predictor's only reader, ``updaters.fused_z``, else its E-reading
+    form);
     BetaLambda and each level's Eta systems (B2, where P <= 16) each sweep;
     the GammaV block each sweep (B4, where ``ops.rand.gamma_v_route``
     allows; else its Wishart diagonal through B3's element form); where a
@@ -3346,8 +3801,9 @@ def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
     gpp = sum(ls.spatial == "GPP" for ls in spec.levels)
     da = bool((updater or {}).get("InterweaveDA")) and spec.any_probit \
         and ones
-    fused = tupd.fused_z(spec)
-    return {"probit_z": (1 + sweeps) * spec.any_probit * (not fused),
+    fused, mixed = tupd.fused_z(spec), tupd.mixed_z(spec)
+    return {"probit_z": (1 + sweeps) * spec.any_probit * (not fused)
+            * (not mixed),
             "probit_z_fused": (1 + sweeps) * fused,
             "mvn_prec_small": sweeps * systems,
             "standard_gamma": sweeps * per_sweep_gamma + 2 * nf_sweeps,
@@ -3569,6 +4025,11 @@ def serve_path(torch, ht, K, card, post, hM):
         engine.predict(X64, Yc=Yc, mcmc_step=3)
         cond_lat.append((time.perf_counter() - t1) * 1e3)
     cond_calls += 5
+    quant_lat = []
+    for _ in range(QUANTILE_QUERIES):
+        t1 = time.perf_counter()
+        engine.predict(X64, units=units64, quantiles=SERVE_Q)
+        quant_lat.append((time.perf_counter() - t1) * 1e3)
     final = engine.stats()
     torch.cuda.synchronize()
     launches = dict(K.launches)
@@ -3583,7 +4044,7 @@ def serve_path(torch, ht, K, card, post, hM):
     want["serve_predict"] = (built + final["device_calls"] - cond_calls
                              + offline_chunks)
     want["serve_conditional"] = cond_calls
-    want["serve_quantile"] = 1
+    want["serve_quantile"] = 1 + QUANTILE_QUERIES
     # 2. fidelity against a float64 recomputation on the card, no kernel
     dev = engine.device
     d64 = dict(device=dev, dtype=torch.float64)
@@ -3640,6 +4101,8 @@ def serve_path(torch, ht, K, card, post, hM):
                 coalesced_s=coal_s, serial_s=serial_s,
                 ratio=serial_s / coal_s,
                 cond_ms=float(np.median(cond_lat)),
+                quant_p50_ms=float(np.percentile(quant_lat, 50)),
+                quant_p99_ms=float(np.percentile(quant_lat, 99)),
                 brier_cond=brier_c, brier_marg=brier_m,
                 coalesced_calls=calls, plans_built=built)
     print(f"serve: headline posterior, {engine.n_draws} draws x {ns} "
@@ -3659,7 +4122,10 @@ def serve_path(torch, ht, K, card, post, hM):
           f" p99 {nums['p99_ms']:.3f} ms over 200 sync queries; 64 "
           f"concurrent coalesced {coal_s * 1e3:.2f} ms vs 64 serial offline "
           f"predict() {serial_s * 1e3:.2f} ms ({nums['ratio']:.2f}x); "
-          f"conditional B 64, mcmc_step 3: {nums['cond_ms']:.3f} ms [{card}]")
+          f"conditional B 64, mcmc_step 3: {nums['cond_ms']:.3f} ms; "
+          f"quantile query B 64, q {SERVE_Q}: p50 {nums['quant_p50_ms']:.3f} "
+          f"ms, p99 {nums['quant_p99_ms']:.3f} ms over {QUANTILE_QUERIES} "
+          f"[{card}]")
 
     assert launches == want, (f"serve: launches {launches}, the path "
                               f"implies {want}")
@@ -3818,7 +4284,7 @@ def main() -> int:
     # launches the line reports: the first that runs it)
     meta = {
         "probit_z": ("B1 probit_z", "hmsc_tpu_torch/csrc/probit_z.cu",
-                     "hmsc_tpu/ops/rand.py:84", "config5"),
+                     "hmsc_tpu/ops/rand.py:84", "na_headline"),
         "probit_z_fused": ("B1 probit_z_fused",
                            "hmsc_tpu_torch/csrc/probit_z.cu",
                            "hmsc_tpu/ops/rand.py:84", "headline"),

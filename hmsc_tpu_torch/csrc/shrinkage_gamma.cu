@@ -30,10 +30,14 @@
 // delta draw plus ~14 tensor ops a factor, in a host loop).  Design
 // (ops/rand.py · shrinkage_geometry chooses the shapes):
 //   - a thread-block cluster of S <= 16 blocks of T <= 512 threads a
-//     chain (above 8 blocks, a cluster size the H100 allows but does not
-//     promise), so each lane draws one or two psi: at the headline's shape
+//     chain, so each lane draws one or two psi: at the headline's shape
 //     64 SMs draw 500 each (8 blocks of 1024 threads, 32 SMs drawing 1000
-//     each, took 0.0090 ms against 0.0078, scripts/shrinkage_sweep.py);
+//     each, took 0.0090 ms against 0.0078, scripts/shrinkage_sweep.py).
+//     Above 8 blocks a cluster size is one the H100 allows but does not
+//     promise: the wrapper takes the largest S that
+//     cudaOccupancyMaxActiveClusters reports as schedulable
+//     (hmsc_shrinkage_clusters).  The pieces (P, plen) are those of 16
+//     blocks whatever S, so every S gives the same bits;
 //   - a (factor, column) row of ns species is cut into P pieces of plen
 //     species, and each warp of the cluster takes (row, piece) items in
 //     turn, its lanes over the piece's species (Lambda and Psi read and
@@ -207,6 +211,40 @@ shrinkage_gamma_kernel(const ShrinkArgs a) {
 }
 
 }  // namespace
+
+// How many clusters of S blocks of T threads with `smem` bytes of dynamic
+// shared memory the card can hold at once (cudaOccupancyMaxActiveClusters;
+// 0: a cluster of that size cannot be scheduled), into *count.
+extern "C" int hmsc_shrinkage_clusters(int S, int T, int smem, int* count) {
+  *count = 0;
+  if (S < 1 || S > 16 || T < 32 || T > 512 || smem < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (S > 8) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        shrinkage_gamma_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+        1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        shrinkage_gamma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(S));
+  cfg.blockDim = dim3(static_cast<unsigned>(T));
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(count, shrinkage_gamma_kernel, &cfg));
+}
 
 // One launch for C chains: a cluster of S blocks of T threads a chain,
 // nf + R (P + 5) floats of dynamic shared memory, R = nf ncr.

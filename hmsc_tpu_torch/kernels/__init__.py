@@ -138,10 +138,10 @@ def library():
             lib.hmsc_standard_gamma.argtypes = [p, p, ll, u64, u32, p]
             lib.hmsc_shrinkage_gamma.argtypes = [p] * 10 + [i] * 8 + [
                 u64, u32, u32, p]
+            lib.hmsc_shrinkage_clusters.argtypes = [i, i, i, p]
             lib.hmsc_gamma_v.argtypes = [p] * 12 + [i] * 4 + [
                 ctypes.c_float, u64, u32, u32, u32, p]
-            lib.hmsc_poisson_z.argtypes = [p, p, p, p, p, p, p, p, i, i, i,
-                                           u64, u32, p]
+            lib.hmsc_z_mixed.argtypes = [p] * 11 + [i] * 6 + [u64, u32, p]
             lib.hmsc_masked_gram.argtypes = [p, ll, ll, ll, p, ll, ll, p, ll,
                                              ll, p, ll, ll, ll, p, p, p, p, p,
                                              p, i, i, i, i, i, i, i, i, p]
@@ -163,14 +163,15 @@ def library():
                                               i, i, i, i, i, u64, u32, p]
             lib.hmsc_serve_predict.argtypes = [p] * 8 + [i] + [p] * 10 + [
                 i] * 12 + [u64, u32, p]
-            lib.hmsc_serve_quantile.argtypes = [p, ll, i, i, i, p, i, p, p]
+            lib.hmsc_serve_quantile.argtypes = [p, ll, i, i, p, i, p, p]
             lib.hmsc_serve_conditional.argtypes = [p] * 10 + [i] + [p] * 11 + [
                 i] * 13 + [u64, u32, p]
             for fn in (lib.hmsc_probit_z, lib.hmsc_probit_z_fused,
                        lib.hmsc_mvn_prec_small,
                        lib.hmsc_standard_gamma, lib.hmsc_shrinkage_gamma,
+                       lib.hmsc_shrinkage_clusters,
                        lib.hmsc_gamma_v,
-                       lib.hmsc_poisson_z,
+                       lib.hmsc_z_mixed,
                        lib.hmsc_masked_gram, lib.hmsc_vecchia_fwd,
                        lib.hmsc_vecchia_adj, lib.hmsc_vecchia_cg,
                        lib.hmsc_nngp_quad_grid,

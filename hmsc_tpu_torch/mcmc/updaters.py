@@ -29,14 +29,13 @@ import torch
 from ..ops.gram import masked_gram
 from ..ops.linalg import (chol_spd, sample_beta_lambda, sample_mvn_prec,
                           sample_mvn_prec_shifted)
-from ..ops.rand import (da_intercept_draw, gamma_v, poisson_z,
-                        probit_z_fused, shrinkage_gamma, shrinkage_shapes,
-                        shrinkage_update, standard_gamma,
-                        truncated_normal_onesided)
+from ..ops.rand import (da_intercept_draw, gamma_v, probit_z_fused,
+                        shrinkage_gamma, shrinkage_shapes, shrinkage_update,
+                        standard_gamma, truncated_normal_onesided, z_mixed)
 from .structs import GibbsState, LevelState, ModelData, ModelSpec
 
 __all__ = ["lambda_effective", "linear_fixed", "level_loading",
-           "total_loading", "eta_star", "fused_z", "update_z",
+           "total_loading", "eta_star", "fused_z", "mixed_z", "update_z",
            "beta_lambda_inputs", "update_beta_lambda",
            "update_gamma_v", "update_lambda_priors",
            "update_eta_nonspatial", "interweave_scale", "location_gate",
@@ -137,17 +136,27 @@ def fused_z(spec: ModelSpec) -> bool:
             and spec.nc + spec.nf_total <= FUSED_Z_MAX_K)
 
 
+def mixed_z(spec: ModelSpec) -> bool:
+    """Whether :func:`update_z` is one launch of B5's mixed form: every
+    model with a (lognormal-)Poisson column (where :func:`fused_z` never
+    holds).  The others keep their route: B1's fused form where
+    :func:`fused_z` holds, else B1's E-reading form and the torch ops."""
+    return spec.any_poisson and not fused_z(spec)
+
+
 def update_z(spec: ModelSpec, data: ModelData, state: GibbsState, rng=None,
              E=None, noise=None) -> GibbsState:
     """Latent-response data augmentation: normal columns copy Y, probit
     columns draw one-sided truncated normals (kernel B1), (lognormal-)
     Poisson columns the Polya-Gamma augmented normal of the NB(r = 1000)
     limit, drawn at the previous Z (kernel B5); last, missing cells of
-    every family are imputed as E + sigma eps.  ``E`` may pass in the
-    current linear predictor; without it, a model where :func:`fused_z`
-    holds draws Z with B1's fused form from the current state.  ``noise``,
-    per active branch: ``{"u", "eps_pg", "eps_z", "eps_na"}``, each (C,
-    ny, ns) (the JAX updater's ``k_tn, k_pg, k_pg2, k_na`` draws)."""
+    every family are imputed as E + sigma eps.  Where :func:`mixed_z`
+    holds, all of it is one launch of B5's mixed form.  ``E`` may pass in
+    the current linear predictor; without it, a model where
+    :func:`fused_z` holds draws Z with B1's fused form from the current
+    state.  ``noise``, per active branch: ``{"u", "eps_pg", "eps_z",
+    "eps_na"}``, each (C, ny, ns) (the JAX updater's ``k_tn, k_pg, k_pg2,
+    k_na`` draws)."""
     if E is None and fused_z(spec):
         level = None
         if spec.nr:
@@ -161,19 +170,20 @@ def update_z(spec: ModelSpec, data: ModelData, state: GibbsState, rng=None,
     if E is None:
         E = total_loading(spec, data, state)
     nz = noise if noise is not None else {}
-    Z = state.Z
     fam = data.distr_family
-    one_family = spec.any_normal + spec.any_probit + spec.any_poisson == 1
+    if mixed_z(spec):
+        Z = z_mixed(data.Y, state.Z, E, state.iSigma, fam,
+                    data.Ymask if spec.has_na else None, rng, nz.get("u"),
+                    nz.get("eps_pg"), nz.get("eps_z"), nz.get("eps_na"))
+        return state.replace(Z=Z)
+    Z = state.Z
+    one_family = spec.any_normal + spec.any_probit == 1
     if spec.any_normal:
         Z = torch.where(fam == 1, data.Y, Z)
     std = state.iSigma ** -0.5
     if spec.any_probit:
         z_tn = truncated_normal_onesided(E, std, data.Y, rng, u=nz.get("u"))
         Z = z_tn if one_family else torch.where(fam == 2, z_tn, Z)
-    if spec.any_poisson:
-        z_p = poisson_z(data.Y, state.Z, E, state.iSigma, fam, rng,
-                        nz.get("eps_pg"), nz.get("eps_z"))
-        Z = z_p if one_family else torch.where(fam == 3, z_p, Z)
     if spec.has_na:
         eps = _noise(noise, "eps_na", lambda: rng.normal(E.shape, E.dtype))
         Z = torch.where(data.Ymask > 0, Z, E + std[:, None, :] * eps)

@@ -12,8 +12,11 @@ Some of them are kernels written by hand for Hopper (``csrc/``):
   update (psi, the species sums, delta's draws and its sequential chain)
   in one launch (``csrc/shrinkage_gamma.cu``; the draw itself is
   ``csrc/gamma.cuh``, shared by both);
-- B5 :func:`poisson_z` — the Polya-Gamma Poisson Z draw, one thread per
-  cell (``csrc/poisson_z.cu``);
+- B5 :func:`z_mixed` — the whole Z update of a model with Poisson columns
+  (normal, probit and Polya-Gamma Poisson cells, then the imputation of
+  missing ones) in one launch, a thread four columns of four rows as in B1
+  (``csrc/poisson_z.cu``); :func:`poisson_z`, the Poisson branch alone, is
+  the same kernel with the other columns kept;
 - B4 :func:`gamma_v` — the whole GammaV block (the species sums, the
   Wishart draw of iV by Bartlett, Gamma | Beta, iV) in one launch, a block
   a chain (``csrc/gamma_v.cu``), where :func:`gamma_v_route` allows; its
@@ -48,9 +51,10 @@ from .linalg import chol_spd, sample_mvn_prec
 __all__ = ["Rng", "truncated_normal", "truncated_normal_onesided",
            "probit_z_fused", "probit_z_geometry",
            "standard_gamma", "shrinkage_gamma", "shrinkage_geometry",
+           "shrinkage_choose", "shrinkage_launch",
            "shrinkage_shapes", "shrinkage_update", "delta_offset",
            "wishart", "gamma_v", "gamma_v_route", "gamma_v_plain",
-           "polya_gamma", "poisson_z",
+           "polya_gamma", "poisson_z", "z_mixed",
            "da_intercept_draw"]
 
 _TINY = 1e-38  # smallest safe f32 normal-ish (JAX package rand.py:18)
@@ -369,19 +373,70 @@ def _standard_gamma_plain(a, rng: Rng):
 # B3, shrinkage form: a level's multiplicative-gamma shrinkage update
 # ---------------------------------------------------------------------------
 
-def shrinkage_geometry(nf: int, ns: int, ncr: int) -> dict:
+def shrinkage_geometry(nf: int, ns: int, ncr: int,
+                       max_cluster: int = 16) -> dict:
     """The shrinkage form's launch shape (``csrc/shrinkage_gamma.cu``): a
-    cluster of ``S`` <= 16 blocks of ``T`` <= 512 threads a chain (above 8
-    blocks, a cluster size the H100 allows but does not promise), so a lane
-    draws about one psi, with a warp for each of the chain's ``nf ncr`` rows
-    of ``ns`` species at least; each row is cut into ``P`` pieces of
-    ``plen`` species, one warp's item each."""
+    cluster of ``S`` <= ``max_cluster`` <= 16 blocks of ``T`` <= 512
+    threads a chain (above 8 blocks, a cluster size the H100 allows but
+    does not promise: :func:`shrinkage_launch` asks the card), so a lane
+    draws about one psi, with a warp for each of the chain's ``nf ncr``
+    rows of ``ns`` species at least; each row is cut into ``P`` pieces of
+    ``plen`` species, one warp's item each.  ``P`` and ``plen`` are those
+    of 16 blocks whatever ``S``: a piece's sum does not depend on which
+    warp takes it, so every cluster size gives the same bits."""
     W, R = nf * ns * ncr, nf * ncr
-    S = max(1, min(16, -(-W // 512)))
-    T = min(512, 32 * max(-(-W // (32 * S)), -(-R // S)))
-    P = max(1, (S * T // 32) // R)
+
+    def threads(S):
+        return min(512, 32 * max(-(-W // (32 * S)), -(-R // S)))
+
+    S16 = max(1, min(16, -(-W // 512)))
+    P = max(1, (S16 * threads(S16) // 32) // R)
     plen = -(-ns // P)
-    return {"S": S, "T": T, "P": -(-ns // plen), "plen": plen}
+    S = min(S16, max(1, max_cluster))
+    return {"S": S, "T": threads(S), "P": -(-ns // plen), "plen": plen}
+
+
+def shrinkage_smem(nf: int, ncr: int, P: int) -> int:
+    """The shrinkage form's dynamic shared memory, bytes: the mask, five
+    rows' worth a (factor, column) and block 0's piece sums."""
+    return 4 * (nf + nf * ncr * (P + 5))
+
+
+def shrinkage_choose(nf: int, ns: int, ncr: int, schedulable) -> dict:
+    """The geometry of the largest cluster, from 16 blocks down, that
+    ``schedulable(S, T, smem)`` accepts (one block always is)."""
+    cap = 16
+    while True:
+        geo = shrinkage_geometry(nf, ns, ncr, cap)
+        if geo["S"] == 1 or schedulable(
+                geo["S"], geo["T"], shrinkage_smem(nf, ncr, geo["P"])):
+            return geo
+        cap = geo["S"] - 1
+
+
+_SHRINKAGE_LAUNCH = {}
+
+
+def shrinkage_launch(device, nf: int, ns: int, ncr: int) -> dict:
+    """:func:`shrinkage_choose` on the card: a cluster size is taken only
+    where ``cudaOccupancyMaxActiveClusters`` reports such a cluster of the
+    kernel, at its block size and shared memory, as schedulable; the
+    answer is kept per device and shape."""
+    dev = torch.device(device)
+    key = (dev.index, nf, ns, ncr)
+    if key not in _SHRINKAGE_LAUNCH:
+        lib = K.library()
+
+        def schedulable(S, T, smem):
+            count = ctypes.c_int(0)
+            with torch.cuda.device(dev):
+                code = lib.hmsc_shrinkage_clusters(S, T, smem,
+                                                   ctypes.byref(count))
+            K.check(code, "shrinkage_gamma (cluster query)")
+            return count.value > 0
+
+        _SHRINKAGE_LAUNCH[key] = shrinkage_choose(nf, ns, ncr, schedulable)
+    return _SHRINKAGE_LAUNCH[key]
 
 
 def delta_offset(offset: int) -> int:
@@ -431,7 +486,8 @@ def shrinkage_gamma(Lambda, mask, Delta, nu, a1, b1, a2, b2, rng: Rng):
     the hyperparameters (ncr,).  psi's unit draws use the Philox counters
     :func:`standard_gamma` gives a (C, nf, ns, ncr) array at the launch's
     (seed, offset), delta's those it gives the (C, nf, ncr) array of
-    :func:`shrinkage_shapes` at (seed, :func:`delta_offset`)."""
+    :func:`shrinkage_shapes` at (seed, :func:`delta_offset`).  The cluster
+    size is :func:`shrinkage_launch`'s; the result does not depend on it."""
     if not Lambda.is_cuda:
         return _shrinkage_gamma_plain(Lambda, mask, Delta, nu, a1, b1, a2,
                                       b2, rng)
@@ -448,7 +504,7 @@ def shrinkage_gamma(Lambda, mask, Delta, nu, a1, b1, a2, b2, rng: Rng):
                              f"{shape} tensor on {Lambda.device}")
         args[n] = t.contiguous()
     Lambda, mask, Delta, nu, a1, b1, a2, b2 = args
-    geo = shrinkage_geometry(nf, ns, ncr)
+    geo = shrinkage_launch(Lambda.device, nf, ns, ncr)
     Psi = torch.empty_like(Lambda)
     Delta_out = torch.empty_like(Delta)
     seed, offset = rng.philox()
@@ -549,30 +605,41 @@ def poisson_z(Y, Zprev, E, iSigma, fam, rng: Rng | None = None,
             eps_pg = rng.normal(Zprev.shape, Zprev.dtype)
             eps_z = rng.normal(Zprev.shape, Zprev.dtype)
         return _poisson_z_plain(Y, Zprev, E, iSigma, fam, eps_pg, eps_z)
-    floats = (("Y", Y), ("Zprev", Zprev), ("E", E), ("iSigma", iSigma)) + (
-        (("eps_pg", eps_pg), ("eps_z", eps_z)) if eps_pg is not None else ())
-    for name, t in floats:
-        if t.device != Zprev.device or t.dtype != torch.float32 \
-                or not t.is_contiguous():
-            raise ValueError(f"poisson_z: {name} must be a contiguous "
-                             "float32 tensor on Zprev's device")
-    if fam.device != Zprev.device or fam.dtype != torch.int32 \
-            or not fam.is_contiguous():
-        raise ValueError("poisson_z: fam must be a contiguous int32 tensor "
-                         "on Zprev's device")
-    Z = torch.empty_like(Zprev)
-    if Zprev.numel() == 0:
-        return Z
-    seed, offset = (0, 0) if eps_pg is not None else rng.philox()
-    with torch.cuda.device(Zprev.device):
-        code = K.library().hmsc_poisson_z(
-            Y.data_ptr(), Zprev.data_ptr(), E.data_ptr(), iSigma.data_ptr(),
-            fam.data_ptr(), None if eps_pg is None else eps_pg.data_ptr(),
-            None if eps_z is None else eps_z.data_ptr(), Z.data_ptr(), C, ny,
-            ns, seed, offset, K.stream_of(Zprev))
-    K.check(code, "poisson_z")
-    K.launches["poisson_z"] += 1
-    return Z
+    # the mixed form's kernel, every other column's family 0 (kept)
+    kept = torch.where(fam == 3, fam, torch.zeros_like(fam))
+    return z_mixed(Y, Zprev, E, iSigma, kept,
+                   rng=rng if eps_pg is None else None, eps_pg=eps_pg,
+                   eps_z=eps_z)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+# B5 gives a thread 4 rows of 4 columns from this many cells of a launch,
+# 1 row of 2 below it
+_B5_LARGE_CELLS = 1 << 21
+
+
+def z_geometry(C: int, ny: int, ns: int):
+    """B5's launch shape, ``(lg_tcg, small)``: on large blocks B1's layout
+    (:func:`probit_z_geometry`: column groups of 4, 4 rows a thread); on
+    small ones (``small`` 1) a thread 1 row of 2 columns, where more
+    threads shorten the launch, column groups of 2 covering ns as B1's
+    cover it with groups of 4."""
+    small = C * ny * ns < _B5_LARGE_CELLS
+    lg, _ = probit_z_geometry(ny, 2 * ns if small else ns)
+    return lg, int(small)
+
+
+def _b5_operands(Y, Zprev, E, iSigma, fam, Z, **noise):
+    """B5's operands for :func:`_z_launch_checks`: every float contiguous
+    float32, ``fam`` contiguous int32, on Zprev's device."""
+    f32 = torch.float32
+    return ((("Zprev", Zprev, f32, True), ("Y", Y, f32, True),
+             ("E", E, f32, True), ("iSigma", iSigma, f32, True),
+             ("fam", fam, torch.int32, True), ("Z", Z, f32, True))
+            + tuple((k, v, f32, True) for k, v in noise.items()))
 
 
 def _poisson_z_plain(Y, Zprev, E, iSigma, fam, eps_pg, eps_z):
@@ -584,6 +651,84 @@ def _poisson_z_plain(Y, Zprev, E, iSigma, fam, eps_pg, eps_z):
     z = mu + torch.sqrt(s2) * eps_z
     z = torch.where(torch.isfinite(z), z, Zprev)      # reference NaN guard
     return torch.where(fam == 3, z, Zprev)
+
+
+def z_mixed(Y, Zprev, E, iSigma, fam, Ymask=None, rng: Rng | None = None,
+            u=None, eps_pg=None, eps_z=None, eps_na=None):
+    """B5's mixed form: the whole Z update of ``update_z`` (JAX package
+    ``updaters.py:135-205``) in one launch: normal columns copy Y, probit
+    columns draw B1's one-sided truncated normal at sd = iSigma^-1/2,
+    Poisson columns the draw of :func:`poisson_z` at Zprev; then, where
+    ``Ymask`` is 0, E + sd eps.
+
+    ``Y`` (ny, ns), ``Zprev`` and ``E`` (C, ny, ns), ``iSigma`` (C, ns),
+    ``fam`` (ns,) int32, ``Ymask`` (ny, ns) or None without missing
+    values.  ``u``, ``eps_pg`` with ``eps_z``, and ``eps_na`` (each (C, ny,
+    ns)) inject the draws of their branch (``update_z``'s ``noise``);
+    otherwise the kernel draws them from Philox keyed by ``rng.philox()``
+    (the Poisson cells at :func:`poisson_z`'s counters), and the plain
+    version, on the CPU, from ``rng`` in ``update_z``'s order (the probit
+    uniforms, the two Poisson normals, the imputation normals, each where
+    a column of its family or a missing cell exists).  Without ``rng``
+    every draw the model's families need must be injected."""
+    C, ny, ns = Zprev.shape
+    if (E.shape != Zprev.shape or iSigma.shape != (C, ns)
+            or Y.shape != (ny, ns) or fam.shape != (ns,)
+            or (Ymask is not None and Ymask.shape != (ny, ns))):
+        raise ValueError(f"z_mixed: Y {tuple(Y.shape)}, Zprev "
+                         f"{tuple(Zprev.shape)}, E {tuple(E.shape)}, iSigma "
+                         f"{tuple(iSigma.shape)}, fam {tuple(fam.shape)}")
+    if (eps_pg is None) != (eps_z is None):
+        raise ValueError("z_mixed: inject both eps_pg and eps_z or neither")
+    for name, t in (("u", u), ("eps_pg", eps_pg), ("eps_z", eps_z),
+                    ("eps_na", eps_na)):
+        if t is not None and t.shape != Zprev.shape:
+            raise ValueError(f"z_mixed: {name} must match Zprev")
+    if not Zprev.is_cuda:
+        if u is None and bool((fam == 2).any()):
+            u = rng.uniform(E.shape, dtype=E.dtype)
+        if eps_pg is None and bool((fam == 3).any()):
+            eps_pg = rng.normal(Zprev.shape, Zprev.dtype)
+            eps_z = rng.normal(Zprev.shape, Zprev.dtype)
+        if eps_na is None and Ymask is not None:
+            eps_na = rng.normal(E.shape, E.dtype)
+        return _z_mixed_plain(Y, Zprev, E, iSigma, fam, Ymask, u, eps_pg,
+                              eps_z, eps_na)
+    Z = torch.empty_like(Zprev)
+    aligned = _z_launch_checks("z_mixed", _b5_operands(
+        Y, Zprev, E, iSigma, fam, Z, Ymask=Ymask, u=u, eps_pg=eps_pg,
+        eps_z=eps_z, eps_na=eps_na))
+    if Zprev.numel() == 0:
+        return Z
+    lg, small = z_geometry(C, ny, ns)
+    seed, offset = rng.philox() if rng is not None else (0, 0)
+    with torch.cuda.device(Zprev.device):
+        code = K.library().hmsc_z_mixed(
+            Y.data_ptr(), Zprev.data_ptr(), E.data_ptr(), iSigma.data_ptr(),
+            fam.data_ptr(), _ptr(Ymask), _ptr(u), _ptr(eps_pg), _ptr(eps_z),
+            _ptr(eps_na), Z.data_ptr(), C, ny, ns, lg, small,
+            int(aligned and ns % 4 == 0), seed, offset, K.stream_of(Zprev))
+    K.check(code, "poisson_z")
+    K.launches["poisson_z"] += 1
+    return Z
+
+
+def _z_mixed_plain(Y, Zprev, E, iSigma, fam, Ymask, u, eps_pg, eps_z,
+                   eps_na):
+    """``update_z``'s body (JAX package ``updaters.py:159-204``) step by
+    step on the plain versions: each branch where its draws are given."""
+    Z = Zprev
+    std = iSigma ** -0.5
+    Z = torch.where(fam == 1, Y, Z)
+    if u is not None:
+        z_tn = _truncated_normal_onesided_plain(E, std, Y, u)
+        Z = torch.where(fam == 2, z_tn, Z)
+    if eps_pg is not None:
+        z_p = _poisson_z_plain(Y, Zprev, E, iSigma, fam, eps_pg, eps_z)
+        Z = torch.where(fam == 3, z_p, Z)
+    if Ymask is not None:
+        Z = torch.where(Ymask > 0, Z, E + std[:, None, :] * eps_na)
+    return Z
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,8 @@ beside it:
   population sd over the draws, or the (n, B, ns) draws themselves
   (``csrc/serve_predict.cu``);
 - B9c :func:`draw_quantiles` — full-draw quantiles with ``jnp.quantile``'s
-  linear interpolation (``csrc/serve_quantile.cu``);
+  linear interpolation, by an exact radix select of the ranks each
+  quantile needs, at any draw count (``csrc/serve_quantile.cu``);
 - B9b :func:`serve_conditional` — the per-draw Gibbs refinement of each
   query row's latent factors against its observed cells, the link and the
   moments (``csrc/serve_conditional.cu``).
@@ -34,7 +35,7 @@ from .rand import _TINY, _ndtr, _truncated_normal_onesided_plain
 
 __all__ = ["serve_predict", "draw_quantiles", "serve_conditional",
            "poisson_plain", "predict_geometry", "conditional_geometry",
-           "quantile_layout", "MAX_QUANTILE_DRAWS"]
+           "quantile_layout"]
 
 FAM_NORMAL, FAM_PROBIT, FAM_POISSON = 1, 2, 3
 # csrc/serve_predict.cu: a block owns 64 species (two a lane) and up to 64
@@ -60,8 +61,19 @@ _MAX_LEVELS, _MAX_NC, _MAX_NF_TOTAL = 8, 64, 64
 _COND_NF = (4, 8, 16)
 # one warp's row state (18 bytes a species) within a block's 227 KB
 _COND_MAX_SPECIES = 10240
-# csrc/serve_quantile.cu: one column of P floats in shared memory at most
-MAX_QUANTILE_DRAWS = 32768
+# csrc/serve_quantile.cu: a block of 8 columns, a warp each; up to
+# QUANTILE_STAGED_MAX draws its tile is staged in shared memory ([draw][9]
+# words); each warp keeps a histogram of 2^QUANTILE_DIGIT_BITS bins (a pad
+# word every 32), QUANTILE_FEW ranked keys, six words a rank (two ranks a
+# quantile) and a buffer of QUANTILE_BUFFER keys of the wanted bins; a
+# launch takes up to QUANTILE_MAX_Q quantiles; a bin of QUANTILE_FEW keys
+# or fewer is ranked exactly
+_QUANTILE_COLS = 8
+QUANTILE_STAGED_MAX = 2048
+QUANTILE_DIGIT_BITS = 8
+QUANTILE_FEW = 64
+QUANTILE_BUFFER = 320
+QUANTILE_MAX_Q = 16
 
 
 # ---------------------------------------------------------------------------
@@ -223,18 +235,19 @@ def conditional_geometry(n: int, B: int, ns: int, nc: int, nfs,
 
 
 def quantile_layout(n: int):
-    """B9c's (P, columns a block): the power of two P >= n the bitonic sort
-    pads to, and up to 8 columns within 48 KB of shared memory."""
-    if n > MAX_QUANTILE_DRAWS:
-        raise ValueError(
-            f"draw_quantiles: {n} draws exceed the kernel's limit of "
-            f"{MAX_QUANTILE_DRAWS} (a bitonic sort of one column in shared "
-            "memory); thin the posterior")
-    P = 1 << max(0, (n - 1).bit_length())
-    cpb = 8
-    while cpb > 1 and P * cpb * 4 > 48 * 1024:
-        cpb //= 2
-    return P, cpb
+    """B9c's launch shape for ``n`` draws: ``(staged, shared memory bytes a
+    block)``.  Up to ``QUANTILE_STAGED_MAX`` draws a block stages its 8
+    columns in shared memory; above it each pass reads its column from
+    global memory.  Any ``n >= 1`` is served."""
+    if n < 1:
+        raise ValueError("draw_quantiles: no draws")
+    bins = 1 << QUANTILE_DIGIT_BITS
+    warp = ((bins + bins // 32) + QUANTILE_FEW + 12 * QUANTILE_MAX_Q
+            + QUANTILE_BUFFER)
+    staged = n <= QUANTILE_STAGED_MAX
+    words = _QUANTILE_COLS * warp + (n * (_QUANTILE_COLS + 1) if staged
+                                     else 0)
+    return staged, 4 * words
 
 
 # ---------------------------------------------------------------------------
@@ -476,7 +489,9 @@ def poisson_plain(lam, gen):
 def draw_quantiles(y, q, out=None):
     """Quantiles over the leading (draw) axis of ``y`` (n, ...) at the
     probabilities ``q`` (nq,), ``jnp.quantile``'s linear interpolation;
-    returns (nq, ...).  NaN for a column holding a NaN."""
+    returns (nq, ...).  NaN for a column holding a NaN.  The kernel takes
+    ``QUANTILE_MAX_Q`` quantiles a launch (one launch at the serving
+    engine's few)."""
     n = y.shape[0]
     q = torch.as_tensor(q, dtype=torch.float32, device=y.device)
     if not y.is_cuda:
@@ -485,18 +500,21 @@ def draw_quantiles(y, q, out=None):
     if y.dtype != torch.float32 or not y.is_contiguous():
         raise ValueError("draw_quantiles: y must be a contiguous float32 "
                          "tensor")
-    P, cpb = quantile_layout(n)
+    staged, _ = quantile_layout(n)
     cols = y[0].numel()
+    q = q.contiguous()
     res = out if out is not None else torch.empty(
         (q.numel(),) + tuple(y.shape[1:]), device=y.device,
         dtype=torch.float32)
     _check_cuda("draw_quantiles", y.device, [("out", res)])
-    with torch.cuda.device(y.device):
-        code = K.library().hmsc_serve_quantile(
-            y.data_ptr(), cols, n, P, cpb, q.data_ptr(), q.numel(),
-            res.data_ptr(), K.stream_of(y))
-    K.check(code, "serve_quantile")
-    K.launches["serve_quantile"] += 1
+    for s in range(0, q.numel(), QUANTILE_MAX_Q):
+        nq = min(QUANTILE_MAX_Q, q.numel() - s)
+        with torch.cuda.device(y.device):
+            code = K.library().hmsc_serve_quantile(
+                y.data_ptr(), cols, n, int(staged), q[s:].data_ptr(), nq,
+                res[s:].data_ptr(), K.stream_of(y))
+        K.check(code, "serve_quantile")
+        K.launches["serve_quantile"] += 1
     return res
 
 

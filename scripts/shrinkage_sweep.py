@@ -12,8 +12,8 @@ At ``chip_smoke.py``'s shrinkage shapes (4 chains; nf, ns = 8, 1000 (the
 headline), 2, 90 (config 5), 2, 50 (config 3), 20, 5000) it prints, in
 turns for ``--rounds N`` rounds: the shrinkage kernel's device time
 (torch.profiler, the kernel alone) under each launch shape of
-``--variants`` (``VARIANTS``: ``ops.rand.shrinkage_geometry`` with fields
-overridden), the older block's device time (all its kernels a call), and
+``--variants`` (``VARIANTS``: ``ops.rand.shrinkage_launch``, the shape
+the card's cluster query allows, with fields overridden), the older block's device time (all its kernels a call), and
 the host time a call of each (perf_counter over 200 calls queued without
 synchronisation: what the sampler's host pays to enqueue the block).
 ``--source a,b`` builds copies of the kernel's source with a part cut
@@ -62,12 +62,13 @@ SRC_VARIANTS = {
 
 
 def _geometry(trand, override):
-    """Point ``shrinkage_geometry`` at ``override`` of the shipped one;
-    returns the restore callable."""
-    base = trand.shrinkage_geometry
+    """Point the wrapper's launch shape (``shrinkage_launch``, the shape the
+    card's cluster query allows) at ``override`` of it; returns the restore
+    callable."""
+    base = trand.shrinkage_launch
     if override is not None:
-        trand.shrinkage_geometry = lambda *a: override(base(*a))
-    return lambda: setattr(trand, "shrinkage_geometry", base)
+        trand.shrinkage_launch = lambda *a: override(base(*a))
+    return lambda: setattr(trand, "shrinkage_launch", base)
 
 
 def host_us(torch, fn, calls=200):
@@ -140,7 +141,8 @@ def main(argv=None) -> int:
             for v in names:
                 restore = _geometry(trand, VARIANTS[v][1])
                 try:
-                    geo = trand.shrinkage_geometry(nf, ns, 1)
+                    geo = trand.shrinkage_launch(torch.device("cuda", 0),
+                                                 nf, ns, 1)
                     ms = cs.device_ms(torch, kern, "shrinkage_gamma_kernel")
                 finally:
                     restore()

@@ -4,7 +4,8 @@ serve path's conditional query from one checkout, for A/B comparisons of
 two commits on one card.
 
     python3 scripts/slice_ab.py ROOT [REPEATS]
-        [--paths headline,na_headline,config5,config3b,dense_nngp,conditional]
+        [--paths headline,na_headline,config5,config3b,dense_nngp,conditional,
+                 quantile]
 
 Imports ``hmsc_tpu_torch`` and ``chip_smoke`` from the checkout at ROOT
 (this repository, or an older commit unpacked with ``git archive``) and
@@ -34,7 +35,10 @@ headline, config 3b and the conditional query by default):
 - ``conditional``: the headline posterior served by ``ServingEngine``
   after ``warmup``: the 64-row conditional query at mcmc_step 3 (training
   rows 0-63 as new units, the second half of the species held out), wall
-  time of each of 7 queries.
+  time of each of 7 queries;
+- ``quantile``: the same engine's 64-row quantile query (training rows
+  0-63 at their units, ``chip_smoke.SERVE_Q``, kernel B9c after B9a),
+  wall time of each of 20 queries, their p50 and p99.
 
 Run the two checkouts in turns (parent, change, change, parent) within
 one call.
@@ -164,7 +168,7 @@ def main() -> int:
 
     h = cs.HEADLINE
     post_h = None
-    if "headline" in paths or "conditional" in paths:
+    if "headline" in paths or "conditional" in paths or "quantile" in paths:
         X, Y, _ = cs.simulate_probit(h["ny"], h["ns"],
                                      seed=cs.HEADLINE_DATA_SEED)
         hM = cs.probit_model(ht, X, Y, nf=h["nf"])
@@ -202,6 +206,26 @@ def main() -> int:
         out["dense_nngp"], _ = sampler_path(
             torch, cs, ht, K, m, c["n_chains"], c["samples"],
             c["transient"], cs.CONFIG3_SEED, cs.CONFIG3_NF, repeats)
+    if ("conditional" in paths or "quantile" in paths) and post_h is None:
+        post_h = ht.sample_mcmc(hM, samples=h["samples"],
+                                transient=h["transient"],
+                                n_chains=h["n_chains"],
+                                seed=cs.HEADLINE_SEED, nf_cap=h["nf"])
+    if "quantile" in paths:
+        X64 = np.asarray(hM.X, dtype=np.float32)[:64]
+        lvl = hM.rl_names[0]
+        units = {lvl: [str(v) for v in hM.df_pi[0][:64]]}
+        lat = []
+        with ht.ServingEngine(post_h, coalesce_ms=2.0) as engine:
+            engine.warmup()
+            engine.predict(X64, units=units, quantiles=cs.SERVE_Q)
+            for _ in range(20):
+                t1 = time.perf_counter()
+                engine.predict(X64, units=units, quantiles=cs.SERVE_Q)
+                lat.append((time.perf_counter() - t1) * 1e3)
+        out["quantile_64_ms"] = lat
+        out["quantile_64_p50_ms"] = float(np.percentile(lat, 50))
+        out["quantile_64_p99_ms"] = float(np.percentile(lat, 99))
     if "conditional" in paths:
         if post_h is None:
             post_h = ht.sample_mcmc(hM, samples=h["samples"],

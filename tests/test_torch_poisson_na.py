@@ -13,14 +13,19 @@ import pytest
 import torch
 
 import hmsc_tpu
+from hmsc_tpu.mcmc import updaters as JU
 from hmsc_tpu.mcmc.updaters import _NB_R
 from hmsc_tpu.ops import rand as jrand
 
 import hmsc_tpu_torch
+from hmsc_tpu_torch.mcmc import updaters as TU
+from hmsc_tpu_torch.mcmc.structs import build_spec
 from hmsc_tpu_torch.ops import gram as tgram
 from hmsc_tpu_torch.ops import rand as trand
 
+from test_torch_model import jax_triple, model_inputs, to_torch
 from test_torch_sampler import _assert_parity, _z_scores
+from test_torch_updaters import _compare, _stack, z_noise
 
 pytestmark = pytest.mark.torch
 torch.set_num_threads(1)
@@ -143,6 +148,75 @@ def test_b5_plain_draws_its_own_normals():
                         trand.Rng(5, "cpu")).numpy()
     assert np.isfinite(z).all()
     np.testing.assert_array_equal(z[..., -1], Zprev[..., -1])
+
+
+def _mixed_na_models(na_share=0.1, seed=5):
+    """Both packages' model with normal, probit, lognormal-Poisson and
+    Poisson columns (``test_torch_model.MIXED``), ``na_share`` of Y
+    missing (at least one cell a column)."""
+    Y, kw, units = model_inputs("mixed", seed=seed)
+    rng = np.random.default_rng(seed)
+    miss = rng.uniform(size=Y.shape) < na_share
+    miss[rng.integers(Y.shape[0], size=Y.shape[1]), np.arange(Y.shape[1])] \
+        = True
+    Y = np.where(miss, np.nan, Y)
+    out = []
+    for pkg in (hmsc_tpu, hmsc_tpu_torch):
+        rl = pkg.HmscRandomLevel(units=units[0])
+        pkg.set_priors_random_level(rl, nf_max=3, nf_min=2)
+        out.append(pkg.Hmsc(Y=Y, ran_levels={"unit": rl}, **kw))
+    return tuple(out)
+
+
+def test_b5_mixed_plain_matches_jax_update_z():
+    """B5's mixed form, through its plain route (``ops.rand.z_mixed`` on
+    the CPU), against the JAX package's ``update_z`` with its very draws
+    (u, eps_pg, eps_z, eps_na) injected: normal, probit and
+    (lognormal-)Poisson columns, 10% of Y missing, two chains."""
+    mj, mt = _mixed_na_models()
+    spec_j, data_j, states_j = jax_triple(mj, seeds=(3, 4))
+    data_t, state_t = to_torch(spec_j, data_j, states_j)
+    spec_t = build_spec(mt)
+    assert TU.mixed_z(spec_t) and spec_t.has_na
+    keys = [jax.random.key(200 + c) for c in range(2)]
+    ref = [JU.update_z(spec_j, data_j, s, k) for s, k in zip(states_j, keys)]
+    noise = _stack([z_noise(spec_j, k) for k in keys])
+    assert set(noise) == {"u", "eps_pg", "eps_z", "eps_na"}
+    E = TU.total_loading(spec_t, data_t, state_t)
+    Z = trand.z_mixed(data_t.Y, state_t.Z, E, state_t.iSigma,
+                      data_t.distr_family, data_t.Ymask, None, **noise)
+    _compare(state_t.replace(Z=Z), ref, fields={"Z"})
+    missing = (data_t.Ymask == 0).expand_as(Z)
+    assert 0.05 < missing[0].float().mean() < 0.2
+    # the updater routes to it and gives the same
+    out = TU.update_z(spec_t, data_t, state_t, E=E, noise=noise)
+    assert torch.equal(out.Z, Z)
+
+
+@pytest.mark.parametrize("kind,na,mixed,fused", [
+    ("mixed", False, True, False), ("mixed", True, True, False),
+    ("probit", True, False, False), ("probit", False, False, True),
+    ("normal", False, False, False)])
+def test_mixed_z_route(kind, na, mixed, fused):
+    """B5's mixed form is the Z update of every model with a Poisson
+    column (config 5's families, with or without missing values); a
+    probit-only model with missing values keeps B1's E-reading form, one
+    without them B1's fused form; a normal model the torch ops."""
+    if kind == "mixed" and na:
+        _, mt = _mixed_na_models()
+    else:
+        Y, kw, units = model_inputs(kind, ns=6)
+        if na:
+            Y = Y.copy()
+            Y[::7, ::2] = np.nan
+        rls = {"unit": hmsc_tpu_torch.HmscRandomLevel(units=units[0])}
+        hmsc_tpu_torch.set_priors_random_level(rls["unit"], nf_max=2,
+                                               nf_min=2)
+        mt = hmsc_tpu_torch.Hmsc(Y=Y, ran_levels=rls, **kw)
+    spec = build_spec(mt)
+    assert spec.has_na == na
+    assert TU.mixed_z(spec) is mixed
+    assert TU.fused_z(spec) is fused
 
 
 # --- B6: masked grams ------------------------------------------------------

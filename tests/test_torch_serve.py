@@ -331,9 +331,12 @@ def test_b9c_plain_matches_jnp_quantile():
     got = tserve.draw_quantiles(torch.from_numpy(y), q).numpy()
     assert np.isnan(got[:, 2, 1]).all() and np.isnan(want[:, 2, 1]).all()
     close(np.nan_to_num(got), np.nan_to_num(want), rtol=1e-6, atol=1e-6)
-    assert tserve.quantile_layout(800) == (1024, 8)
+    # B9c stages 800 draws (8 columns of [draw][9] words beside the warps'
+    # 840 words each) and reads 40000 from global memory: no draw limit
+    assert tserve.quantile_layout(800) == (True, 4 * (8 * 840 + 800 * 9))
+    assert tserve.quantile_layout(40000) == (False, 4 * 8 * 840)
     with pytest.raises(ValueError, match="draws"):
-        tserve.quantile_layout(tserve.MAX_QUANTILE_DRAWS + 1)
+        tserve.quantile_layout(0)
 
 
 # ---------------------------------------------------------------------------

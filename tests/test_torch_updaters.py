@@ -390,6 +390,31 @@ def test_shrinkage_geometry_covers_every_species(nf, ns, ncr):
         assert (S, T, P, plen, rounds) == (16, 512, 32, 32, 1)
 
 
+@pytest.mark.parametrize("nf,ns,allowed,want", [
+    (8, 1000, 16, 16), (8, 1000, 8, 8), (8, 1000, 0, 1),
+    (20, 5000, 12, 12), (2, 90, 8, 1)])
+def test_shrinkage_cluster_is_chosen_by_the_query(nf, ns, allowed, want):
+    """The shrinkage form's cluster size is the largest, from 16 blocks
+    down, that the card's occupancy query accepts (stubbed here: clusters
+    of at most ``allowed`` blocks); the pieces stay those of 16 blocks, so
+    the update's sums, and its bits, do not depend on it."""
+    asked = []
+
+    def schedulable(S, T, smem):
+        asked.append(S)
+        assert smem == trand.shrinkage_smem(nf, 1, geo16["P"])
+        return S <= allowed
+
+    geo16 = trand.shrinkage_geometry(nf, ns, 1)
+    geo = trand.shrinkage_choose(nf, ns, 1, schedulable)
+    assert geo["S"] == min(want, geo16["S"])
+    assert (geo["P"], geo["plen"]) == (geo16["P"], geo16["plen"])
+    assert geo == trand.shrinkage_geometry(nf, ns, 1, geo["S"])
+    assert asked == sorted(asked, reverse=True)
+    warps = geo["S"] * geo["T"] // 32
+    assert warps >= 1 and geo["T"] <= 512
+
+
 @pytest.mark.parametrize("n_units", [None, 10])
 def test_update_eta_nonspatial(n_units):
     _check_eta_nonspatial("probit", n_units)
