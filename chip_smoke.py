@@ -63,7 +63,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    before; B9c (a radix select of
    the wanted ranks) exactly equal to its plain version at 1 to 40000
    draws with ties, +-inf, -0.0 beside +0.0 and NaN columns, timed beside
-   its first version (scripts/older/serve_quantile.cu).
+   its first version (scripts/older/serve_quantile.cu); B10 (the bf16
+   tensor-core GEMM with float32 accumulation and output) within 1e-5 of
+   the sum of its terms' magnitudes at the policy'd paths' shapes, on
+   bf16-exact and general float32 operands, bit-identical reruns; the
+   bf16 forms of B4 (1e-4 relative, injected draws), B6 (1e-4), B8b at
+   alpha and B8c (1e-5) against their plain versions, each timed beside
+   its float32 form.
 3. Times: each kernel's device time per launch (torch.profiler, after
    warm-up) beside its plain version's device time per call, the one-call
    PyTorch yardstick where there is one, and the least time the card could
@@ -116,8 +122,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (alpha) within a stated margin of the JAX package's own value; and the
    alpha sampler, given an Eta drawn at an interior range on the 3a, 3b and
    3c levels, must draw around it.
-   Then a short torch.profiler window over ten sweeps of each but (g):
-   device time by kernel against the run's wall time.
+   j. the precision phase: the headline through ``sample_mcmc(...,
+      precision_policy="auto")`` (BetaLambda and GammaV in bf16: B10 two
+      launches a sweep, B4's bf16 form), its launches as the schedule
+      implies, slope recovery above 0.9 and the Beta z-scores against the
+      JAX package's float32 posterior as in (a); then, on the headline, NA,
+      3a, 3b, dense NNGP and 3c, one policy'd sweep against the float32
+      sweep from one mid-chain state on copies of one set of random
+      streams, the normalised deviation above 0 and at most
+      PRECISION_AGREEMENT_TOL (each policy'd block's printed beside the
+      port's precision_tolerance.json), B10 and the path's bf16 forms
+      launched.
+   Then a short torch.profiler window over ten sweeps of each but (g), and
+   of the headline under the policy: device time by kernel against the
+   run's wall time.
 6. One JSON line with every kernel's numbers, then the result line.
 
 It needs the repository (it imports ``hmsc_tpu_torch`` from beside itself)
@@ -3754,8 +3772,413 @@ def check_b9b(torch, tserve, dev, card, steps=3):
                 shape=[n, 64, ns, steps])
 
 
+# ---------------------------------------------------------------------------
+# the precision phase: B10, the bf16 forms, the policy'd paths
+# ---------------------------------------------------------------------------
+
+BF16_OPS_PER_S = 989e12          # H100 SXM bf16 on the tensor cores, dense
+
+
+def b10_cases(torch, dev, exact, seed=10):
+    """B10's products at the shapes the policy'd paths give it: label ->
+    (a, b).  ``exact``: float32 operands holding bfloat16 values (the sum
+    of exact products is then the only rounding), else general float32;
+    the staged operands are bfloat16 shadows either way."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rn(*s):
+        x = torch.randn(s, generator=g, device=dev)
+        return x.to(torch.bfloat16).float() if exact else x
+
+    C, ny, ns, P, nf = (HEADLINE["n_chains"], HEADLINE["ny"], HEADLINE["ns"],
+                        2 + HEADLINE["nf"], CONFIG3_NF)
+    XE, Z = rn(C, ny, P), rn(C, ny, ns)
+    E, lam = rn(C, 2, ns), rn(C, HEADLINE["nf"], ns)
+    n3a = 2 * CONFIG3["config3a"]["np"]          # 3a: 200 units x 2 rows
+    S3, lam3 = rn(C, n3a, CONFIG3_NS), rn(C, nf, CONFIG3_NS)
+    isig = rn(C, CONFIG3_NS).abs() + 0.5
+    eta = rn(C * nf, 1, CONFIG3["config3a"]["np"])
+    iW16 = rn(C * nf, CONFIG3["config3a"]["np"], CONFIG3["config3a"]["np"]
+              ).to(torch.bfloat16)
+    X16 = rn(n3a, 2).to(torch.bfloat16)
+    return {
+        "XE'Z (headline)": (XE.transpose(1, 2), Z),
+        "XE'XE (headline)": (XE.transpose(1, 2), XE),
+        "E E' (GammaV, nc 2)": (E, E.transpose(1, 2)),
+        "lam lam' (location, nf 8)": (lam, lam.transpose(1, 2)),
+        "X Beta (3a, X staged)": (X16, rn(C, 2, CONFIG3_NS)),
+        "(S iSigma) lam' (3a)": (S3 * isig[:, None, :], lam3.transpose(1, 2)),
+        "(lam iSigma) lam' (3a)": (lam3 * isig[:, None, :],
+                                   lam3.transpose(1, 2)),
+        "eta' iW (3a, iW staged)": (eta, iW16),
+        "odd shapes": (rn(3, 37, 61), rn(3, 61, 29)),
+    }
+
+
+def check_b10(torch, tmixed, dev, card):
+    """B10 (``ops/mixed.py · mixed_gemm``, ``csrc/mixed_gemm.cu``) against
+    its plain version (the operands rounded to bfloat16, widened, a float32
+    product) at ``b10_cases``: |kernel - plain| within 1e-5 of the sum of
+    the terms' magnitudes, on bf16-exact and general float32 operands;
+    reruns to the same bits.  Timed at the headline's XE'Z beside the
+    plain version and, where CUDA has it, ``torch.bmm(a_bf16, b_bf16,
+    out_dtype=torch.float32)``, the one-call yardstick (else the bf16-output
+    ``torch.bmm``, a different function, is timed and named so)."""
+    worst = 0.0
+    for exact in (True, False):
+        for label, (a, b) in b10_cases(torch, dev, exact).items():
+            k = tmixed.mixed_gemm(a, b)
+            p = tmixed._mixed_gemm_plain(a, b)
+            terms = (tmixed.round_bf16(a).double().abs()
+                     @ tmixed.round_bf16(b).double().abs())
+            err = ((k.double() - p.double()).abs() / terms.clamp_min(1e-30)
+                   ).max().item()
+            assert k.dtype == torch.float32 and torch.isfinite(k).all()
+            assert err <= 1e-5, f"B10 {label}: {err} of the terms > 1e-5"
+            assert torch.equal(k, tmixed.mixed_gemm(a, b)), \
+                f"B10 {label}: a rerun gave other bits"
+            worst = max(worst, (k - p).abs().max().item())
+            S, _ = tmixed.gemm_splits(k.numel() // (k.shape[-1] *
+                                                    k.shape[-2]),
+                                      a.shape[-2], b.shape[-1], a.shape[-1])
+            print(f"B10 check {label}, {'bf16-exact' if exact else 'float32'}"
+                  f" operands, {tuple(a.shape)} x {tuple(b.shape)} "
+                  f"({a.dtype} x {b.dtype}, {S} k splits): max |kernel - "
+                  f"plain| / the terms' magnitudes {err:.3g} (1e-5); two "
+                  f"runs bit-identical")
+    a, b = b10_cases(torch, dev, False)["XE'Z (headline)"]
+    nb, M, Kd = a.shape
+    N = b.shape[-1]
+
+    def kern():
+        tmixed.mixed_gemm(a, b)
+
+    def plain():
+        tmixed._mixed_gemm_plain(a, b)
+
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    lib_ms, lib_note = None, ""
+    try:
+        ref = torch.bmm(a16, b16, out_dtype=torch.float32)
+        assert ref.dtype == torch.float32
+        lib_ms = device_ms(torch, lambda: torch.bmm(a16, b16,
+                                                    out_dtype=torch.float32))
+        lib_note = (f"torch.bmm(bf16, bf16, out_dtype=float32) "
+                    f"{lib_ms:.5f} ms")
+    except (TypeError, RuntimeError, NotImplementedError, AssertionError) \
+            as exc:
+        bf16_out = device_ms(torch, lambda: torch.bmm(a16, b16))
+        lib_note = (f"no torch call with bf16 operands and float32 output "
+                    f"({type(exc).__name__}); torch.bmm on bf16 tensors, "
+                    f"bf16 output (a different function) {bf16_out:.5f} ms")
+    parts = [device_ms(torch, kern, m) for m in ("mixed_gemm_kernel",
+                                                 "mixed_gemm_sum_kernel")]
+    ms = sum(parts)
+    plain_ms = device_ms(torch, plain)
+    ev, held = event_ms(torch, kern), held_event_ms(torch, kern)
+    # bytes: both float32 operands read once, the float32 product written
+    # once; operations: a multiply-add a (batch, m, n, k) on the bf16 tensor
+    # cores
+    nbytes = 4.0 * nb * (M * Kd + Kd * N + M * N)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * nb * M * N * Kd / BF16_OPS_PER_S * 1e3
+    b_ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                            "operations")
+    S, _ = tmixed.gemm_splits(nb, M, N, Kd)
+    print(f"B10 mixed_gemm device time at the headline's XE'Z ({nb} x {M} x "
+          f"{Kd} by {Kd} x {N}, {S} k splits): {ms:.5f} ms ("
+          f"{parts[0]:.5f} + {parts[1]:.5f}; plain {plain_ms:.5f} ms; "
+          f"{lib_note}; bound {b_ms:.6f} ms by {by}; held stream "
+          f"{held:.5f} ms, with enqueue {ev:.4f} ms) [{card}]")
+    return dict(max_abs_err=worst, ms=ms, parts_ms=parts, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=by, library_ms=lib_ms, event_ms=ev,
+                held_ms=held, shape=[nb, M, Kd, N])
+
+
+def check_bf16_forms(torch, trand, tgram, tsp, dev, card):
+    """The bf16 forms of B4, B6, B8b (at alpha) and B8c, each against its
+    plain version on the same inputs: B4's (injected draws; the plain block
+    on the CPU, its products through B10's plain version) 1e-4 relative on
+    iV and Gamma; B6's species and row forms 1e-4 of max |plain|; B8c's
+    and B8b's bf16-grid forms 1e-5; reruns to the same bits; each timed
+    beside its float32 form.  Returns {kernel: {"bf16": numbers}}."""
+    out = {}
+    C = HEADLINE["n_chains"]
+    res = {}
+    for nc, nt, ns in B4_SHAPES[:2]:
+        args, df, noise = b4_inputs(torch, trand, dev, C, nc, nt, ns,
+                                    seed=nc * nt + 1)
+        Tr16 = args["Tr"].to(torch.bfloat16)
+        T = Tr16.float()
+        a16 = dict(args, TtT=T.T @ T)
+        iVk, Gk = trand.gamma_v(**a16, df=df, noise=noise, Tr16=Tr16)
+        cpu = lambda x: ({k: cpu(v) for k, v in x.items()}
+                         if isinstance(x, dict) else x.cpu())
+        iVp, Gp = trand.gamma_v_plain(**cpu(a16), df=df, noise=cpu(noise),
+                                      Tr16=Tr16.cpu())
+        rel = max(_rel(iVk.cpu(), iVp), _rel(Gk.cpu(), Gp))
+        assert rel <= 1e-4, f"B4 bf16 nc {nc}: rel diff {rel} > 1e-4"
+        iV32, G32 = trand.gamma_v(**args, df=df, noise=noise)
+        gap = _rel(Gk, G32)
+        assert gap > 0, "B4 bf16: the bf16 form gave the float32 bits"
+        again = trand.gamma_v(**a16, df=df, noise=noise, Tr16=Tr16)
+        assert torch.equal(again[0], iVk) and torch.equal(again[1], Gk)
+        rng = trand.Rng(33, dev)
+        ms = device_ms(torch, lambda: trand.gamma_v(**a16, df=df, rng=rng,
+                                                     Tr16=Tr16),
+                       "gamma_v_kernel")
+        ms32 = device_ms(torch, lambda: trand.gamma_v(**args, df=df,
+                                                       rng=rng),
+                         "gamma_v_kernel")
+        plain_ms = device_ms(torch, lambda: trand.gamma_v_plain(
+            **a16, df=df, rng=rng, Tr16=Tr16), calls=20)
+        n = nc * nt
+        nbytes = 4.0 * (C * nc * ns + ns * nt + 2 * C * nc * nt + nc * nc
+                        + nt * nt + n * n + n + C * nc * nc) + 2.0 * ns * nt
+        ops = C * (ns * (4 * nc * nt + nc * (nc + 1) + 2 * nc * nc)
+                   + 5 * nc ** 3 + 2 * n * n + n ** 3 / 3 + 4 * n * n
+                   + 180 * nc + 130 * (nc * (nc - 1) / 2 + n))
+        b, by = bound_ms(nbytes, ops)
+        print(f"B4 bf16 form, C {C}, nc {nc}, nt {nt}, ns {ns}: max relative "
+              f"|kernel - plain| on iV and Gamma {rel:.3g} (1e-4; plain on "
+              f"the CPU) with the same draws, {gap:.3g} from the float32 "
+              f"form's Gamma; reruns give the same bits; device time "
+              f"{ms:.5f} ms (float32 form {ms32:.5f}; the plain block on the "
+              f"card, its products through B10, {plain_ms:.5f}; bound "
+              f"{b:.6f} ms by {by}) [{card}]")
+        res[nc, nt, ns] = dict(rel_err=rel, ms=ms, f32_ms=ms32,
+                               plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                               shape=[C, nc, nt, ns])
+    out["gamma_v"] = {"bf16": res[B4_SHAPES[0]], "bf16_by_shape": {
+        f"nc {k[0]} nt {k[1]} ns {k[2]}": v for k, v in res.items()}}
+
+    ny, ns, nf = HEADLINE["ny"], HEADLINE["ns"], HEADLINE["nf"]
+    res = {}
+    for form, P in (("species", 2 + nf), ("row", nf)):
+        mask, XE, Z, lam, iSigma = gram_inputs(torch, dev, C, ny, ns, P,
+                                               seed=P + 50)
+        v, w, s_, a = ((XE, mask.T, Z.transpose(1, 2), None)
+                       if form == "species" else
+                       (lam.transpose(1, 2), mask, Z, iSigma))
+        Gk, Rk = tgram.masked_gram(v, w, s_, a, bf16=True)
+        sa = s_ if a is None else s_ * a[:, None, :]
+        Gp, Rp = tgram._masked_gram_bf16_plain(v, w, sa, a)
+        rels = (_rel(Gk, Gp), _rel(Rk, Rp))
+        assert max(rels) <= 1e-4, f"B6 bf16 {form}: rel diff {rels} > 1e-4"
+        G32, _ = tgram.masked_gram(v, w, s_, a)
+        gap = _rel(Gk, G32)
+        assert gap > 0, "B6 bf16: the bf16 form gave the float32 bits"
+        again = tgram.masked_gram(v, w, s_, a, bf16=True)
+        assert torch.equal(again[0], Gk) and torch.equal(again[1], Rk)
+        parts = [device_ms(torch, lambda: tgram.masked_gram(
+            v, w, s_, a, bf16=True), m) for m in (
+            "masked_gram_columns_kernel", "masked_gram_kernel",
+            "masked_gram_sum_kernel")]
+        ms = sum(parts)
+        ms32 = sum(device_ms(torch, lambda: tgram.masked_gram(v, w, s_, a),
+                             m) for m in ("masked_gram_columns_kernel",
+                                          "masked_gram_kernel",
+                                          "masked_gram_sum_kernel"))
+        plain_ms = device_ms(torch, lambda: tgram._masked_gram_bf16_plain(
+            v, w, sa, a), calls=10)
+        Cv, Kd, _ = v.shape
+        O = w.shape[0]
+        nbytes = 4.0 * (Cv * Kd * P + O * Kd + Cv * O * Kd + Cv * O * P * P
+                        + Cv * O * P + (0 if a is None else Cv * Kd))
+        b, by = bound_ms(nbytes, 2.0 * Cv * O * Kd * (P * (P + 1) / 2 + P))
+        print(f"B6 bf16 form, {form} (C {Cv}, O {O}, K {Kd}, P {P}): max "
+              f"|kernel - plain| / max |plain| {rels[0]:.3g} (G), "
+              f"{rels[1]:.3g} (R) (1e-4), {gap:.3g} from the float32 form's "
+              f"G; two runs bit-identical; device time {ms:.5f} ms "
+              f"({' + '.join(f'{x:.5f}' for x in parts)}; float32 form "
+              f"{ms32:.5f}; plain {plain_ms:.5f}; bound {b:.6f} ms by {by}) "
+              f"[{card}]")
+        res[form] = dict(rel_err=max(rels), ms=ms, f32_ms=ms32,
+                         plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                         shape=[Cv, O, Kd, P])
+    out["masked_gram"] = {"bf16": res["species"], "bf16_row": res["row"]}
+
+    n, k = CONFIG3["dense_nngp"]["np"], 10
+    lvd = nngp_level(torch, dev, n, k, 10.0, seed=n + 7)
+    g = torch.Generator(device=dev).manual_seed(n + 8)
+    alpha = torch.randint(0, B8_G, (B8_C, B8_NF), generator=g, device=dev,
+                          dtype=torch.int32)
+    c16, d16 = lvd.nn_coef.to(torch.bfloat16), lvd.nn_D.to(torch.bfloat16)
+    Wk = tsp.nngp_riw_dense(lvd, alpha, c16, d16)
+    Wp = tsp._nngp_riw_dense_plain(lvd, alpha, c16, d16)
+    err = _rel(Wk, Wp)
+    assert err <= 1e-5, f"B8c bf16: rel diff {err} > 1e-5"
+    assert torch.equal(Wk, tsp.nngp_riw_dense(lvd, alpha, c16, d16))
+    gap = _rel(Wk, tsp.nngp_riw_dense(lvd, alpha))
+    ms = device_ms(torch, lambda: tsp.nngp_riw_dense(lvd, alpha, c16, d16),
+                   "nngp_iw_kernel")
+    ms32 = device_ms(torch, lambda: tsp.nngp_riw_dense(lvd, alpha),
+                     "nngp_iw_kernel")
+    plain_ms = device_ms(torch, lambda: tsp._nngp_riw_dense_plain(
+        lvd, alpha, c16, d16), calls=10)
+    used = int(alpha.unique().numel())
+    nbytes = 2.0 * used * n * (k + 1) + 4.0 * (n * k + 2 * n + B8_C * B8_NF
+                                               * n * n)
+    b, by = bound_ms(nbytes, B8_C * B8_NF * n * (k + 1) ** 2 * 2.0)
+    print(f"B8c bf16-grid form, C {B8_C}, nf {B8_NF}, np {n}: max |kernel - "
+          f"plain| / max |plain| {err:.3g} (1e-5), {gap:.3g} from the "
+          f"float32 grids' iW; rerun bit-identical; device time {ms:.5f} ms "
+          f"(float32 grids {ms32:.5f}; plain {plain_ms:.5f}; bound {b:.6f} ms"
+          f" by {by}) [{card}]")
+    out["nngp_riw"] = {"bf16": dict(rel_err=err, ms=ms, f32_ms=ms32,
+                                    plain_ms=plain_ms, bound_ms=b,
+                                    bound_by=by, shape=[B8_C, B8_NF, n])}
+
+    n, k, side = B8_SHAPES[0]
+    lvd = nngp_level(torch, dev, n, k, side, seed=n + 9)
+    g = torch.Generator(device=dev).manual_seed(n + 10)
+    alpha = torch.randint(0, B8_G, (B8_C, B8_NF), generator=g, device=dev,
+                          dtype=torch.int32)
+    eta = torch.randn((B8_C, n, B8_NF), generator=g, device=dev)
+    c16, d16 = lvd.nn_coef.to(torch.bfloat16), lvd.nn_D.to(torch.bfloat16)
+    ak = tsp.nngp_quad_at(lvd, alpha, eta, c16, d16)
+    ap = tsp._nngp_quad_at_bf16_plain(lvd, alpha, eta, c16, d16)
+    e_q = ((ak[..., :2] - ap[..., :2]).abs() / ap[..., :2].abs()).max().item()
+    e_s = ((ak[..., 2] - ap[..., 2]).abs()
+           / (ap[..., 0] * ap[..., 1]).sqrt()).max().item()
+    assert max(e_q, e_s) <= 1e-5, f"B8b bf16: rel diff {e_q}, {e_s}"
+    assert torch.equal(ak, tsp.nngp_quad_at(lvd, alpha, eta, c16, d16))
+    gap = _rel(ak, tsp.nngp_quad_at(lvd, alpha, eta))
+    ms = device_ms(torch, lambda: tsp.nngp_quad_at(lvd, alpha, eta, c16,
+                                                   d16),
+                   "nngp_quad_at_kernel")
+    ms32 = device_ms(torch, lambda: tsp.nngp_quad_at(lvd, alpha, eta),
+                     "nngp_quad_at_kernel")
+    plain_ms = device_ms(torch, lambda: tsp._nngp_quad_at_bf16_plain(
+        lvd, alpha, eta, c16, d16), calls=10)
+    used = int(alpha.unique().numel())
+    nbytes = 2.0 * used * n * (k + 1) + 4.0 * (n * k + B8_C * n * B8_NF
+                                               + 3 * B8_C * B8_NF)
+    b, by = bound_ms(nbytes, B8_C * B8_NF * n * (2 * k + 12))
+    print(f"B8b at-alpha bf16-grid form, C {B8_C}, nf {B8_NF}, np {n}, k "
+          f"{k}: rel |kernel - plain| {e_q:.3g} (quadratics), {e_s:.3g} "
+          f"(1' iW eta) (1e-5), {gap:.3g} from the float32 grids'; rerun "
+          f"bit-identical; device time {ms:.5f} ms (float32 grids "
+          f"{ms32:.5f}; plain {plain_ms:.5f}; bound {b:.6f} ms by {by}) "
+          f"[{card}]")
+    out["nngp_quad"] = {"bf16_at": dict(rel_err=max(e_q, e_s), ms=ms,
+                                        f32_ms=ms32, plain_ms=plain_ms,
+                                        bound_ms=b, bound_by=by,
+                                        shape=[B8_C, B8_NF, n, k])}
+    return out
+
+
+def clone_rng(torch, trand, rng):
+    """An independent copy of a run's random streams at their state."""
+    new = trand.Rng.__new__(trand.Rng)
+    new.device = rng.device
+    new.gen = torch.Generator(device=rng.device)
+    new.gen.set_state(rng.gen.get_state())
+    new.host = torch.Generator()
+    new.host.set_state(rng.host.get_state())
+    return new
+
+
+def state_dev(torch, ref, other):
+    """Max over the state's float tensors of max |other - ref| / max |ref|
+    (the JAX package's ``_carry_dev``)."""
+    devs = []
+    for a, b in zip(ref.float_tensors(), other.float_tensors()):
+        if a.numel():
+            scale = max(a.abs().max().item(), 1e-6)
+            devs.append((b - a).abs().max().item() / scale)
+    return max(devs) if devs else 0.0
+
+
+PRECISION_WARM = 20              # float32 sweeps before the one-sweep check
+
+
+def policy_one_sweep(torch, ht, trand, K, card, label, hM, nf, n_chains,
+                     dev, seed=5):
+    """One sweep under ``precision_policy="auto"`` against the float32
+    sweep from one mid-chain state (``PRECISION_WARM`` float32 sweeps from
+    the initial state), both on copies of one set of random streams: the
+    normalised deviation (``state_dev``) must be finite, above 0 and at
+    most ``PRECISION_AGREEMENT_TOL``; each policy'd block's, measured on
+    the float32 chain's carry as the JAX package's
+    ``measure_policy_tolerance`` does, is printed beside the port's
+    ``precision_tolerance.json``.  The policy'd sweep's launches are
+    counted: B10's must be the schedule's (``expected_launches``); the
+    caller checks the path's bf16 forms."""
+    from hmsc_tpu_torch.mcmc import precision as tprec
+    from hmsc_tpu_torch.mcmc import sampler as tsampler
+    from hmsc_tpu_torch.mcmc import structs as tstructs
+    from hmsc_tpu_torch.mcmc import sweep as tsweep
+    from hmsc_tpu_torch.mcmc.updaters import update_z
+    from hmsc_tpu_torch.ops import mixed
+    from hmsc_tpu_torch.precompute import compute_data_parameters
+
+    spec = tstructs.build_spec(hM, nf)
+    tstructs.check_supported(hM, spec)
+    data = tstructs.build_model_data(hM, compute_data_parameters(hM), spec,
+                                     dev)
+    state, _ = tsampler.initial_states(hM, spec, seed, n_chains, dev)
+    rng = trand.Rng(seed, dev)
+    zeros = tuple(0 for _ in range(spec.nr))
+    f32 = tsweep.make_sweep(spec, adapt_nf=zeros)
+    state = update_z(spec, data, state, rng)
+    for it in range(PRECISION_WARM):
+        state = f32(data, state, rng, it=it + 1)
+    policy = tprec.resolve_policy("auto", spec)
+    staged = tprec.stage_data(data, policy)
+    tol = tprec.load_tolerance()["models"][tprec.classify_spec(spec)]
+    # each policy'd block on the float32 chain's carry
+    steps_f = tsweep.make_sweep_schedule(spec, None, zeros)
+    steps_m = dict(tsweep.make_sweep_schedule(spec, None, zeros,
+                                              precision=policy))
+    carry = (tsweep.sweep_prologue(state), None)
+    blocks = {}
+    for name, blk in steps_f:
+        r = clone_rng(torch, trand, rng)
+        nxt = blk(data, carry, r, None)
+        if policy.dtype_for(name) is not None:
+            with mixed.staged_scope(staged):
+                mp = steps_m[name](data, carry, clone_rng(torch, trand, rng),
+                                   None)
+            blocks[name] = state_dev(torch, nxt[0], mp[0])
+        rng, carry = r, nxt
+    # the whole sweep, from the same state on copies of the same streams
+    ref = f32(data, state, clone_rng(torch, trand, rng),
+              it=PRECISION_WARM + 1)
+    mp_sweep = tsweep.make_sweep(spec, adapt_nf=zeros, precision=policy,
+                                 staged=staged)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    K.reset_launches()
+    out = mp_sweep(data, state, clone_rng(torch, trand, rng),
+                   it=PRECISION_WARM + 1)
+    sync()
+    launches = {k: v for k, v in K.launches.items() if v}
+    dev_sweep = state_dev(torch, ref, out)
+    block_txt = ", ".join(
+        f"{n} {d:.3g} (JAX record {tol['blocks'][n]['max_rel']})"
+        for n, d in blocks.items())
+    print(f"precision one-sweep {label}: policy {policy.blocks}, staged "
+          f"{sorted(staged)}; per block {block_txt}; whole sweep "
+          f"{dev_sweep:.4g} (0 < it <= {tprec.PRECISION_AGREEMENT_TOL}; "
+          f"JAX record {tol['sweep_max_rel']}); the policy'd sweep's "
+          f"launches {launches} [{card}]")
+    assert math.isfinite(dev_sweep) and all(math.isfinite(d)
+                                            for d in blocks.values()), \
+        f"{label}: a non-finite deviation {dev_sweep}, {blocks}"
+    assert 0 < dev_sweep <= tprec.PRECISION_AGREEMENT_TOL, \
+        f"{label}: one-sweep deviation {dev_sweep}"
+    want = expected_launches(spec, 1, 0, 1, zeros, hM,
+                             policy=policy)["mixed_gemm"]
+    assert launches.get("mixed_gemm", 0) == want, \
+        f"{label}: B10 launched {launches.get('mixed_gemm', 0)} times in " \
+        f"the policy'd sweep, the schedule implies {want}"
+    return dict(policy=policy.blocks, blocks=blocks, sweep=dev_sweep,
+                launches=launches)
+
+
 def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
-                      cg_loop=(), updater=None):
+                      cg_loop=(), updater=None, policy=None):
     """Kernel launches the sweep schedule implies: Z once at start and once
     a sweep: on a model with Poisson columns the whole Z update is B5's
     mixed form (``updaters.mixed_z``: no B1 launch), else for probit
@@ -3780,7 +4203,17 @@ def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
     the per-unit blocks (B8d-1) and the knot correction (B8d-2) of the Eta
     draw, and the three quadratics as on NNGP (B8d-3).  With
     ``updater={"InterweaveDA": True}`` on a probit model with an intercept,
-    the DA intercept draw each sweep (B7)."""
+    the DA intercept draw each sweep (B7).
+
+    Under a bf16 ``policy`` (``precision.resolve_policy``): B10 each sweep
+    for each routed product of a policy'd block (BetaLambda's XE'XE and
+    XE'Z without missing values, B6's bf16 form with them; GammaV's E E',
+    iV Beta and (iV Beta) Tr where B4 does not take the block; the Eta
+    block's X Beta, each level's two grams without missing values and its
+    loadings; the location interweave's lam lam' and lam u a level, and a
+    Full level's scale quadratic); a bf16 Eta block forms E, so Z's
+    sweeps take B1's E-reading form (the start's Z update keeps the fused
+    one)."""
     from hmsc_tpu_torch.mcmc import spatial as tspatial
     from hmsc_tpu_torch.mcmc import updaters as tupd
     from hmsc_tpu_torch.mcmc.structs import _find_ones_column
@@ -3802,9 +4235,26 @@ def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
     da = bool((updater or {}).get("InterweaveDA")) and spec.any_probit \
         and ones
     fused, mixed = tupd.fused_z(spec), tupd.mixed_z(spec)
-    return {"probit_z": (1 + sweeps) * spec.any_probit * (not fused)
-            * (not mixed),
-            "probit_z_fused": (1 + sweeps) * fused,
+    bf = (lambda b: policy is not None and policy.dtype_for(b)
+          == "bfloat16")
+    eta_block = "EtaSpatial" if any(ls.spatial for ls in spec.levels) \
+        else "Eta"
+    fused_sweep = fused and not bf(eta_block)
+    b10 = 0
+    if bf("BetaLambda"):
+        b10 += 2 * (not spec.has_na)
+    if bf("GammaV"):
+        b10 += 3 * (not gv)
+    if bf(eta_block) and spec.nr:
+        b10 += 1 + 2 * spec.nr * (not spec.has_na) + spec.nr * (
+            1 + (spec.nr > 1))
+    if bf("Interweave") and spec.nr:
+        b10 += 2 * spec.nr * ones + sum(ls.spatial == "Full"
+                                        for ls in spec.levels)
+    return {"probit_z": (int(not fused) + sweeps * (not fused_sweep))
+            * spec.any_probit * (not mixed),
+            "probit_z_fused": int(fused) + sweeps * fused_sweep,
+            "mixed_gemm": sweeps * b10,
             "mvn_prec_small": sweeps * systems,
             "standard_gamma": sweeps * per_sweep_gamma + 2 * nf_sweeps,
             "shrinkage_gamma": sweeps * spec.nr,
@@ -3823,13 +4273,14 @@ def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
 
 
 def profile_sweeps(torch, ht, hM, card, label, n_chains, nf, sweeps=10,
-                   updater=None):
+                   updater=None, precision_policy=None):
     """Where a path's sweep time goes: device time by kernel name over a
     short profiled run (torch.profiler), against the run's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     kw = dict(samples=sweeps, transient=0, n_chains=n_chains, seed=2,
-              nf_cap=nf, align_post=False, updater=updater)
+              nf_cap=nf, align_post=False, updater=updater,
+              precision_policy=precision_policy)
     ht.sample_mcmc(hM, **kw)                      # warm the same shapes
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3847,23 +4298,25 @@ def profile_sweeps(torch, ht, hM, card, label, n_chains, nf, sweeps=10,
 
 
 def run_path(torch, ht, K, card, label, hM, n_chains, nf, transient,
-             samples, seed, updater=None):
+             samples, seed, updater=None, precision_policy=None):
     """One main path through ``sample_mcmc`` with every launch counter set
     to 0 just before and read just after; each count must equal the one
     the schedule implies.  Returns the posterior and the counts."""
+    from hmsc_tpu_torch.mcmc.precision import resolve_policy
     from hmsc_tpu_torch.mcmc.structs import build_spec
 
     torch.cuda.synchronize()
     K.reset_launches()
     post = ht.sample_mcmc(hM, samples=samples, transient=transient,
                           n_chains=n_chains, seed=seed, nf_cap=nf,
-                          updater=updater)
+                          updater=updater, precision_policy=precision_policy)
     torch.cuda.synchronize()
     launches = dict(K.launches)
     spec = build_spec(hM, nf)
     want = expected_launches(spec, transient, samples, 1,
                              (transient,) * spec.nr, hM,
-                             post.cg_iterations["loop"], updater)
+                             post.cg_iterations["loop"], updater,
+                             resolve_policy(precision_policy, spec))
     beta = post["Beta"]
     assert beta.shape == (n_chains, samples, spec.nc, spec.ns), label
     assert np.isfinite(beta).all(), f"{label}: non-finite Beta"
@@ -4163,6 +4616,7 @@ def main() -> int:
     from hmsc_tpu_torch import kernels as K
     from hmsc_tpu_torch.ops import gram as tgram
     from hmsc_tpu_torch.ops import linalg as tlinalg
+    from hmsc_tpu_torch.ops import mixed as tmixed
     from hmsc_tpu_torch.ops import rand as trand
     from hmsc_tpu_torch.ops import serve as tserve
     from hmsc_tpu_torch.ops import spatial as tsp
@@ -4191,7 +4645,11 @@ def main() -> int:
                "truncnorm_da": check_b7(torch, trand, dev, card),
                "serve_predict": check_b9a(torch, tserve, K, dev, card),
                "serve_quantile": check_b9c(torch, tserve, dev, card),
-               "serve_conditional": check_b9b(torch, tserve, dev, card)}
+               "serve_conditional": check_b9b(torch, tserve, dev, card),
+               "mixed_gemm": check_b10(torch, tmixed, dev, card)}
+    for name, extra in check_bf16_forms(torch, trand, tgram, tsp, dev,
+                                        card).items():
+        results[name].update(extra)
 
     # recovery: posterior-mean slopes against the simulated ones
     X, Y, Beta = simulate_probit(200, 30, seed=3)
@@ -4259,6 +4717,36 @@ def main() -> int:
     spatial = spatial_paths(torch, ht, K, card, by_path)
     check_alpha_planted(torch, ht, card)
 
+    # (j) the precision phase: the headline fitted under the default
+    # mixed-precision policy (B10, B4's bf16 form), then one policy'd sweep
+    # against the float32 sweep on six paths
+    post_p, by_path["headline_auto"] = run_path(
+        torch, ht, K, card, "headline_auto", hM, h["n_chains"], h["nf"],
+        h["transient"], h["samples"], seed=HEADLINE_SEED,
+        precision_policy="auto")
+    assert post_p.precision_policy["blocks"] == ["BetaLambda", "GammaV"]
+    corr = slope_corr(post_p, Beta_h)
+    assert corr > 0.9, f"headline_auto: slope correlation {corr} <= 0.9"
+    print(f"headline_auto recovery: corr(posterior-mean slopes, simulated) "
+          f"= {corr:.4f} (> 0.9); policy {post_p.precision_policy}")
+    check_headline_parity(post_p, card)
+    del post_p
+    one_sweep = {}
+    for label, m, n_chains, nf in (
+            ("headline", hM, h["n_chains"], h["nf"]),
+            ("na_headline", hM_na, na["n_chains"], na["nf"]),
+            *((name, spatial[name], CONFIG3[name]["n_chains"], CONFIG3_NF)
+              for name in ("config3a", "config3b", "dense_nngp",
+                           "config3c"))):
+        one_sweep[label] = policy_one_sweep(torch, ht, trand, K, card, label,
+                                            m, nf, n_chains, dev)
+    for label, kern in (("na_headline", "masked_gram"),
+                        ("dense_nngp", "nngp_riw"), ("config3b", "nngp_quad"),
+                        ("headline", "gamma_v")):
+        n = one_sweep[label]["launches"].get(kern, 0)
+        assert n > 0, f"{label}: the policy'd sweep never launched {kern}"
+        results[kern]["bf16_launches_one_sweep"] = {label: n}
+
     # (i) serving the headline posterior
     by_path["serve"], _ = serve_path(torch, ht, K, card, post_h, hM)
     del post_h
@@ -4279,6 +4767,8 @@ def main() -> int:
         profile_sweeps(torch, ht, m, card, label, n_chains, nf)
     profile_sweeps(torch, ht, hM, card, "da_headline", da["n_chains"],
                    da["nf"], updater=da_upd)
+    profile_sweeps(torch, ht, hM, card, "headline_auto", h["n_chains"],
+                   h["nf"], precision_policy="auto")
 
     # kernel -> (label, source, the TPU op it replaces, the path whose
     # launches the line reports: the first that runs it)
@@ -4329,6 +4819,8 @@ def main() -> int:
         "serve_conditional": ("B9b serve_conditional",
                               "hmsc_tpu_torch/csrc/serve_conditional.cu",
                               "hmsc_tpu/serve/kernels.py:255", "serve"),
+        "mixed_gemm": ("B10 mixed_gemm", "hmsc_tpu_torch/csrc/mixed_gemm.cu",
+                       "hmsc_tpu/ops/mixed.py:121", "headline_auto"),
     }
     assert set(meta) == set(K.KERNELS) == set(results)
     kernels = []

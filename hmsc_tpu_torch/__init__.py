@@ -12,8 +12,9 @@ This slice samples normal, probit, Poisson and lognormal-Poisson JSDMs
 (any mix of them across species), with missing values in Y, a design
 matrix, optional traits, and unstructured or spatial (``Full``, ``NNGP``
 and ``GPP``) random levels (``sample_mcmc``), with the opt-in probit-DA
-intercept interweave (``updater={"InterweaveDA": True}``), and predicts from
-and serves the fitted posterior (``predict``, ``ServingEngine``, compacted
+intercept interweave (``updater={"InterweaveDA": True}``) and the JAX
+package's per-block mixed-precision policy (``precision_policy=``), and
+predicts from and serves the fitted posterior (``predict``, ``ServingEngine``, compacted
 serving artifacts in the JAX package's format, ``python -m hmsc_tpu_torch
 serve <artifact>``).  Entry points run on the CUDA card unless the caller
 passes ``device="cpu"``; features of later slices raise

@@ -61,7 +61,19 @@
 // ~2 and Gamma | Beta ~2 (an H100 SXM at 700 W, scripts/gamma_v_sweep.py);
 // the cap (nc 16, nt 4, ns 5000) takes ~0.16 ms on one SM a chain, most of
 // it the species pass.
+//
+// The bf16 form (a non-null Tr16, the bfloat16 shadow of Tr: the GammaV
+// block under a precision policy, hmsc_tpu/mcmc/updaters.py:444-512 with
+// every mx product bf16 in, float32 out) rounds exactly where the JAX mx
+// calls round: E, formed in float32 from the float32 Tr, is rounded for
+// E E'; iV and Beta are rounded for iV Beta, that float32 product is
+// rounded again for (iV Beta) Tr with Tr read from its shadow, a second
+// species pass after the Wishart draw (the float32 form sums Beta Tr in
+// the first pass and multiplies by iV after); Tr'Tr comes in from the
+// caller, formed once a run from the shadow.  Both factorisations, the
+// Bartlett draws and the Gaussian draw stay float32.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "gamma.cuh"
@@ -83,6 +95,7 @@ struct GammaVArgs {
   const float* Beta;     // (C, nc, ns)
   const float* Gamma;    // (C, nc, nt)
   const float* Tr;       // (ns, nt)
+  const __nv_bfloat16* Tr16;  // (ns, nt) the bf16 form's shadow, or null
   const float* V0;       // (nc, nc)
   const float* TtT;      // (nt, nt)
   const float* iUG;      // (n, n), n = nc nt
@@ -176,13 +189,21 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// x rounded to bfloat16 (nearest even) and widened: what an mx product
+// reads
+__device__ __forceinline__ float rd(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 gamma_v_kernel(const GammaVArgs a) {
   extern __shared__ float sm[];
   const int nc = a.nc, nt = a.nt, ns = a.ns, n = nc * nt, CH = a.chunk;
   const int c = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nA = nc * (nc + 1) / 2, nout = nA + nc * nt;
+  // the first pass's entries: A's lower triangle, then (float32 form) BT
+  const int nA = nc * (nc + 1) / 2, nout = nA + (kBf16 ? 0 : nc * nt);
   // the staging area, reused for the (n, n + 1) precision afterwards
   const int stage = (2 * nc + nt) * CH;
   const int region = stage > n * (n + 1) ? stage : n * (n + 1);
@@ -252,7 +273,8 @@ gamma_v_kernel(const GammaVArgs a) {
       const int r = t / len, j = t - r * len;
       float g = Gs[r * nt] * Ts[j];
       for (int u = 1; u < nt; ++u) g = fmaf(Gs[r * nt + u], Ts[u * CH + j], g);
-      Es[r * CH + j] = Bs[r * CH + j] - g;
+      const float ev = Bs[r * CH + j] - g;
+      Es[r * CH + j] = kBf16 ? rd(ev) : ev;
     }
     __syncthreads();
     // an entry at a time, a lane's species in order (with a lane's species
@@ -336,22 +358,81 @@ gamma_v_kernel(const GammaVArgs a) {
   __syncthreads();
   // the rest on the first one or two warps, joined by rows_sync
   const int rows = n <= 32 ? 32 : 64;
+  if (tid < rows) {
+    for (int t = tid; t < nc * nc; t += rows) {         // T B
+      const int r = t / nc, k = t - r * nc;
+      float s = Tm[r * nc] * Bb[k];
+      for (int m = 1; m < nc; ++m) s = fmaf(Tm[r * nc + m], Bb[m * nc + k], s);
+      TA[t] = s;
+    }
+    rows_sync(rows);
+    float* iV = a.iV + static_cast<long long>(c) * nc * nc;
+    for (int t = tid; t < nc * nc; t += rows) {         // (T B)(T B)'
+      const int r = t / nc, k = t - r * nc;
+      float s = TA[r * nc] * TA[k * nc];
+      for (int m = 1; m < nc; ++m) s = fmaf(TA[r * nc + m], TA[k * nc + m], s);
+      iVs[t] = s;
+      iV[t] = s;
+    }
+  }
+  if constexpr (kBf16) {
+    // (iV Beta) Tr as the mx calls round it, a second species pass with
+    // every thread: W = rd(rd(iV) rd(Beta)) a (covariate, species) entry
+    // (over the covariates in order), then BT[r, u] = sum_j W[r, j]
+    // rd(Tr[j, u]) warp-owned as in the first pass; Beta is still staged
+    // where one pass held every species
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < kMaxEntries; ++q) acc[q] = 0.0f;
+    for (int j0 = 0; j0 < ns; j0 += CH) {
+      const int len = min(CH, ns - j0);
+      if (CH < ns) {
+        for (int r = 0; r < nc; ++r)
+          for (int j = tid; j < len; j += kThreads)
+            cp_async4(Bs + r * CH + j,
+                      Beta + static_cast<long long>(r) * ns + j0 + j);
+        cp_async_wait_all();
+        __syncthreads();
+      }
+      for (int t = tid; t < nc * len; t += kThreads) {
+        const int r = t / len, j = t - r * len;
+        float s = 0.0f;
+        for (int k = 0; k < nc; ++k)
+          s = fmaf(rd(iVs[r * nc + k]), rd(Bs[k * CH + j]), s);
+        Es[r * CH + j] = rd(s);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int q = 0; q < kMaxEntries; ++q) {
+        const int e = warp + q * kWarps;
+        if (e < nc * nt) {
+          const int r = e / nt, u = e - r * nt;
+          const float* w = Es + r * CH;
+          float acc_q = acc[q];
+          for (int j = lane; j < len; j += 32)
+            acc_q = fmaf(w[j],
+                         __bfloat162float(a.Tr16[static_cast<long long>(
+                                                     j0 + j) * nt + u]),
+                         acc_q);
+          acc[q] = acc_q;
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int q = 0; q < kMaxEntries; ++q) {
+      const int e = warp + q * kWarps;
+      if (e < nc * nt) {
+        float s = acc[q];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          s += __shfl_xor_sync(0xffffffffu, s, o);
+        if (lane == 0) BTs[e] = s;
+      }
+    }
+    __syncthreads();
+  }
   if (tid >= rows) return;
-  for (int t = tid; t < nc * nc; t += rows) {           // T B
-    const int r = t / nc, k = t - r * nc;
-    float s = Tm[r * nc] * Bb[k];
-    for (int m = 1; m < nc; ++m) s = fmaf(Tm[r * nc + m], Bb[m * nc + k], s);
-    TA[t] = s;
-  }
-  rows_sync(rows);
-  float* iV = a.iV + static_cast<long long>(c) * nc * nc;
-  for (int t = tid; t < nc * nc; t += rows) {           // (T B)(T B)'
-    const int r = t / nc, k = t - r * nc;
-    float s = TA[r * nc] * TA[k * nc];
-    for (int m = 1; m < nc; ++m) s = fmaf(TA[r * nc + m], TA[k * nc + m], s);
-    iVs[t] = s;
-    iV[t] = s;
-  }
   rows_sync(rows);
 
   // Gamma | Beta, iV: the (n, n) precision, entry (u nc + r, w nc + k)
@@ -365,9 +446,14 @@ gamma_v_kernel(const GammaVArgs a) {
   if (tid < n) {
     zp = es[tid];
     const int u = tid / nc, r = tid - u * nc;
-    float s = iVs[r * nc] * BTs[u];
-    for (int k = 1; k < nc; ++k) s = fmaf(iVs[r * nc + k], BTs[k * nt + u], s);
-    rp = iUGmGs[tid] + s;
+    if constexpr (kBf16) {
+      rp = iUGmGs[tid] + BTs[r * nt + u];     // ((iV Beta) Tr)[r, u]
+    } else {
+      float s = iVs[r * nc] * BTs[u];
+      for (int k = 1; k < nc; ++k)
+        s = fmaf(iVs[r * nc + k], BTs[k * nt + u], s);
+      rp = iUGmGs[tid] + s;
+    }
   }
   rows_sync(rows);
   chol_rows(Ps, ld, n, invp, tid, rows);
@@ -397,8 +483,10 @@ gamma_v_kernel(const GammaVArgs a) {
 
 // One launch for C chains, a block of 512 threads each.  nc <= 16 and
 // nc nt <= 64 (ops/rand.py · gamma_v_route); offsets: gamma, normal, eps.
+// Tr16 non-null: the bf16 form (TtT then Tr'Tr of the rounded Tr).
 extern "C" int hmsc_gamma_v(const float* Beta, const float* Gamma,
-                            const float* Tr, const float* V0,
+                            const float* Tr, const __nv_bfloat16* Tr16,
+                            const float* V0,
                             const float* TtT, const float* iUG,
                             const float* iUGmG, const float* normal,
                             const float* gamma, const float* eps, float* iV,
@@ -420,15 +508,16 @@ extern "C" int hmsc_gamma_v(const float* Beta, const float* Gamma,
   const size_t smem = sizeof(float) *
       (static_cast<size_t>(region) + 6 * nc * nc + 2 * nc * nt + nc + 4 * n +
        nt * nt + n * n);
+  auto kernel = Tr16 ? gamma_v_kernel<true> : gamma_v_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gamma_v_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  GammaVArgs a{Beta, Gamma, Tr, V0, TtT, iUG, iUGmG, normal, gamma, eps,
-               iV, Gamma_out, nc, nt, ns, chunk, df, hmsc::seed_key(seed),
-               off_gamma, off_normal, off_eps};
-  gamma_v_kernel<<<C, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  GammaVArgs a{Beta, Gamma, Tr, Tr16, V0, TtT, iUG, iUGmG, normal, gamma,
+               eps, iV, Gamma_out, nc, nt, ns, chunk, df,
+               hmsc::seed_key(seed), off_gamma, off_normal, off_eps};
+  kernel<<<C, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

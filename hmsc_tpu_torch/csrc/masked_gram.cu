@@ -58,7 +58,18 @@
 //   at about half the float32 rate (the weights' shared-memory loads), and
 //   the staging of each k tile and the two small kernels around it take
 //   about a third of the time (scripts/gram_tile_sweep.py times the tiles).
+//
+// The bf16 form (`bf16` 1: the masked mx einsums of a policy'd block,
+// bf16 operands, float32 accumulation) rounds each operand as the JAX
+// package forms it before its mx call, w being a 0/1 mask (exact):
+//   G[c,o] = sum_k w[o,k] rd(a[c,k]) rd(v[c,k]) rd(v[c,k])',
+//   R[c,o] = sum_k w[o,k] rd(s[c,o,k]) rd(v[c,k]),
+// with a kept out of R: the per-row form's caller passes s = S iSigma,
+// formed in float32 (the JAX package's S * iSigma * Ymask, rounded).  The
+// products of three bfloat16 values are exact in float32, so only the
+// order of the sums differs from the float32 form's arithmetic.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -88,8 +99,13 @@ struct Args {
   const float* s; long long s_sc, s_so, s_sk;
   const float* B;                    // (C, T, K, kB) column operand
   float* partial;                    // (S, C, O, T kB)
-  int C, O, K, chunk, T, w_mode, s_mode;
+  int C, O, K, chunk, T, w_mode, s_mode, bf16;
 };
+
+// x rounded to bfloat16 (nearest even) and widened
+__device__ __forceinline__ float rd(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
 
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool ok) {
@@ -146,7 +162,7 @@ __global__ void masked_gram_columns_kernel(
     long long v_sp, const float* __restrict__ a, long long a_sc,
     long long a_sk, const int* __restrict__ colp,
     const int* __restrict__ colq, float* __restrict__ B, int C, int K,
-    int P, int NG, int T) {
+    int P, int NG, int T, int bf16) {
   const int kB = (NG + 1) * kSlot, n_pair = P * (P + 1) / 2;
   const long long total = static_cast<long long>(C) * T * K * kB;
   const long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
@@ -158,14 +174,22 @@ __global__ void masked_gram_columns_kernel(
   const int c = ct / T, t = ct % T;
   const float* vk = v + c * v_sc + k * v_sk;
   float x = 0.0f;
-  if (j < NG * kSlot) {
+  const bool gram = j < NG * kSlot;
+  if (gram) {
     const int col = t * NG * kSlot + j;
-    if (col < n_pair) x = vk[colp[col] * v_sp] * vk[colq[col] * v_sp];
+    if (col < n_pair) {
+      const float vp = vk[colp[col] * v_sp], vq = vk[colq[col] * v_sp];
+      x = bf16 ? rd(vp) * rd(vq) : vp * vq;
+    }
   } else {
     const int p = t * kSlot + j - NG * kSlot;
-    if (p < P) x = vk[p * v_sp];
+    if (p < P) x = bf16 ? rd(vk[p * v_sp]) : vk[p * v_sp];
   }
-  if (a != nullptr) x *= a[c * a_sc + k * a_sk];
+  // the bf16 form keeps a out of R's columns (its caller folds a into s)
+  if (a != nullptr && (gram || !bf16)) {
+    const float av = a[c * a_sc + k * a_sk];
+    x *= bf16 ? rd(av) : av;
+  }
   B[e] = x;
 }
 
@@ -248,6 +272,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         s4 = make_float4(Sr[kk * kRawO + ol], Sr[(kk + 1) * kRawO + ol],
                          Sr[(kk + 2) * kRawO + ol], Sr[(kk + 3) * kRawO + ol]);
       }
+      if (A.bf16) s4 = make_float4(rd(s4.x), rd(s4.y), rd(s4.z), rd(s4.w));
       const float4 ws = make_float4(w4.x * s4.x, w4.y * s4.y, w4.z * s4.z,
                                     w4.w * s4.w);
       if (wk) {
@@ -372,7 +397,7 @@ extern "C" int hmsc_masked_gram(const float* v, long long v_sc,
                                 const int* colp, const int* colq, float* B,
                                 float* partial, float* G, float* R, int C,
                                 int O, int K, int P, int NG, int T, int S,
-                                int chunk, void* stream) {
+                                int chunk, int bf16, void* stream) {
   if (NG < 1 || NG > kMaxSlots || T < 1 || S < 1 || chunk < 1 ||
       chunk % kBK != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -392,13 +417,13 @@ extern "C" int hmsc_masked_gram(const float* v, long long v_sc,
     masked_gram_columns_kernel<<<static_cast<unsigned>((n_b + 255) / 256),
                                  256, 0, st>>>(v, v_sc, v_sk, v_sp, a, a_sc,
                                                a_sk, colp, colq, B, C, K, P,
-                                               NG, T);
+                                               NG, T, bf16);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const Args A{w, w_so, w_sk, s, s_sc, s_so, s_sk, B, partial,
                C, O, K, chunk, T,
-               mode(w, w_so, w_sk, 0), mode(s, s_so, s_sk, s_sc)};
+               mode(w, w_so, w_sk, 0), mode(s, s_so, s_sk, s_sc), bf16};
   cudaError_t err;
   switch (NG) {
     case 1: err = launch<1>(A, S, st); break;

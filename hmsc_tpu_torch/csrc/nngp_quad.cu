@@ -51,8 +51,17 @@
 //   - every sum is taken in a fixed order (a thread over its units in
 //     order; fixed shuffle patterns; the warps in order; the cluster's
 //     blocks in rank order), no atomics, so reruns give the same bits.
+//
+// The at-alpha mode's bf16-grid form (`bf16` 1: the interweaving moves
+// under a precision policy, hmsc_tpu/mcmc/spatial.py:454-462, 502-518 with
+// the grids staged) reads the bfloat16 shadows of the coefficient grid and
+// the variances as they are and rounds as the JAX package's mx einsum
+// does: the neighbours' eta rounded to bfloat16 in the prediction (the
+// unit's own eta is not), float32 sums, and sqrt(D) rounded to bfloat16
+// (jnp.sqrt of a bfloat16 array) in the ones-forms.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -239,14 +248,32 @@ nngp_quad_grid_kernel(const GridArgs a) {
 struct AtArgs {
   const float* eta;               // (C, np, nf)
   const int* nn;                  // (np, k)
-  const float* coef;              // (G, np, k)
-  const float* D;                 // (G, np)
+  const void* coef;               // (G, np, k), float32 or bfloat16
+  const void* D;                  // (G, np), likewise
   const int* alpha;
   float* out;                     // (C nf, 3)
   int np, nf, k, S, units;
 };
 
-template <int T>
+// element i of a float32 or (kBf16) bfloat16 grid, widened
+template <bool kBf16>
+__device__ __forceinline__ float grid_at(const void* p, long long i) {
+  if constexpr (kBf16)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+  else
+    return __ldg(static_cast<const float*>(p) + i);
+}
+
+// x rounded to bfloat16 (nearest even) and widened, in the bf16 form
+template <bool kBf16>
+__device__ __forceinline__ float rd(float x) {
+  if constexpr (kBf16)
+    return __bfloat162float(__float2bfloat16_rn(x));
+  else
+    return x;
+}
+
+template <int T, bool kBf16>
 __global__ void __launch_bounds__(T)
 nngp_quad_at_kernel(const AtArgs a) {
   __shared__ float red[3][T / 32];
@@ -258,16 +285,15 @@ nngp_quad_at_kernel(const AtArgs a) {
   const int col = blockIdx.x / S;               // c * nf + f
   const int c = col / nf, f = col % nf;
   const long long al = __ldg(a.alpha + col);
-  const float* Aa = a.coef + al * a.np * k;
-  const float* Da = a.D + al * a.np;
+  const long long Aa = al * a.np * k, Da = al * a.np;
   const float* E = a.eta + static_cast<long long>(c) * a.np * nf + f;
   const int u0 = rank * a.units;
   const int u1 = min(a.np, u0 + a.units);
   float q = 0.0f, q1 = 0.0f, s = 0.0f;
   for (int i = u0 + threadIdx.x; i < u1; i += T) {
     const int* nb = a.nn + static_cast<long long>(i) * k;
-    const float* Ai = Aa + static_cast<long long>(i) * k;
-    const float d = __ldg(Da + i);
+    const long long Ai = Aa + static_cast<long long>(i) * k;
+    const float d = grid_at<kBf16>(a.D, Da + i);
     const float own = __ldg(E + static_cast<long long>(i) * nf);
     float pred = 0.0f, csum = 0.0f;
     for (int k0 = 0; k0 < k; k0 += kUnroll) {
@@ -277,17 +303,19 @@ nngp_quad_at_kernel(const AtArgs a) {
       for (int t = 0; t < kUnroll; ++t) {
         const bool in = k0 + t < k;
         j[t] = in ? __ldg(nb + k0 + t) : 0;
-        A[t] = in ? __ldg(Ai + k0 + t) : 0.0f;
+        A[t] = in ? grid_at<kBf16>(a.coef, Ai + k0 + t) : 0.0f;
       }
 #pragma unroll
       for (int t = 0; t < kUnroll; ++t) {
-        pred = fmaf(A[t], __ldg(E + static_cast<long long>(j[t]) * nf), pred);
+        pred = fmaf(A[t],
+                    rd<kBf16>(__ldg(E + static_cast<long long>(j[t]) * nf)),
+                    pred);
         csum += A[t];
       }
     }
     const float res = own - pred;
     q += res * res / d;
-    const float sq = sqrtf(d);
+    const float sq = rd<kBf16>(sqrtf(d));
     const float r1 = (1.0f - csum) / sq;
     const float re = res / sq;
     q1 += r1 * r1;
@@ -389,12 +417,13 @@ extern "C" int hmsc_nngp_quad_grid(const float* eta, const int* nn_u,
 // At-alpha mode: out (C nf, 3) = (q, 1' iW 1, 1' iW eta) per column, at
 // alpha (C nf,), from eta, the lists nn (np, k), the grid coef (G, np, k)
 // and the variances D (G, np); S blocks a cluster a column over units of
-// `units` each, `threads` (128 or 256) a block.
+// `units` each, `threads` (128 or 256) a block; `bf16` 1: coef and D are
+// the bfloat16 shadows (the bf16-grid form).
 extern "C" int hmsc_nngp_quad_at(const float* eta, const int* nn,
-                                 const float* coef, const float* D,
+                                 const void* coef, const void* D,
                                  const int* alpha, float* out, int C, int np,
                                  int nf, int k, int S, int units, int threads,
-                                 void* stream) {
+                                 int bf16, void* stream) {
   if (S < 1 || S > kClusterMax || units < 1 ||
       static_cast<long long>(S) * units < np || k < 1 ||
       static_cast<long long>(C) * np * nf >= (1LL << 31))
@@ -403,11 +432,15 @@ extern "C" int hmsc_nngp_quad_at(const float* eta, const int* nn,
   const AtArgs a{eta, nn, coef, D, alpha, out, np, nf, k, S, units};
   const unsigned blocks = static_cast<unsigned>(C) * nf * S;
   cudaError_t e;
-  switch (threads) {
-    case 128: e = launch_cluster(nngp_quad_at_kernel<128>, a, blocks, 128, S,
-                                 0, stream); break;
-    case 256: e = launch_cluster(nngp_quad_at_kernel<256>, a, blocks, 256, S,
-                                 0, stream); break;
+  switch (threads * 2 + (bf16 ? 1 : 0)) {
+    case 256: e = launch_cluster(nngp_quad_at_kernel<128, false>, a, blocks,
+                                 128, S, 0, stream); break;
+    case 257: e = launch_cluster(nngp_quad_at_kernel<128, true>, a, blocks,
+                                 128, S, 0, stream); break;
+    case 512: e = launch_cluster(nngp_quad_at_kernel<256, false>, a, blocks,
+                                 256, S, 0, stream); break;
+    case 513: e = launch_cluster(nngp_quad_at_kernel<256, true>, a, blocks,
+                                 256, S, 0, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -45,7 +45,13 @@
 // r_i[l] by comparing l with unit i's list for every i, 0.0126; the pairs
 // (unit, r_i[j]) formed in a second pass behind a second barrier 0.0057;
 // the first version (RiW, then torch.matmul) 0.040.
+//
+// The bf16-grid form (`bf16` 1: the dense NNGP Eta draw under a precision
+// policy, the JAX _nngp_dense_iW gathering from the staged grids) reads
+// the bfloat16 shadows of the coefficient grid and the variances as they
+// are, widens them, and builds iW and its gram in float32 as above.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -56,8 +62,8 @@ constexpr int kStage = 4;
 struct IwArgs {
   const int* nn;          // (np, k), pads index 0
   const int* nn_n;        // (np,) real neighbours a unit
-  const float* coef;      // (G, np, k)
-  const float* D;         // (G, np)
+  const void* coef;       // (G, np, k), float32 or bfloat16
+  const void* D;          // (G, np), likewise
   const int* rev_ptr;     // (np + 1,)
   const int* rev_pos;     // (nnz,) i k + slot
   const int* alpha;       // (C nf,)
@@ -65,6 +71,16 @@ struct IwArgs {
   int np, k, nnz;
 };
 
+// element i of a float32 or (kBf16) bfloat16 grid, widened
+template <bool kBf16>
+__device__ __forceinline__ float grid_at(const void* p, long long i) {
+  if constexpr (kBf16)
+    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+  else
+    return __ldg(static_cast<const float*>(p) + i);
+}
+
+template <bool kBf16>
 __global__ void __launch_bounds__(1024) nngp_iw_kernel(const IwArgs a) {
   extern __shared__ float sm[];
   const int np = a.np, k = a.k;
@@ -74,8 +90,7 @@ __global__ void __launch_bounds__(1024) nngp_iw_kernel(const IwArgs a) {
   const int j1 = min(np, j0 + rows);
   const long long al = __ldg(a.alpha + cf);
   const int e0 = __ldg(a.rev_ptr + j0), e1 = __ldg(a.rev_ptr + j1);
-  const float* Aa = a.coef + al * np * k;
-  const float* Da = a.D + al * np;
+  const long long Aa = al * np * k, Da = al * np;
   // shared: 1 / sqrt(D) and the counts (np), lists and scaled coefficients
   // (np k), the tile's slice of the reverse-neighbour positions (nnz at
   // most), its rows' offsets there (rows + 1) and its rows of iW (rows np)
@@ -97,8 +112,8 @@ __global__ void __launch_bounds__(1024) nngp_iw_kernel(const IwArgs a) {
       const int idx = base + u * blockDim.x;
       if (idx < np * k) {
         nbr[u] = __ldg(a.nn + idx);
-        cr[u] = __ldg(Aa + idx);
-        dr[u] = __ldg(Da + idx / k);
+        cr[u] = grid_at<kBf16>(a.coef, Aa + idx);
+        dr[u] = grid_at<kBf16>(a.D, Da + idx / k);
       }
     }
 #pragma unroll
@@ -111,7 +126,7 @@ __global__ void __launch_bounds__(1024) nngp_iw_kernel(const IwArgs a) {
     }
   }
   for (int i = j0 + threadIdx.x; i < np; i += blockDim.x) {
-    di[i] = rsqrtf(__ldg(Da + i));
+    di[i] = rsqrtf(grid_at<kBf16>(a.D, Da + i));
     cnt[i] = __ldg(a.nn_n + i);
   }
   for (int jj = threadIdx.x; jj <= j1 - j0; jj += blockDim.x)
@@ -187,23 +202,24 @@ __global__ void __launch_bounds__(1024) nngp_iw_kernel(const IwArgs a) {
 
 // iW for C nf factors: blocks of 32 rows threads (a warp a row) over (np /
 // rows tiles, C nf), `smem` bytes of dynamic shared memory
-// (ops/spatial.py · iw_geometry).
-extern "C" int hmsc_nngp_iw(const int* nn, const int* nn_n, const float* coef,
-                            const float* D, const int* rev_ptr,
+// (ops/spatial.py · iw_geometry); `bf16` 1: coef and D are the bfloat16
+// shadows.
+extern "C" int hmsc_nngp_iw(const int* nn, const int* nn_n, const void* coef,
+                            const void* D, const int* rev_ptr,
                             const int* rev_pos, const int* alpha, float* out,
                             int C, int nf, int np, int k, int nnz, int rows,
-                            int smem, void* stream) {
+                            int smem, int bf16, void* stream) {
   if (rows < 1 || rows > 32 || np < 1 || k < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = bf16 ? nngp_iw_kernel<true> : nngp_iw_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        nngp_iw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   IwArgs a{nn, nn_n, coef, D, rev_ptr, rev_pos, alpha, out, np, k, nnz};
   const dim3 grid(static_cast<unsigned>((np + rows - 1) / rows),
                   static_cast<unsigned>(C) * nf);
-  nngp_iw_kernel<<<grid, 32 * rows, smem,
-                   static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<grid, 32 * rows, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

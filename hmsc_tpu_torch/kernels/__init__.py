@@ -47,7 +47,8 @@ KERNELS = {"probit_z": "probit_z.cu",
            "truncnorm_da": "truncnorm_da.cu",
            "serve_predict": "serve_predict.cu",
            "serve_quantile": "serve_quantile.cu",
-           "serve_conditional": "serve_conditional.cu"}
+           "serve_conditional": "serve_conditional.cu",
+           "mixed_gemm": "mixed_gemm.cu"}
 
 launches = {name: 0 for name in KERNELS}
 
@@ -139,12 +140,12 @@ def library():
             lib.hmsc_shrinkage_gamma.argtypes = [p] * 10 + [i] * 8 + [
                 u64, u32, u32, p]
             lib.hmsc_shrinkage_clusters.argtypes = [i, i, i, p]
-            lib.hmsc_gamma_v.argtypes = [p] * 12 + [i] * 4 + [
+            lib.hmsc_gamma_v.argtypes = [p] * 13 + [i] * 4 + [
                 ctypes.c_float, u64, u32, u32, u32, p]
             lib.hmsc_z_mixed.argtypes = [p] * 11 + [i] * 6 + [u64, u32, p]
             lib.hmsc_masked_gram.argtypes = [p, ll, ll, ll, p, ll, ll, p, ll,
                                              ll, p, ll, ll, ll, p, p, p, p, p,
-                                             p, i, i, i, i, i, i, i, i, p]
+                                             p, i, i, i, i, i, i, i, i, i, p]
             lib.hmsc_vecchia_fwd.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                              p]
             lib.hmsc_vecchia_adj.argtypes = [p, p, p, p, p, p, p, p, p, i, i,
@@ -152,8 +153,8 @@ def library():
             lib.hmsc_vecchia_cg.argtypes = [p] * 15 + [i] * 8 + [
                 ctypes.c_float, i, p]
             lib.hmsc_nngp_quad_grid.argtypes = [p] * 5 + [i] * 6 + [p]
-            lib.hmsc_nngp_quad_at.argtypes = [p] * 6 + [i] * 7 + [p]
-            lib.hmsc_nngp_iw.argtypes = [p] * 8 + [i] * 7 + [p]
+            lib.hmsc_nngp_quad_at.argtypes = [p] * 6 + [i] * 8 + [p]
+            lib.hmsc_nngp_iw.argtypes = [p] * 8 + [i] * 8 + [p]
             lib.hmsc_gpp_unit.argtypes = [p, p, p, p, p, p, i, i, i, p]
             lib.hmsc_gpp_knot.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
                                           i, i, p]
@@ -166,6 +167,8 @@ def library():
             lib.hmsc_serve_quantile.argtypes = [p, ll, i, i, p, i, p, p]
             lib.hmsc_serve_conditional.argtypes = [p] * 10 + [i] + [p] * 11 + [
                 i] * 13 + [u64, u32, p]
+            lib.hmsc_mixed_gemm.argtypes = [p, i, ll, ll, ll, p, i, ll, ll,
+                                            ll, p, p] + [i] * 6 + [p]
             for fn in (lib.hmsc_probit_z, lib.hmsc_probit_z_fused,
                        lib.hmsc_mvn_prec_small,
                        lib.hmsc_standard_gamma, lib.hmsc_shrinkage_gamma,
@@ -179,7 +182,8 @@ def library():
                        lib.hmsc_gpp_unit, lib.hmsc_gpp_knot,
                        lib.hmsc_gpp_quad_grid, lib.hmsc_gpp_quad_at,
                        lib.hmsc_truncnorm_da, lib.hmsc_serve_predict,
-                       lib.hmsc_serve_quantile, lib.hmsc_serve_conditional):
+                       lib.hmsc_serve_quantile, lib.hmsc_serve_conditional,
+                       lib.hmsc_mixed_gemm):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib

@@ -25,6 +25,7 @@ from ..precompute import compute_data_parameters
 from .structs import (DEFAULT_NF_CAP, GibbsState, build_model_data,
                       build_spec, build_state, check_supported,
                       stack_states)
+from .precision import resolve_policy, stage_data
 from .sweep import make_sweep, record_sample
 from .updaters import da_intercept_gate, update_z
 from ..ops.rand import Rng
@@ -136,7 +137,19 @@ def sample_mcmc(hM, samples: int, transient: int = 0, thin: int = 1,
     raises unless ``device="cpu"`` is given, which runs the kernels' plain
     PyTorch versions.  float32 matrix products run in full float32: the
     call sets ``torch.backends.cuda.matmul.allow_tf32`` and
-    ``torch.backends.cudnn.allow_tf32`` to False.  ``precision_policy``,
+    ``torch.backends.cudnn.allow_tf32`` to False.
+
+    ``precision_policy`` engages the per-block mixed-precision engine
+    (:mod:`hmsc_tpu_torch.mcmc.precision`): ``"auto"`` takes the
+    ledger-driven default for the model's class (``BetaLambda`` and
+    ``GammaV`` for models without a spatial level, ``EtaSpatial`` and
+    ``Interweave`` with one), a ``PrecisionPolicy`` or its ``to_meta()``
+    dict names its own; ``None`` is the exact engine.  The policy is
+    resolved against the final spec, its bf16 shadows are staged once
+    before the timed loop, and ``policy.to_meta()`` is recorded as the
+    Posterior's ``precision_policy``.  A policy naming a block whose
+    mixed-precision form is not ported (``Alpha``, ``Rho``, ``wRRR``,
+    ``BetaSel``, ``Gamma2``, ``GammaEta``) raises ``NotImplementedError``.
     ``mesh`` and checkpointing are not ported yet (ROADMAP A9) and raise.
 
     The returned Posterior carries ``timing`` = {setup_s, run_s}: run_s is
@@ -144,10 +157,9 @@ def sample_mcmc(hM, samples: int, transient: int = 0, thin: int = 1,
     host; and ``cg_iterations``, one entry per NNGP CG Eta draw in sweep
     order: the iterations the CG loop ran (``"loop"``, a list) and each
     chain's own (``"chains"``, an (n_draws, n_chains) array)."""
-    for name, val, item in (("precision_policy", precision_policy, "A9"),
-                            ("mesh", mesh, "A9"),
-                            ("checkpoint_every", checkpoint_every, "A9"),
-                            ("checkpoint_path", checkpoint_path, "A9")):
+    for name, val, item in (("mesh", mesh, "A9.3"),
+                            ("checkpoint_every", checkpoint_every, "A9.1"),
+                            ("checkpoint_path", checkpoint_path, "A9.1")):
         if val:
             raise NotImplementedError(
                 f"sample_mcmc({name}=...) is not ported yet (ROADMAP {item})")
@@ -167,6 +179,9 @@ def sample_mcmc(hM, samples: int, transient: int = 0, thin: int = 1,
     spec = build_spec(hM, nf_cap)
     check_supported(hM, spec)
     record = normalize_record(spec, record)
+    # the per-block mixed-precision policy, resolved against the final spec
+    # (the "auto" selection sees the model class it will run)
+    policy = resolve_policy(precision_policy, spec)
     data = build_model_data(hM, compute_data_parameters(hM), spec, dev)
     # structural gate for the opt-in probit-DA intercept interweave: a
     # model it cannot run on is told so, and runs without it
@@ -180,7 +195,9 @@ def sample_mcmc(hM, samples: int, transient: int = 0, thin: int = 1,
     state, rng = initial_states(hM, spec, seed, n_chains, dev)
     trng = Rng(int(rng.integers(0, 2**62)), dev)
     cg_log = []         # (level, loop iterations, largest, per-chain)
-    sweep = make_sweep(spec, updater, adapt_nf, cg_log)
+    # the policy's bf16 shadows, staged once before the timed loop
+    sweep = make_sweep(spec, updater, adapt_nf, cg_log, precision=policy,
+                       staged=stage_data(data, policy))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t1 = time.perf_counter()
@@ -222,6 +239,7 @@ def sample_mcmc(hM, samples: int, transient: int = 0, thin: int = 1,
     post = Posterior(hM, spec, arrays, samples=samples, transient=transient,
                      thin=thin)
     post.timing = {"setup_s": t1 - t0, "run_s": t2 - t1}
+    post.precision_policy = None if policy is None else policy.to_meta()
     post.cg_iterations = cg_iterations
     post.set_chain_health(first_bad)
     for c in np.nonzero(first_bad >= 0)[0]:

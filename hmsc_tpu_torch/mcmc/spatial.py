@@ -29,6 +29,16 @@ The alpha sampler and the interweaving moves read the prior quadratics
 ``eta' iW eta`` over the alpha grid or at each factor's alpha: batched
 products for Full, kernel B8b for NNGP, kernel B8d-3 for GPP.
 
+Under a precision policy (the EtaSpatial and Interweave blocks of the
+spatial class, :mod:`hmsc_tpu_torch.mcmc.precision`) the level's grids are
+read from their bfloat16 shadows (``mixed.staged_level``), as the JAX
+package's policy'd blocks read them: Full gathers iW from its shadow and
+widens it; dense NNGP and the at-alpha NNGP quadratics run B8c's and B8b's
+bf16-grid forms; GPP widens the staged ``idDg`` back to float32 and runs
+B8d-1..3 unchanged on it (the float64 knot grids are not staged:
+``precision.py``, C4).  The CG draw (B8a) reads the float32
+grids, as the JAX ``vecchia_ops`` does.
+
 On the card the whole CG draw (the right-hand side, the loop, the true
 residual) is one launch of kernel B8a, each chain's cluster stopping at
 its own convergence, with no host read.  On the CPU the loop runs on the
@@ -48,6 +58,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import mixed
 from ..ops.linalg import chol_spd, sample_mvn_prec
 from ..ops.spatial import (cg_frozen, gpp_knot, gpp_m1_at, gpp_quad_at,
                            gpp_quad_grid, gpp_unit, nngp_quad_at,
@@ -96,9 +107,10 @@ def update_eta_spatial(spec: ModelSpec, data: ModelData, state: GibbsState,
     LiSL, F = _level_gram(spec, data, lvd, ls, lv, state.iSigma, S)
     C = F.shape[0]
     if ls.spatial == "Full":
-        iW = lvd.iWg[lv.alpha_idx.long()]                # (C, nf, np, np)
+        iWg = mixed.staged_level("iWg", r, lvd.iWg)
+        iW = iWg[lv.alpha_idx.long()].to(F.dtype)        # (C, nf, np, np)
     else:
-        iW = _nngp_dense_iW(lvd, lv.alpha_idx)
+        iW = _nngp_dense_iW(lvd, lv.alpha_idx, r)
 
     # the (nf np)^2 precision, factor-major: blkdiag(iW_h) + the unit-
     # diagonal factor coupling LiSL_u at (h np + u, g np + u)
@@ -116,10 +128,26 @@ def update_eta_spatial(spec: ModelSpec, data: ModelData, state: GibbsState,
     return lv.replace(Eta=eta.contiguous())
 
 
-def _nngp_dense_iW(lvd, alpha_idx):
+def _staged_nngp(lvd, r):
+    """The level's NNGP grids as a policy'd block reads them: ``(coef,
+    D)``, the bfloat16 shadows where staged (else the level's own)."""
+    return (mixed.staged_level("nn_coef", r, lvd.nn_coef),
+            mixed.staged_level("nn_D", r, lvd.nn_D))
+
+
+def _gpp_level(lvd, r):
+    """The GPP level as a policy'd block reads it: ``idDg`` its bf16 shadow
+    widened back to float32 where staged (the float64 knot grids are never
+    staged, ``precision.py``, C4), else the level itself."""
+    idD = mixed.staged_level("idDg", r, lvd.idDg)
+    return lvd if idD is lvd.idDg else lvd.replace(idDg=idD.float())
+
+
+def _nngp_dense_iW(lvd, alpha_idx, r=0):
     """iW = RiW' RiW for each chain's factors, (C, nf, np, np): kernel B8c,
-    its gram included."""
-    return nngp_riw_dense(lvd, alpha_idx.contiguous())
+    its gram included (its bf16-grid form from staged grids)."""
+    coef, D = _staged_nngp(lvd, r)
+    return nngp_riw_dense(lvd, alpha_idx.contiguous(), coef, D)
 
 
 def _eta_nngp_cg(spec, data, state, r, rng, S, noise, tol=CG_TOL,
@@ -176,6 +204,10 @@ def gpp_factor(lvd, alpha_idx, LiSL):
     = chol_spd(H)`` in float64 (jittered, as ``A``'s factor in B8d-1 is;
     ``LiA`` is the plain Cholesky of ``iA``)."""
     alpha = alpha_idx.contiguous()
+    if mixed.active():
+        # A's factor as the JAX package's chol_spd takes it: symmetrised
+        # (a policy'd block's gram is not symmetric to rounding)
+        LiSL = (LiSL + LiSL.transpose(-1, -2)) / 2
     iA, LiA = gpp_unit(lvd, alpha, LiSL.contiguous())
     LH = chol_spd(gpp_knot(lvd, alpha, iA))
     return gpp_m1_at(lvd, alpha).to(LiSL.dtype), iA, LiA, LH
@@ -212,7 +244,7 @@ def _eta_gpp(spec, data, state, r, rng, S, noise):
     lvd, lv, ls = data.levels[r], state.levels[r], spec.levels[r]
     npr, nf, nK = ls.n_units, ls.nf_max, lvd.idDW12g.shape[2]
     LiSL, F = _level_gram(spec, data, lvd, ls, lv, state.iSigma, S)
-    payload = gpp_factor(lvd, lv.alpha_idx, LiSL)
+    payload = gpp_factor(_gpp_level(lvd, r), lv.alpha_idx, LiSL)
     C = F.shape[0]
     eps1 = _noise(noise, "eps1", lambda: rng.normal((C, npr, nf), F.dtype))
     eps2 = _noise(noise, "eps2", lambda: rng.normal((C, nf * nK), F.dtype))
@@ -250,25 +282,38 @@ def eta_quad_grid(lvd, ls, eta):
     return v, lvd.detWg
 
 
-def eta_quad_at(lvd, ls, eta, alpha_idx):
+def _quad_at(lvd, ls, eta, alpha_idx, r):
+    """B8b's or B8d-3's at-alpha ``(q, q1, s)``, (C, nf, 3), from the grids
+    a policy'd block reads (see the module docstring)."""
+    alpha_idx = alpha_idx.contiguous()
+    if ls.spatial == "GPP":
+        return gpp_quad_at(_gpp_level(lvd, r), alpha_idx, eta.contiguous())
+    return nngp_quad_at(lvd, alpha_idx, eta.contiguous(),
+                        *_staged_nngp(lvd, r))
+
+
+def eta_quad_at(lvd, ls, eta, alpha_idx, r=0):
     """(C, nf): ``eta_h' iW(alpha_h) eta_h`` at each factor's alpha (the
     scale interweave's prior quadratic)."""
     if ls.spatial == "Full":
-        iW = lvd.iWg[alpha_idx.long()]                   # (C, nf, np, np)
+        iW = mixed.staged_level("iWg", r, lvd.iWg)[alpha_idx.long()]
         e = eta.transpose(1, 2)
+        if mixed.active():                               # an mx einsum
+            return mixed.einsum("chu,chuv,chv->ch", e, iW, e)
         return ((iW @ e[..., None])[..., 0] * e).sum(dim=2)
-    quad_at = gpp_quad_at if ls.spatial == "GPP" else nngp_quad_at
-    return quad_at(lvd, alpha_idx.contiguous(), eta.contiguous())[..., 0]
+    return _quad_at(lvd, ls, eta, alpha_idx, r)[..., 0]
 
 
-def eta_ones_forms_at(lvd, ls, eta, alpha_idx):
+def eta_ones_forms_at(lvd, ls, eta, alpha_idx, r=0):
     """``(1' iW_h 1, 1' iW_h eta_h)``, each (C, nf), at each factor's alpha
     (the location interweave's orbit prior)."""
     if ls.spatial == "Full":
-        w = lvd.iWg[alpha_idx.long()].sum(dim=3)         # iW_h @ 1
+        iW = mixed.staged_level("iWg", r, lvd.iWg)[alpha_idx.long()]
+        # a staged bf16 gather: its row sums accumulate in float32
+        w = (iW.sum(dim=3) if iW.dtype == eta.dtype
+             else iW.sum(dim=3, dtype=eta.dtype))        # iW_h @ 1
         return w.sum(dim=2), (w * eta.transpose(1, 2)).sum(dim=2)
-    quad_at = gpp_quad_at if ls.spatial == "GPP" else nngp_quad_at
-    out = quad_at(lvd, alpha_idx.contiguous(), eta.contiguous())
+    out = _quad_at(lvd, ls, eta, alpha_idx, r)
     return out[..., 1], out[..., 2]
 
 

@@ -11,12 +11,20 @@ forms E inside kernel B1.  Updaters can be disabled with
 the ``updater`` toggle dict, as in the JAX package
 (``updater={"Interweave": False}``); the probit-DA intercept interweave is
 opt-in (``updater={"InterweaveDA": True}``).
+
+With a :class:`~hmsc_tpu_torch.mcmc.precision.PrecisionPolicy` each
+policy'd block runs inside a ``mixed.scope`` (its routed products bf16 in,
+float32 out) and the sweep inside one ``mixed.staged_scope`` holding the
+run's shadow table, as the JAX package's ``make_sweep(precision=...)``.  A
+bf16 Eta block forms E itself, with its products routed, and Z reads it (B1's
+E-reading form): the JAX package's E_shared comes from that block.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops import mixed
 from . import updaters as U
 from .spatial import update_alpha, update_eta_spatial
 from .structs import GibbsState, ModelData, ModelSpec
@@ -28,11 +36,20 @@ __all__ = ["make_sweep_schedule", "make_sweep", "sweep_prologue",
 _NOT_PORTED = {"Gamma2": "A7", "GammaEta": "A7"}
 
 
+def _precision_block(fn, dtype, layouts):
+    """One schedule block inside a mixed-precision compute scope."""
+    def wrapped(*args):
+        with mixed.scope(dtype, layouts):
+            return fn(*args)
+    return wrapped
+
+
 def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
                         adapt_nf: tuple | None = None,
-                        cg_log: list | None = None):
+                        cg_log: list | None = None, precision=None):
     """The ordered ``(name, block)`` list one sweep comprises.  NNGP CG Eta
-    draws append their iteration counts to ``cg_log`` when given."""
+    draws append their iteration counts to ``cg_log`` when given; blocks
+    that ``precision`` (a ``PrecisionPolicy``) names run in its scope."""
     updater = updater or {}
     on = lambda name: updater.get(name, True) is not False
     want = lambda name: updater.get(name, False) is True
@@ -42,10 +59,14 @@ def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
                 f"updater {name!r} is not ported yet (ROADMAP {item})")
     adapt_nf = adapt_nf or tuple(0 for _ in range(spec.nr))
     any_spatial = any(ls.spatial is not None for ls in spec.levels)
+    eta_name = "EtaSpatial" if any_spatial else "Eta"
     # where Z's probit branch is E's only reader, the Eta block leaves E
     # unformed and Z forms it in B1's fused form, from the state after the
-    # interweaves (equal in exact arithmetic: they leave E invariant)
-    fused = U.fused_z(spec)
+    # interweaves (equal in exact arithmetic: they leave E invariant); a
+    # bf16 Eta block forms E with its products routed, as the JAX package
+    fused = U.fused_z(spec) and not (
+        precision is not None
+        and precision.dtype_for(eta_name) == "bfloat16")
     steps = []
 
     if on("BetaLambda"):
@@ -98,7 +119,7 @@ def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
             return state, E
         # one block covers every level; named for the spatial path when any
         # level takes it, as in the JAX package
-        steps.append(("EtaSpatial" if any_spatial else "Eta", _eta))
+        steps.append((eta_name, _eta))
 
     if on("Alpha") and any_spatial:
         def _alpha(data, carry, rng, noise):
@@ -177,6 +198,11 @@ def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
             return state, E
         steps.append(("Nf", _nf))
 
+    if precision is not None:
+        steps = [(name, _precision_block(fn, precision.dtype_for(name),
+                                         precision.batched_layouts))
+                 if precision.dtype_for(name) is not None else (name, fn)
+                 for name, fn in steps]
     return steps
 
 
@@ -186,7 +212,8 @@ def sweep_prologue(state: GibbsState) -> GibbsState:
 
 
 def make_sweep(spec: ModelSpec, updater: dict | None = None,
-               adapt_nf: tuple | None = None, cg_log: list | None = None):
+               adapt_nf: tuple | None = None, cg_log: list | None = None,
+               precision=None, staged: dict | None = None):
     """``sweep(data, state, rng, it=None, noise=None) -> state``.
 
     ``it`` is the sweep's 1-based index known on the host (the value
@@ -194,11 +221,13 @@ def make_sweep(spec: ModelSpec, updater: dict | None = None,
     factor adaptation outright once every level's window has closed,
     instead of computing a move whose gate is false on every chain.
     ``noise`` maps block names to that block's injected draws (tests).
-    ``cg_log`` collects the NNGP CG draws' iteration counts."""
-    steps = make_sweep_schedule(spec, updater, adapt_nf, cg_log)
+    ``cg_log`` collects the NNGP CG draws' iteration counts.  With
+    ``precision`` (a ``PrecisionPolicy``) the policy'd blocks run in their
+    scopes and the sweep reads ``staged``, the run's shadow table
+    (``precision.stage_data``)."""
+    steps = make_sweep_schedule(spec, updater, adapt_nf, cg_log, precision)
 
-    def sweep(data: ModelData, state: GibbsState, rng, it=None,
-              noise=None) -> GibbsState:
+    def blocks(data, state, rng, it, noise):
         state = sweep_prologue(state)
         carry = (state, None)
         for name, block in steps:
@@ -208,6 +237,15 @@ def make_sweep(spec: ModelSpec, updater: dict | None = None,
             else:
                 carry = block(data, carry, rng, nz)
         return carry[0]
+
+    if precision is None:
+        return lambda data, state, rng, it=None, noise=None: blocks(
+            data, state, rng, it, noise)
+
+    def sweep(data: ModelData, state: GibbsState, rng, it=None,
+              noise=None) -> GibbsState:
+        with mixed.staged_scope(staged):
+            return blocks(data, state, rng, it, noise)
 
     return sweep
 

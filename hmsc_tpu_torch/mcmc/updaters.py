@@ -9,7 +9,11 @@ draws (each documents its keys); only the tests use it, to hand the port
 the very numbers the JAX updater drew.
 
 Plain GEMMs (``X'X``, ``XE'Z``, ``S Lambda'``) are ``torch.matmul``, as the
-JAX package left them to XLA; the tiny nc x nc / nf x nf Cholesky
+JAX package left them to XLA, routed through :mod:`..ops.mixed` where the
+JAX package routes them through ``mx``: outside a precision scope that is
+the same ``@``, inside a policy'd block a bf16 product with float32
+accumulation (kernel B10; with missing values B6's bf16 form, and B4's
+bf16 form for the GammaV block).  The tiny nc x nc / nf x nf Cholesky
 factorisations are ``chol_spd``.  The hot per-cell and per-system work
 goes through the hand-written kernels B1-B5 (:mod:`..ops`; B2 forms the
 BetaLambda and Eta precisions itself, B4 is the whole GammaV block), and
@@ -26,6 +30,7 @@ import math
 
 import torch
 
+from ..ops import mixed
 from ..ops.gram import masked_gram
 from ..ops.linalg import (chol_spd, sample_beta_lambda, sample_mvn_prec,
                           sample_mvn_prec_shifted)
@@ -58,13 +63,14 @@ def lambda_effective(lv: LevelState):
 
 
 def linear_fixed(spec: ModelSpec, data: ModelData, Beta):
-    """LFix = X @ Beta, (C, ny, ns)."""
-    return data.X @ Beta
+    """LFix = X @ Beta, (C, ny, ns) (X staged under a policy)."""
+    return mixed.matmul(mixed.staged("X", data.X), Beta)
 
 
 def level_loading(data_lv, lv: LevelState):
     """LRan_r = Eta[pi, :] @ Lambda (x_dim = 0, so x_row is all ones)."""
-    return lv.Eta[:, data_lv.pi_row] @ lambda_effective(lv)[..., 0]
+    return mixed.matmul(lv.Eta[:, data_lv.pi_row],
+                        lambda_effective(lv)[..., 0])
 
 
 def total_loading(spec: ModelSpec, data: ModelData, state: GibbsState):
@@ -205,11 +211,12 @@ def beta_lambda_inputs(spec: ModelSpec, data: ModelData, state: GibbsState):
     prior_lam = _stacked_lambda_prior(spec, state)       # (C, K, ns)
     if spec.has_na:
         # (C, ns, P, P) and (C, ns, P): o = species, k = row
-        G, rhs_lik = masked_gram(XE, data.Ymask.T, state.Z.transpose(1, 2))
+        G, rhs_lik = masked_gram(XE, data.Ymask.T, state.Z.transpose(1, 2),
+                                 bf16=mixed.active())
     else:
         XEt = XE.transpose(1, 2)
-        G = (XEt @ XE)[:, None]                          # (C, 1, P, P)
-        rhs_lik = (XEt @ state.Z).transpose(1, 2)        # (C, ns, P)
+        G = mixed.matmul(XEt, XE)[:, None]               # (C, 1, P, P)
+        rhs_lik = mixed.matmul(XEt, state.Z).transpose(1, 2)  # (C, ns, P)
     return G, rhs_lik, prior_lam
 
 
@@ -241,11 +248,20 @@ def update_gamma_v(spec: ModelSpec, data: ModelData, state: GibbsState,
     then Gamma | Beta, iV.  On the card, where ``gamma_v_route`` allows,
     the whole block is one launch of kernel B4 (``ops/rand.py ·
     gamma_v``); otherwise the plain block (B3's element form for the
-    Bartlett diagonal, then torch ops).  ``noise``: ``{"wishart":
+    Bartlett diagonal, then torch ops).  Under a precision policy its bf16
+    form: ``E E'``, ``iV Beta`` and ``(iV Beta) Tr`` with bf16 operands
+    (``Tr`` from its shadow) and ``Tr'Tr`` of the rounded ``Tr``, formed
+    once a run (``precision.stage_data``).  ``noise``: ``{"wishart":
     {"normal", "gamma"}, "gamma": {"eps"}}``."""
-    iV, Gamma = gamma_v(state.Beta, state.Gamma, data.Tr, data.V0, data.TtT,
+    TtT, Tr16 = data.TtT, None
+    if mixed.active():
+        Tr16 = mixed.staged("Tr", data.Tr).to(torch.bfloat16)
+        TtT = mixed.staged("TtT", None)
+        if TtT is None:
+            TtT = mixed.matmul(Tr16.T, Tr16)
+    iV, Gamma = gamma_v(state.Beta, state.Gamma, data.Tr, data.V0, TtT,
                         data.iUGamma, data.iUGmG, spec.f0 + spec.ns, rng,
-                        noise)
+                        noise, Tr16)
     return state.replace(iV=iV, Gamma=Gamma)
 
 
@@ -300,14 +316,15 @@ def _level_gram_parts(spec, data, lvd, ls, lv, iSigma, S):
     C = lam.shape[0]
     if spec.has_na:
         # (C, ny, nf, nf) and (C, ny, nf): o = row, k = species
-        rows, Fr = masked_gram(lamT, data.Ymask, S, iSigma)
+        rows, Fr = masked_gram(lamT, data.Ymask, S, iSigma,
+                               bf16=mixed.active())
         G = rows.new_zeros((C, ls.n_units, ls.nf_max, ls.nf_max))
         G.index_add_(1, lvd.pi_row, rows)
         scale = None
     else:
-        G = ((lam * iSigma[:, None, :]) @ lamT)[:, None]  # (C, 1, nf, nf)
-        scale = lvd.unit_count
-        Fr = (S * iSigma[:, None, :]) @ lamT             # (C, ny, nf)
+        G = mixed.matmul(lam * iSigma[:, None, :], lamT)[:, None]
+        scale = lvd.unit_count                           # G (C, 1, nf, nf)
+        Fr = mixed.matmul(S * iSigma[:, None, :], lamT)  # (C, ny, nf)
     F = Fr.new_zeros((C, ls.n_units, ls.nf_max))
     F.index_add_(1, lvd.pi_row, Fr)
     return G, scale, F
@@ -356,7 +373,7 @@ def interweave_scale(spec: ModelSpec, data: ModelData, state: GibbsState,
             A = (lv.Eta ** 2).sum(dim=1)                 # (C, nf)
         else:
             from .spatial import eta_quad_at
-            A = eta_quad_at(lvd, ls, lv.Eta, lv.alpha_idx)
+            A = eta_quad_at(lvd, ls, lv.Eta, lv.alpha_idx, r)
         delta = torch.where(mask[:, :, None] > 0, lv.Delta, 1.0)
         tau = torch.cumprod(delta, dim=1)
         B = (lv.Psi * tau[:, :, None, :] * lv.Lambda ** 2).sum(dim=(2, 3))
@@ -412,9 +429,9 @@ def interweave_location(spec: ModelSpec, data: ModelData, state: GibbsState,
             s = lv.Eta.sum(dim=1)                        # 1' eta_h
         else:
             from .spatial import eta_ones_forms_at
-            q1, s = eta_ones_forms_at(lvd, ls, lv.Eta, lv.alpha_idx)
-        G = lam @ lam.transpose(1, 2)
-        bB = (lam @ u[:, :, None])[..., 0]
+            q1, s = eta_ones_forms_at(lvd, ls, lv.Eta, lv.alpha_idx, r)
+        G = mixed.matmul(lam, lam.transpose(1, 2))
+        bB = mixed.matmul(lam, u[:, :, None])[..., 0]
         P = v00[:, None, None] * G + torch.diag_embed(
             torch.where(mask > 0, q1, 1.0))
         b = torch.where(mask > 0, bB - s, 0.0)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels as K
+from .mixed import round_bf16
 
 __all__ = ["masked_gram", "gram_columns", "gram_tiles", "gram_splits"]
 
@@ -63,7 +64,7 @@ def gram_splits(C, O, Kd, P):
     return -(-k_tiles // per), per * _BK
 
 
-def masked_gram(v, w, s, a=None):
+def masked_gram(v, w, s, a=None, bf16: bool = False):
     """``G[c,o] = sum_k w[o,k] a[c,k] v[c,k] v[c,k]'`` and
     ``R[c,o] = sum_k w[o,k] a[c,k] s[c,o,k] v[c,k]``.
 
@@ -71,7 +72,11 @@ def masked_gram(v, w, s, a=None):
     (all ones) may be any strided views: the per-species form passes
     ``v = XE``, ``w = Ymask.T``, ``s = Z.transpose(1, 2)``; the per-row
     form ``v = Lambda.transpose(1, 2)``, ``w = Ymask``, ``s = S``, ``a =
-    iSigma``.  Returns ``G`` (C, O, P, P) and ``R`` (C, O, P)."""
+    iSigma``.  Returns ``G`` (C, O, P, P) and ``R`` (C, O, P).
+
+    ``bf16``: the bf16 form (a policy'd block's masked mx einsums, ``w`` a
+    0/1 mask): ``a`` and ``v`` rounded to bfloat16 for G, ``s a`` formed in
+    float32 and rounded, and ``v`` rounded, for R; float32 accumulation."""
     C, Kd, P = v.shape
     O = w.shape[0]
     if w.shape != (O, Kd) or s.shape != (C, O, Kd) or (
@@ -79,7 +84,11 @@ def masked_gram(v, w, s, a=None):
         raise ValueError(f"masked_gram: v {tuple(v.shape)}, w "
                          f"{tuple(w.shape)}, s {tuple(s.shape)}, a "
                          f"{None if a is None else tuple(a.shape)}")
+    if bf16 and a is not None:
+        s = s * a[:, None, :]          # the JAX package's S * iSigma
     if not v.is_cuda:
+        if bf16:
+            return _masked_gram_bf16_plain(v, w, s, a)
         return _masked_gram_plain(v, w, s, a)
     for name, t in (("v", v), ("w", w), ("s", s)) + (
             (("a", a),) if a is not None else ()):
@@ -109,7 +118,7 @@ def masked_gram(v, w, s, a=None):
             *((0, 0) if a is None else a.stride()), s.data_ptr(),
             *s.stride(), colp.data_ptr(), colq.data_ptr(), B.data_ptr(),
             partial.data_ptr(), G.data_ptr(), R.data_ptr(), C, O, Kd, P, NG,
-            T, S, chunk, K.stream_of(v))
+            T, S, chunk, int(bf16), K.stream_of(v))
     K.check(code, "masked_gram")
     K.launches["masked_gram"] += 1
     return G, R
@@ -122,4 +131,16 @@ def _masked_gram_plain(v, w, s, a):
     G = torch.einsum("cok,ckp,ckq->copq", wa.expand(v.shape[0], -1, -1), v,
                      v)
     R = torch.einsum("cok,ckp->cop", wa * s, v)
+    return G, R
+
+
+def _masked_gram_bf16_plain(v, w, sa, a):
+    """The bf16 form's plain version: the JAX package's masked mx einsums
+    (``updaters.py:246-250, 278-279, 618-623`` under a scope), ``sa`` the
+    right-hand side's ``s a`` already formed in float32."""
+    rv = round_bf16(v)
+    wa = w[None] if a is None else w[None] * round_bf16(a)[:, None, :]
+    G = torch.einsum("cok,ckp,ckq->copq", wa.expand(v.shape[0], -1, -1), rv,
+                     rv)
+    R = torch.einsum("cok,ckp->cop", round_bf16(sa) * w[None], rv)
     return G, R

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels as K
+from . import mixed
 
 __all__ = ["chol_spd", "sample_mvn_prec", "sample_mvn_prec_batched",
            "sample_mvn_prec_shifted", "sample_beta_lambda"]
@@ -44,7 +45,13 @@ def chol_spd(A, jitter=_JITTER):
     """Cholesky of symmetric PD matrices (..., n, n) with relative diagonal
     jitter ``jitter * mean(diag)``; NaN in full where a matrix is not PD.
     ``jitter=0`` is the plain factorisation, and there a NaN input counts
-    as not PD too (cuSOLVER, unlike LAPACK, reports no failure for it)."""
+    as not PD too (cuSOLVER, unlike LAPACK, reports no failure for it).
+    Inside a bf16 precision scope the input is symmetrised first, ``(A +
+    A') / 2``, as ``jnp.linalg.cholesky`` always does: a gram of two
+    operands rounded apart (``(lam iSigma) lam'``) is not symmetric there
+    by ~1e-3, where in float32 it is to rounding."""
+    if mixed.active():
+        A = (A + A.transpose(-1, -2)) / 2
     if jitter:
         scale = torch.diagonal(A, dim1=-2, dim2=-1).mean(dim=-1)
         eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
@@ -60,9 +67,15 @@ def chol_spd(A, jitter=_JITTER):
 def sample_mvn_prec(L, rhs, eps):
     """Draw from N(P^{-1} rhs, P^{-1}) given L = chol(P) and eps ~ N(0, I),
     vectors on the last axis: mean = P^{-1} rhs (cho_solve), noise =
-    L^{-T} eps."""
+    L^{-T} eps.  Under a bf16 precision scope with batched layouts
+    (``mixed.layouts_active``) the mean and noise fold into one solve pair,
+    ``x = L^{-T} (L^{-1} rhs + eps)``, as the JAX package's does there (the
+    same law; the solves stay in L's type)."""
     Lt = L.transpose(-1, -2)
     y = torch.linalg.solve_triangular(L, rhs[..., None], upper=False)
+    if mixed.layouts_active():
+        return torch.linalg.solve_triangular(Lt, y + eps[..., None],
+                                             upper=True)[..., 0]
     mean = torch.linalg.solve_triangular(Lt, y, upper=True)
     noise = torch.linalg.solve_triangular(Lt, eps[..., None], upper=True)
     return (mean + noise)[..., 0]

@@ -47,6 +47,7 @@ import torch
 
 from .. import kernels as K
 from .linalg import chol_spd, sample_mvn_prec
+from .mixed import mixed_gemm
 
 __all__ = ["Rng", "truncated_normal", "truncated_normal_onesided",
            "probit_z_fused", "probit_z_geometry",
@@ -853,15 +854,17 @@ def gamma_v_route(nc: int, nt: int) -> bool:
 
 
 def gamma_v_plain(Beta, Gamma, Tr, V0, TtT, iUGamma, iUGmG, df,
-                  rng: Rng | None = None, noise=None):
+                  rng: Rng | None = None, noise=None, Tr16=None):
     """The GammaV block as torch ops (JAX package ``update_gamma_v``,
     ``updaters.py:462-511``, no phylogeny, no tenants): iV ~ Wishart(df,
     (E E' + V0)^{-1}) with E = Beta - Gamma Tr', by :func:`wishart` on
     B3's element form, then Gamma | Beta, iV (``updaters.py:444-459``).
-    ``noise`` as for :func:`gamma_v`.  Returns (iV, Gamma)."""
+    ``noise`` and ``Tr16`` (the bf16 form: ``E E'`` and ``(iV Beta) Tr``
+    as B10 products) as for :func:`gamma_v`.  Returns (iV, Gamma)."""
     noise = noise or {}
     E = Beta - Gamma @ Tr.T
-    A = E @ E.transpose(1, 2)
+    A = (E @ E.transpose(1, 2) if Tr16 is None
+         else mixed_gemm(E, E.transpose(1, 2)))
     Lw = chol_spd(A + V0)
     eye = torch.eye(V0.shape[-1], dtype=A.dtype, device=A.device)
     T = torch.linalg.solve_triangular(Lw.transpose(1, 2), eye.expand_as(Lw),
@@ -872,7 +875,10 @@ def gamma_v_plain(Beta, Gamma, Tr, V0, TtT, iUGamma, iUGmG, df,
     C, nc, nt = iV.shape[0], iV.shape[-1], TtT.shape[0]
     kron = (TtT[None, :, None, :, None] * iV[:, None, :, None, :]
             ).reshape(C, nt * nc, nt * nc)
-    t2 = (iV @ Beta) @ Tr                                # (C, nc, nt)
+    if Tr16 is None:
+        t2 = (iV @ Beta) @ Tr                            # (C, nc, nt)
+    else:
+        t2 = mixed_gemm(mixed_gemm(iV, Beta), Tr16)
     rhs = iUGmG + t2.transpose(1, 2).reshape(C, -1)
     eps = (noise["gamma"]["eps"] if "gamma" in noise
            else rng.normal(rhs.shape, rhs.dtype))
@@ -881,7 +887,7 @@ def gamma_v_plain(Beta, Gamma, Tr, V0, TtT, iUGamma, iUGmG, df,
 
 
 def gamma_v(Beta, Gamma, Tr, V0, TtT, iUGamma, iUGmG, df,
-            rng: Rng | None = None, noise=None):
+            rng: Rng | None = None, noise=None, Tr16=None):
     """One GammaV update for C chains, its draws included: (iV (C, nc, nc),
     Gamma (C, nc, nt)).  ``Beta`` (C, nc, ns), ``Gamma`` (C, nc, nt),
     ``Tr`` (ns, nt), ``V0`` (nc, nc), ``TtT = Tr'Tr`` (nt, nt),
@@ -892,12 +898,16 @@ def gamma_v(Beta, Gamma, Tr, V0, TtT, iUGamma, iUGmG, df,
     gammas at the counters :func:`standard_gamma` gives a (C, nc) array at
     (seed, offset), the normals at offset + 1, eps at offset + 2.  On the
     card, where :func:`gamma_v_route` holds, kernel B4; else, and on the
-    CPU, :func:`gamma_v_plain`."""
+    CPU, :func:`gamma_v_plain`.  ``Tr16``, the bfloat16 shadow of ``Tr``,
+    selects the bf16 form (the block under a precision policy): ``E E'``,
+    ``iV Beta`` and ``(iV Beta) Tr`` with bf16 operands and float32
+    accumulation, rounded where the JAX package's mx calls round, and
+    ``TtT`` the caller's ``Tr'Tr`` of the rounded ``Tr``."""
     C, nc, ns = Beta.shape
     nt = Tr.shape[-1]
     if not Beta.is_cuda or not gamma_v_route(nc, nt):
         return gamma_v_plain(Beta, Gamma, Tr, V0, TtT, iUGamma, iUGmG, df,
-                             rng, noise)
+                             rng, noise, Tr16)
     n = nc * nt
     noise = noise or {}
     nw = noise.get("wishart") or {}
@@ -917,6 +927,12 @@ def gamma_v(Beta, Gamma, Tr, V0, TtT, iUGamma, iUGmG, df,
             raise ValueError(f"gamma_v: {name} must be a float32 "
                              f"{shapes[name]} tensor on {Beta.device}")
         args[name] = t.contiguous()
+    if Tr16 is not None:
+        if (tuple(Tr16.shape) != (ns, nt) or Tr16.device != Beta.device
+                or Tr16.dtype != torch.bfloat16):
+            raise ValueError(f"gamma_v: Tr16 must be a bfloat16 {(ns, nt)} "
+                             f"tensor on {Beta.device}")
+        Tr16 = Tr16.contiguous()
     iV = Beta.new_empty((C, nc, nc))
     G_out = Beta.new_empty((C, nc, nt))
     if C == 0:
@@ -926,7 +942,8 @@ def gamma_v(Beta, Gamma, Tr, V0, TtT, iUGamma, iUGmG, df,
     ptr = lambda name: None if args[name] is None else args[name].data_ptr()
     with torch.cuda.device(Beta.device):
         code = K.library().hmsc_gamma_v(
-            ptr("Beta"), ptr("Gamma"), ptr("Tr"), ptr("V0"), ptr("TtT"),
+            ptr("Beta"), ptr("Gamma"), ptr("Tr"),
+            None if Tr16 is None else Tr16.data_ptr(), ptr("V0"), ptr("TtT"),
             ptr("iUGamma"), ptr("iUGmG"), ptr("normal"), ptr("gamma"),
             ptr("eps"), iV.data_ptr(), G_out.data_ptr(), C, nc, nt, ns,
             float(df), seed, offset, (offset + 1) & 0xFFFFFFFF,

@@ -36,6 +36,13 @@ iterates are (C, np, nf).  The kernels read the grids in place at those
 indices.  Each wrapper launches its kernel for CUDA tensors (or raises) and
 runs the plain PyTorch version beside it only for tensors on the CPU; every
 launch is counted in :data:`hmsc_tpu_torch.kernels.launches`.
+
+Under a precision policy (:mod:`hmsc_tpu_torch.ops.mixed`) B8b's at-alpha
+mode and B8c take the bfloat16 shadows of ``nn_coef`` and ``nn_D``
+(``coef=``, ``D=``) and run their bf16-grid forms, rounding as the JAX
+package's mx calls do; the GPP kernels take a level whose ``idDg`` is its
+shadow widened back to float32, the values the JAX package's gathered
+bf16 slices widen to before any arithmetic.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import torch
 
 from .. import kernels as K
 from .linalg import chol_spd
+from .mixed import round_bf16
 
 __all__ = ["vecchia_riw", "vecchia_riw_t", "vecchia_pmv", "vecchia_cg",
            "cg_geometry", "cg_frozen", "nngp_quad_grid",
@@ -70,10 +78,24 @@ def _check(name, lvd, alpha_idx, *tensors):
                              f"tensor on {dev}")
 
 
-def _grid_at(lvd, alpha_idx):
-    """(coef (C, nf, np, k), D (C, nf, np)) at each factor's alpha."""
+def _grid_at(lvd, alpha_idx, coef=None, D=None):
+    """(coef (C, nf, np, k), D (C, nf, np)) at each factor's alpha, from
+    the level's grids or the given ones (widened to float32)."""
     a = alpha_idx.long()
-    return lvd.nn_coef[a], lvd.nn_D[a]
+    coef = lvd.nn_coef if coef is None else coef
+    D = lvd.nn_D if D is None else D
+    return coef[a].to(lvd.nn_coef.dtype), D[a].to(lvd.nn_D.dtype)
+
+
+def _bf16_grids(lvd, coef, D):
+    """``(coef, D, bf16)`` for a kernel's grid reads: both bfloat16 shadows
+    (the bf16-grid form), or float32 grids where either is not staged (a
+    lone shadow widened: the values the JAX package reads)."""
+    coef = lvd.nn_coef if coef is None else coef
+    D = lvd.nn_D if D is None else D
+    if coef.dtype == D.dtype == torch.bfloat16:
+        return coef.contiguous(), D.contiguous(), True
+    return coef.to(lvd.nn_coef.dtype), D.to(lvd.nn_D.dtype), False
 
 
 # ---------------------------------------------------------------------------
@@ -365,24 +387,34 @@ def nngp_quad_grid(lvd, eta):
     return out
 
 
-def nngp_quad_at(lvd, alpha_idx, eta):
+def nngp_quad_at(lvd, alpha_idx, eta, coef=None, D=None):
     """At each factor's alpha: ``(q, q1, s)`` = (``eta' iW eta``, ``1' iW
-    1``, ``1' iW eta``), stacked on the last axis: (C, nf, 3)."""
+    1``, ``1' iW eta``), stacked on the last axis: (C, nf, 3).  ``coef``
+    and ``D``, the bfloat16 shadows of the grids, select the bf16-grid
+    form (the neighbours' eta rounded to bfloat16 in the prediction,
+    ``sqrt(D)`` rounded in the ones-forms)."""
+    coef, D, bf16 = _bf16_grids(lvd, coef, D)
     if not eta.is_cuda:
-        return _nngp_quad_at_plain(lvd, alpha_idx, eta)
+        if bf16:
+            return _nngp_quad_at_bf16_plain(lvd, alpha_idx, eta, coef, D)
+        return _nngp_quad_at_plain(lvd, alpha_idx, eta, coef, D)
     C, npr, nf = eta.shape
     if eta.dim() != 3 or npr != lvd.nn_idx.shape[0]:
         raise ValueError(f"nngp_quad_at: eta must be (C, np, nf) with np "
                          f"{lvd.nn_idx.shape[0]}, got {tuple(eta.shape)}")
     _check("nngp_quad_at", lvd, alpha_idx, ("eta", eta, torch.float32))
+    if coef.shape != lvd.nn_coef.shape or D.shape != lvd.nn_D.shape or (
+            coef.device != eta.device or D.device != eta.device):
+        raise ValueError("nngp_quad_at: coef and D must have the level's "
+                         "grids' shapes, on eta's device")
     out = eta.new_empty((C, nf, 3))
     q = quad_at_geometry(npr)
     with torch.cuda.device(eta.device):
         code = K.library().hmsc_nngp_quad_at(
-            eta.data_ptr(), lvd.nn_idx.data_ptr(), lvd.nn_coef.data_ptr(),
-            lvd.nn_D.data_ptr(), alpha_idx.data_ptr(), out.data_ptr(), C,
+            eta.data_ptr(), lvd.nn_idx.data_ptr(), coef.data_ptr(),
+            D.data_ptr(), alpha_idx.data_ptr(), out.data_ptr(), C,
             npr, nf, lvd.nn_idx.shape[1], q["S"], q["units"], q["threads"],
-            K.stream_of(eta))
+            int(bf16), K.stream_of(eta))
     K.check(code, "nngp_quad")
     K.launches["nngp_quad"] += 1
     return out
@@ -396,10 +428,27 @@ def _nngp_quad_grid_plain(lvd, eta):
     return (res ** 2 / lvd.nn_D[None, None]).sum(dim=3)
 
 
-def _nngp_quad_at_plain(lvd, alpha_idx, eta):
+def _nngp_quad_at_bf16_plain(lvd, alpha_idx, eta, coef16, D16):
+    """The NNGP branches of the JAX ``eta_quad_at`` and
+    ``eta_ones_forms_at`` under a scope, per chain: the staged grids
+    widened, the prediction an mx einsum (the neighbours' eta rounded),
+    ``sqrt(D)`` in bfloat16."""
+    coef, D = _grid_at(lvd, alpha_idx, coef16, D16)      # (C, nf, np, k)
+    pred = torch.einsum("chik,cikh->chi", coef,
+                        round_bf16(eta[:, lvd.nn_idx.long()]))
+    res = eta.transpose(1, 2) - pred                     # (C, nf, np)
+    q = (res ** 2 / D).sum(dim=2)
+    sqD = round_bf16(torch.sqrt(D))
+    r1 = (1.0 - coef.sum(dim=3)) / sqD
+    re = res / sqD
+    return torch.stack([q, (r1 ** 2).sum(dim=2), (r1 * re).sum(dim=2)],
+                       dim=2)
+
+
+def _nngp_quad_at_plain(lvd, alpha_idx, eta, coef=None, D=None):
     """The NNGP branches of the JAX ``eta_quad_at`` and
     ``eta_ones_forms_at``, per chain."""
-    coef, D = _grid_at(lvd, alpha_idx)                   # (C, nf, np, k)
+    coef, D = _grid_at(lvd, alpha_idx, coef, D)          # (C, nf, np, k)
     pred = torch.einsum("chik,cikh->chi", coef, eta[:, lvd.nn_idx.long()])
     res = eta.transpose(1, 2) - pred                     # (C, nf, np)
     q = (res ** 2 / D).sum(dim=2)
@@ -432,12 +481,15 @@ def iw_geometry(npr: int, k: int, nnz: int) -> dict:
     return {"rows": rows, "tiles": -(-npr // rows), "smem": smem}
 
 
-def nngp_riw_dense(lvd, alpha_idx):
+def nngp_riw_dense(lvd, alpha_idx, coef=None, D=None):
     """The dense Vecchia precision ``iW = RiW' RiW`` of each chain's factors
     at their alpha: (C, nf, np, np), ``RiW`` rows ``(e_i - sum_k A[i,k]
-    e_nn[i,k]) / sqrt(D_i)``, in one launch."""
+    e_nn[i,k]) / sqrt(D_i)``, in one launch.  ``coef`` and ``D``, the
+    bfloat16 shadows of the grids, select the bf16-grid form (the shadows
+    read and widened, iW built in float32)."""
+    coef, D, bf16 = _bf16_grids(lvd, coef, D)
     if not lvd.nn_coef.is_cuda:
-        return _nngp_riw_dense_plain(lvd, alpha_idx)
+        return _nngp_riw_dense_plain(lvd, alpha_idx, coef, D)
     C, nf = alpha_idx.shape
     npr, k = lvd.nn_idx.shape
     _check("nngp_riw_dense", lvd, alpha_idx,
@@ -450,23 +502,28 @@ def nngp_riw_dense(lvd, alpha_idx):
         raise ValueError(f"nngp_riw_dense: np {npr} with {k} neighbours "
                          f"needs {geo['smem']} bytes of shared memory a "
                          f"block (at most {_IW_SMEM_MAX})")
+    if coef.shape != lvd.nn_coef.shape or D.shape != lvd.nn_D.shape or (
+            coef.device != lvd.nn_coef.device
+            or D.device != lvd.nn_coef.device):
+        raise ValueError("nngp_riw_dense: coef and D must have the level's "
+                         "grids' shapes, on its device")
     out = lvd.nn_coef.new_empty((C, nf, npr, npr))
     with torch.cuda.device(out.device):
         code = K.library().hmsc_nngp_iw(
-            lvd.nn_idx.data_ptr(), lvd.nn_n.data_ptr(),
-            lvd.nn_coef.data_ptr(), lvd.nn_D.data_ptr(),
-            lvd.rev_ptr.data_ptr(), lvd.rev_pos.data_ptr(),
+            lvd.nn_idx.data_ptr(), lvd.nn_n.data_ptr(), coef.data_ptr(),
+            D.data_ptr(), lvd.rev_ptr.data_ptr(), lvd.rev_pos.data_ptr(),
             alpha_idx.data_ptr(), out.data_ptr(), C, nf, npr, k, nnz,
-            geo["rows"], geo["smem"], K.stream_of(out))
+            geo["rows"], geo["smem"], int(bf16), K.stream_of(out))
     K.check(code, "nngp_riw")
     K.launches["nngp_riw"] += 1
     return out
 
 
-def _nngp_riw_scatter(lvd, alpha_idx):
+def _nngp_riw_scatter(lvd, alpha_idx, coef=None, D=None):
     """The JAX ``_nngp_dense_iW`` scatter (before its gram), per chain: the
-    dense factor ``RiW`` (C, nf, np, np)."""
-    coef, D = _grid_at(lvd, alpha_idx)                   # (C, nf, np, k)
+    dense factor ``RiW`` (C, nf, np, np), from the level's grids or the
+    given ones (bfloat16 shadows widened)."""
+    coef, D = _grid_at(lvd, alpha_idx, coef, D)          # (C, nf, np, k)
     C, nf, npr, k = coef.shape
     RiW = coef.new_zeros((C, nf, npr, npr))
     ar = lambda n: torch.arange(n, device=coef.device)
@@ -477,9 +534,10 @@ def _nngp_riw_scatter(lvd, alpha_idx):
     return RiW / torch.sqrt(D)[..., None]
 
 
-def _nngp_riw_dense_plain(lvd, alpha_idx):
-    """The JAX ``_nngp_dense_iW``, per chain: the scatter, then its gram."""
-    RiW = _nngp_riw_scatter(lvd, alpha_idx)
+def _nngp_riw_dense_plain(lvd, alpha_idx, coef=None, D=None):
+    """The JAX ``_nngp_dense_iW``, per chain: the scatter, then its gram
+    (float32 whatever the grids' type, as under a scope)."""
+    RiW = _nngp_riw_scatter(lvd, alpha_idx, coef, D)
     return RiW.transpose(2, 3) @ RiW
 
 

@@ -43,6 +43,9 @@ class Posterior:
                          (next(iter(self.arrays.values())).shape[0]
                           if len(self.arrays) else 0))
         self.timing = None          # {"setup_s", "run_s"} set by sample_mcmc
+        # the run's mixed-precision policy (PrecisionPolicy.to_meta(), None
+        # for the exact engine), set by sample_mcmc: it changes the draws
+        self.precision_policy = None
         self.io_stats = {}          # host-loop/checkpoint-IO counters
                                     # (sample_mcmc; empty when loaded)
         self.telemetry = None       # run-telemetry summary (span totals,

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Run chosen kernels' card checks and times from ``chip_smoke.py`` alone.
 
-    python3 scripts/kernel_checks.py serve_predict gpp_quad [--ptxas]
+    python3 scripts/kernel_checks.py serve_predict gpp_quad [--ptxas] [--bf16]
 
 Builds every kernel as ``chip_smoke.py`` does, prints ``nvcc -Xptxas
 -v``'s registers, shared memory and spills for the named kernels' sources
 (``--ptxas``), then runs only those kernels' checks against their plain
 versions and their times (``chip_smoke.py``'s phases 2-3) and prints
-their numbers as one JSON line.  Names are those of
+their numbers as one JSON line (``--bf16``: also the bf16 forms of B4,
+B6, B8b and B8c against their plain versions).  Names are those of
 ``hmsc_tpu_torch.kernels.KERNELS``.  No model path runs and there is no
 result line: ``chip_smoke.py`` is the whole run.  Each line carries the
 card's name and power limit.
@@ -60,13 +61,16 @@ def main(argv=None) -> int:
     ap.add_argument("names", nargs="+", help="kernel names")
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc -Xptxas -v's registers and spills")
+    ap.add_argument("--bf16", action="store_true",
+                    help="also run the bf16 forms' checks (B4, B6, B8b at "
+                         "alpha, B8c)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_checks: no CUDA device is available", file=sys.stderr)
         return 2
     import chip_smoke as cs
     from hmsc_tpu_torch import kernels as K
-    from hmsc_tpu_torch.ops import gram, linalg, rand, serve, spatial
+    from hmsc_tpu_torch.ops import gram, linalg, mixed, rand, serve, spatial
 
     unknown = set(opts.names) - set(K.KERNELS)
     if unknown:
@@ -95,7 +99,8 @@ def main(argv=None) -> int:
         "truncnorm_da": lambda: cs.check_b7(torch, rand, dev, card),
         "serve_predict": lambda: cs.check_b9a(torch, serve, K, dev, card),
         "serve_quantile": lambda: cs.check_b9c(torch, serve, dev, card),
-        "serve_conditional": lambda: cs.check_b9b(torch, serve, dev, card)}
+        "serve_conditional": lambda: cs.check_b9b(torch, serve, dev, card),
+        "mixed_gemm": lambda: cs.check_b10(torch, mixed, dev, card)}
     results = {}
     for name in opts.names:
         if name in results:
@@ -106,7 +111,11 @@ def main(argv=None) -> int:
             results.update(cs.check_b8d(torch, spatial, dev, card))
         else:
             results[name] = checks[name]()
-    print(json.dumps({"kernels": {n: results[n] for n in opts.names}}))
+    out = {n: results[n] for n in opts.names}
+    if opts.bf16:
+        out["bf16_forms"] = cs.check_bf16_forms(torch, rand, gram, spatial,
+                                                dev, card)
+    print(json.dumps({"kernels": out}))
     return 0
 
 

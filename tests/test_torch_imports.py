@@ -27,7 +27,7 @@ CARD_SCRIPTS = ("kernel_checks.py", "gpp_quad_sweep.py",
                 "vecchia_cg_sweep.py", "probit_z_sweep.py",
                 "nngp_quad_sweep.py", "nngp_dense_iw_sweep.py",
                 "shrinkage_sweep.py", "gamma_v_sweep.py",
-                "mvn_prec_sweep.py")
+                "mvn_prec_sweep.py", "precision_ab.py")
 PORT_FILES = sorted((REPO / "hmsc_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"] + [REPO / "scripts" / n for n in CARD_SCRIPTS]
 

@@ -226,7 +226,7 @@ def test_features_outside_the_slice_raise(case):
         hmsc_tpu_torch.sample_mcmc(hM, samples=1, device="cpu")
 
 
-@pytest.mark.parametrize("arg", [{"precision_policy": "auto"},
+@pytest.mark.parametrize("arg", [{"precision_policy": {"blocks": ["Alpha"]}},
                                  {"mesh": object()},
                                  {"checkpoint_every": 5},
                                  {"updater": {"Gamma2": True}}])
