@@ -38,6 +38,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    launch) to 1e-5 of its plain version at np 97, 100, 128 (nf 2) and 256
    (nf 1), alpha 0 giving I, bit-identical reruns, timed beside its first
    version (scripts/older/nngp_riw_factor.cu, built here) and its gram;
+   B8e (the site-local Vecchia apply) at the B8a levels split over 2 and 4
+   ranks: each rank's partials (pmv and riw_t forms) against the plain
+   version and their sum in rank order against B8a's unsharded apply
+   (1e-5), reruns bit-identical;
    B4 (the GammaV block, the Wishart draw included, in one launch) against
    the plain block fed the same draws (1e-4 relative on iV and Gamma) at
    the headline's nc 2 / nt 1, nc 8 / nt 4 and its cap nc 16 / nt 4 x ns
@@ -122,6 +126,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (alpha) within a stated margin of the JAX package's own value; and the
    alpha sampler, given an Eta drawn at an interior range on the 3a, 3b and
    3c levels, must draw around it.
+   k. the sites phase: 2 gloo ranks on the card (``spawn_ranks``; a
+      correctness run, gloo stages every collective through host memory):
+      on config 3b at its published widths and on the headline, the state
+      after 3 site-sharded sweeps within SHARD_AGREEMENT_TOL of the
+      single-rank sweep's from one seed, the ranks bit-identical; then
+      ``sample_mcmc(mesh=make_mesh(site_shards=2, backend="gloo"))`` at a
+      cut depth (SITE_PATHS), the ranks' Posteriors identical, the
+      launches the schedule implies (3b: B8e, no B8a), 3b's slope and
+      alpha gates, the headline's slope gate; and one all_reduce of 3b's
+      CG iterate timed.
    j. the precision phase: the headline through ``sample_mcmc(...,
       precision_policy="auto")`` (BetaLambda and GammaV in bf16: B10 two
       launches a sweep, B4's bf16 form), its launches as the schedule
@@ -2055,6 +2069,119 @@ def check_b8a(torch, tsp, dev, card):
                       apply_event_ms=ev, apply_held_ms=held,
                       **check_b8a_cg(torch, tsp, dev, card, lvd, n, k))
     return res[B8_SHAPES[0][0]]
+
+
+# B8e: the site meshes its check splits the B8a shapes' levels over
+B8E_RANKS = (2, 4)
+
+
+def as_level(lvd):
+    """A level of ``nngp_level`` as the sampler's ``LevelData``."""
+    from hmsc_tpu_torch.mcmc.structs import LevelData
+
+    return LevelData(pi_row=None, unit_count=None, x_row=None, x_unit=None,
+                     nu=None, a1=None, b1=None, a2=None, b2=None,
+                     **vars(lvd))
+
+
+def check_b8e(torch, tsp, dev, card):
+    """B8e, the site-local Vecchia apply, at the B8a shapes' levels split
+    over 2 and 4 ranks (one process: each rank's block made by
+    ``structs.site_slice_level``): each rank's partials of both forms
+    against the plain version (1e-5), their sum in rank order against
+    B8a's unsharded ``vecchia_pmv`` / ``vecchia_riw_t`` (1e-5), reruns
+    bit-identical; rank 0's pmv form timed (both launches)."""
+    from hmsc_tpu_torch.mcmc.partition import ShardCtx
+    from hmsc_tpu_torch.mcmc.structs import site_slice_level
+
+    res = {}
+    for n, k, side in B8_SHAPES:
+        lvd = as_level(nngp_level(torch, dev, n, k, side, seed=n))
+        g = torch.Generator(device=dev).manual_seed(n + 7)
+        alpha = torch.randint(1, B8_G, (B8_C, B8_NF), generator=g,
+                              device=dev, dtype=torch.int32)
+        alpha[0, 0] = 0
+        x = torch.randn((B8_C, n, B8_NF), generator=g, device=dev)
+        u = torch.randn((B8_C, n, B8_NF), generator=g, device=dev)
+        M = torch.randn((B8_C, n, B8_NF, B8_NF), generator=g, device=dev)
+        LiSL = (M @ M.transpose(2, 3)).contiguous()
+        want_p = tsp.vecchia_pmv(lvd, alpha, x, LiSL)
+        want_r = tsp.vecchia_riw_t(lvd, alpha, u)
+        for m in B8E_RANKS:
+            sum_p, sum_r, errs, rels = 0.0, 0.0, [], []
+            for r in range(m):
+                ctx = ShardCtx(m=m, rank=r, ny=n, np_r=(n,))
+                lv = site_slice_level(lvd, ctx)
+                off = ctx.site_offset(n)
+                L_r, u_r = ctx.slice_site(LiSL, 1), ctx.slice_site(u, 1)
+                pk = tsp.vecchia_site_pmv(lv, alpha, x, L_r, off)
+                rk = tsp.vecchia_site_riw_t(lv, alpha, u_r, n, off)
+                for label, kk, pp in (
+                        ("pmv", pk, tsp._vecchia_site_plain(
+                            lv, alpha, x, None, L_r, n, off)),
+                        ("riw_t", rk, tsp._vecchia_site_plain(
+                            lv, alpha, None, u_r, None, n, off))):
+                    assert torch.isfinite(kk).all(), f"B8e {label}: NaN"
+                    rel = _rel(kk, pp)
+                    # the neighbour sums in another order than the plain
+                    # version's einsum and index_add_
+                    assert rel <= 1e-5, (f"B8e {label} np={n} m={m} rank "
+                                         f"{r}: rel diff {rel} > 1e-5")
+                    errs.append((kk - pp).abs().max().item())
+                    rels.append(rel)
+                assert torch.equal(pk, tsp.vecchia_site_pmv(
+                    lv, alpha, x, L_r, off)) and torch.equal(
+                        rk, tsp.vecchia_site_riw_t(lv, alpha, u_r, n, off)), \
+                    f"B8e np={n} m={m} rank {r}: two runs differ"
+                sum_p, sum_r = sum_p + pk, sum_r + rk      # rank order
+            rel_p, rel_r = _rel(sum_p, want_p), _rel(sum_r, want_r)
+            assert rel_p <= 1e-5 and rel_r <= 1e-5, (
+                f"B8e np={n} m={m}: sum over ranks against B8a rel diff "
+                f"{rel_p} (pmv), {rel_r} (riw_t) > 1e-5")
+            ctx = ShardCtx(m=m, rank=0, ny=n, np_r=(n,))
+            lv = site_slice_level(lvd, ctx)
+            L_0 = ctx.slice_site(LiSL, 1)
+
+            def kern():
+                tsp.vecchia_site_pmv(lv, alpha, x, L_0, 0)
+
+            def plain():
+                tsp._vecchia_site_plain(lv, alpha, x, None, L_0, n, 0)
+
+            ms_t = device_ms(torch, kern, "vecchia_site_t_kernel")
+            ms_a = device_ms(torch, kern, "vecchia_site_adj_kernel")
+            plain_ms = device_ms(torch, plain, calls=10)
+            ev = event_ms(torch, kern)
+            n_l = n // m
+            nnz = int(lv.rev_pos.numel())
+            cells, cells_l = B8_C * n * B8_NF, B8_C * n_l * B8_NF
+            # bytes: x and the partial (full width), the rank's LiSL block
+            # and alpha in, its grid slices at the alphas in use and lists,
+            # its reverse CSR (np + 1 offsets, its nnz positions);
+            # operations: the forward's 2k + 3 a local cell, the adjoint's
+            # 2 a local real neighbour per (chain, factor), the likelihood's
+            # 2 nf + 1 a local cell
+            nbytes = (4.0 * (2 * cells + cells_l * B8_NF + B8_C * B8_NF)
+                      + _grid_bytes(lv, alpha) + 4.0 * (n + 1 + nnz))
+            ops = (cells_l * (2 * k + 3 + 2 * B8_NF + 1)
+                   + 2.0 * B8_C * B8_NF * nnz)
+            b, by = bound_ms(nbytes, ops)
+            print(f"B8e check np={n} k={k} on {m} ranks: each rank's "
+                  f"partial against the plain version max rel "
+                  f"{max(rels):.3g} (1e-5: another summation order), the "
+                  f"partials summed in rank order against B8a's unsharded "
+                  f"apply {rel_p:.3g} (pmv), {rel_r:.3g} (riw_t) (1e-5); "
+                  f"reruns bit-identical.  Rank 0's P x partial (np_l "
+                  f"{n_l}, full-width output): {ms_t + ms_a:.5f} ms device "
+                  f"({ms_t:.5f} rows + {ms_a:.5f} adjoint), {ev:.4f} ms "
+                  f"with enqueue (events), plain {plain_ms:.4f} ms, bound "
+                  f"{b:.6f} ms by {by} [{card}]")
+            res[(n, m)] = dict(max_abs_err=max(errs), ms=ms_t + ms_a,
+                               event_ms=ev, plain_ms=plain_ms, bound_ms=b,
+                               bound_by=by, library_ms=None)
+    first = res[(B8_SHAPES[0][0], 2)]
+    return {**first, "by_shape": {f"np{n}_m{m}": v
+                                  for (n, m), v in res.items()}}
 
 
 def b8a_cg_cost(lvd, alpha, n, k, iters):
@@ -4178,7 +4305,7 @@ def policy_one_sweep(torch, ht, trand, K, card, label, hM, nf, n_chains,
 
 
 def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
-                      cg_loop=(), updater=None, policy=None):
+                      cg_loop=(), updater=None, policy=None, site=False):
     """Kernel launches the sweep schedule implies: Z once at start and once
     a sweep: on a model with Poisson columns the whole Z update is B5's
     mixed form (``updaters.mixed_z``: no B1 launch), else for probit
@@ -4213,7 +4340,12 @@ def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
     loadings; the location interweave's lam lam' and lam u a level, and a
     Full level's scale quadratic); a bf16 Eta block forms E, so Z's
     sweeps take B1's E-reading form (the start's Z update keeps the fused
-    one)."""
+    one).
+
+    On a site mesh (``site``) an NNGP CG draw is B8e instead of B8a: the
+    prior perturbation's riw_t form once, then the pmv form for the
+    initial residual, each iteration and the final residual (the host
+    loop, ``cg_frozen``): iterations + 3 launches a draw."""
     from hmsc_tpu_torch.mcmc import spatial as tspatial
     from hmsc_tpu_torch.mcmc import updaters as tupd
     from hmsc_tpu_torch.mcmc.structs import _find_ones_column
@@ -4261,7 +4393,8 @@ def expected_launches(spec, transient, samples, thin, adapt_nf, hM,
             "gamma_v": sweeps * gv,
             "poisson_z": (1 + sweeps) * spec.any_poisson,
             "masked_gram": sweeps * (1 + spec.nr) * spec.has_na,
-            "vecchia_apply": len(cg_loop),
+            "vecchia_apply": 0 if site else len(cg_loop),
+            "vecchia_site": sum(cg_loop) + 3 * len(cg_loop) if site else 0,
             "nngp_quad": sweeps * quads * len(nngp),
             "nngp_riw": sweeps * dense,
             "gpp_unit": sweeps * gpp,
@@ -4367,6 +4500,136 @@ def spatial_paths(torch, ht, K, card, by_path):
               f"{ref}; margin {ALPHA_MARGIN} x the grid's {grid_max:.4f}); "
               f"{cg_txt}")
     return spatial
+
+
+# the sites phase: SITE_RANKS gloo ranks on the one card, spawned once;
+# each path's sample_mcmc at a depth cut from its single-card path's
+SITE_RANKS = 2
+SITE_SWEEPS = 3                 # sweeps of each agreement case
+SITE_PATHS = {"config3b_sites": dict(transient=50, samples=100),
+              "headline_sites": dict(transient=10, samples=50)}
+
+
+def sites_phase(torch, ht, K, card, by_path, hM_h, Beta_h, hM_3b):
+    """The site-sharded sweep on SITE_RANKS ranks of one card (gloo,
+    ``spawn_ranks``; the kernels were built before the spawn): on config
+    3b at its published widths and on the headline, the state after
+    SITE_SWEEPS sweeps within SHARD_AGREEMENT_TOL of the single-rank
+    sweep's from the same seed, the ranks bit-identical; then
+    ``sample_mcmc(mesh=...)`` on each at a cut depth, finite draws, the
+    ranks' Posteriors identical, 3b's slope and alpha gates and the
+    headline's slope gate, the launches the schedule implies (on 3b B8e
+    and no B8a).  Also times one all_reduce of 3b's CG iterate."""
+    from hmsc_tpu_torch.mcmc.partition import SHARD_AGREEMENT_TOL
+    from hmsc_tpu_torch.mcmc.site_check import run_site_cases
+    from hmsc_tpu_torch.mcmc.structs import build_spec
+
+    h, c3 = HEADLINE, CONFIG3["config3b"]
+    models = {"config3b_sites": (hM_3b, c3["n_chains"], CONFIG3_NF,
+                                 CONFIG3_SEED),
+              "headline_sites": (hM_h, h["n_chains"], h["nf"],
+                                 HEADLINE_SEED)}
+    cases = []
+    for label, (m, chains, nf, seed) in models.items():
+        cases.append(dict(kind="sweeps", hM=m, n_sweeps=SITE_SWEEPS,
+                          seed=seed, n_chains=chains, nf_cap=nf))
+        d = SITE_PATHS[label]
+        cases.append(dict(kind="sample", hM=m, kw=dict(
+            samples=d["samples"], transient=d["transient"],
+            n_chains=chains, seed=seed, nf_cap=nf)))
+    cases.append(dict(kind="all_reduce", shape=(c3["n_chains"], c3["np"],
+                                                 CONFIG3_NF), calls=200))
+    t0 = time.perf_counter()
+    out = ht.spawn_ranks(run_site_cases, SITE_RANKS, "gloo", "cuda",
+                         (SITE_RANKS, "gloo", "cuda", cases), timeout_s=600)
+    print(f"sites: {SITE_RANKS} gloo ranks on cuda:0 through spawn_ranks, "
+          f"{time.perf_counter() - t0:.1f} s with the ranks' start; a "
+          f"correctness run: gloo stages every collective through host "
+          f"memory, so its times say nothing about scaling across cards "
+          f"[{card}]")
+    for i, (label, (m, chains, nf, seed)) in enumerate(models.items()):
+        sw, sm = [r[2 * i] for r in out], [r[2 * i + 1] for r in out]
+        errs = {}
+        for key, want in sw[0]["replicated"].items():
+            got = sw[0]["sharded"][key]
+            assert np.isfinite(got.astype(float)).all(), f"{label}: {key}"
+            a, b = want.astype(float), got.astype(float)
+            errs[key] = float(np.abs(a - b).max()
+                              / max(np.abs(a).max(), 1e-6))
+        worst = max(errs, key=errs.get)
+        assert errs[worst] <= SHARD_AGREEMENT_TOL, (
+            f"{label}: {worst} off the single-rank sweep by {errs[worst]}")
+        for r in range(1, SITE_RANKS):
+            for key in sw[0]["sharded"]:
+                assert np.array_equal(sw[0]["sharded"][key],
+                                      sw[r]["sharded"][key]), (
+                    f"{label}: rank {r}'s {key} differs from rank 0's")
+        print(f"{label} agreement: {SITE_SWEEPS} sweeps on {SITE_RANKS} "
+              f"ranks against the single-rank sweep from one seed: largest "
+              f"normalised deviation {errs[worst]:.3g} ({worst}; tolerance "
+              f"{SHARD_AGREEMENT_TOL}); the ranks' states bit-identical; "
+              f"sharded sweeps' launches {sw[0]['launches']}")
+        d = SITE_PATHS[label]
+        post = sm[0]
+        for r in range(1, SITE_RANKS):
+            for key in post["arrays"]:
+                assert np.array_equal(post["arrays"][key],
+                                      sm[r]["arrays"][key]), (
+                    f"{label}: rank {r}'s posterior {key} differs")
+        beta = post["arrays"]["Beta"]
+        assert np.isfinite(beta).all(), f"{label}: non-finite Beta"
+        assert (post["first_bad_it"] < 0).all(), f"{label}: divergence"
+        assert post["site_shards"] == SITE_RANKS
+        spec = build_spec(m, nf)
+        loop = post["cg_iterations"]["loop"]
+        want = expected_launches(spec, d["transient"], d["samples"], 1,
+                                 (d["transient"],) * spec.nr, m, loop,
+                                 site=True)
+        assert post["launches"] == want, (
+            f"{label}: launches {post['launches']}, the schedule implies "
+            f"{want}")
+        by_path[label] = post["launches"]
+        slope = beta[:, :, 1, :].mean(axis=(0, 1))
+        truth = Beta_h if label == "headline_sites" else \
+            config3_data("config3b")[4]
+        corr = float(np.corrcoef(slope, truth[1])[0, 1])
+        assert corr > 0.9, f"{label}: slope correlation {corr} <= 0.9"
+        gate = f"corr(posterior-mean slopes, simulated) {corr:.4f} (> 0.9)"
+        if label == "config3b_sites":
+            assert post["launches"]["vecchia_site"] > 0
+            assert post["launches"]["vecchia_apply"] == 0
+            grid = m.ranLevels[0].alphapw[:, 0]
+            got = grid[post["arrays"]["Alpha_0"]].mean(axis=(0, 1))
+            ref = CONFIG3_JAX_ALPHA["config3b"]
+            for f, (a, rr) in enumerate(zip(got, ref)):
+                assert abs(a - rr) <= ALPHA_MARGIN * float(grid[-1]), (
+                    f"{label}: posterior-mean alpha of factor {f} {a} is "
+                    f"more than {ALPHA_MARGIN} x the grid's range from the "
+                    f"JAX package's {rr}")
+            gate += (f"; posterior-mean alpha {np.round(got, 4).tolist()} "
+                     f"(the JAX package: {ref}, margin {ALPHA_MARGIN} x "
+                     f"{float(grid[-1]):.4f}); CG iterations a draw: mean "
+                     f"{np.mean(loop):.2f}, max {max(loop)}")
+            ar = out[0][-1]
+            n_it = sum(loop)
+            run_s = post["timing"]["run_s"]
+            print(f"{label} all_reduce: one of the CG iterate "
+                  f"({c3['n_chains']} x {c3['np']} x {CONFIG3_NF} float32, "
+                  f"{ar['bytes']} bytes) {ar['ms']:.4f} ms a call "
+                  f"(gloo through host memory, 200 calls), one a CG "
+                  f"iteration: {n_it} iterations x {ar['ms']:.4f} ms = "
+                  f"{n_it * ar['ms'] / 1e3:.3f} s of the run's "
+                  f"{run_s:.3f} s [{card}]")
+        run_s = post["timing"]["run_s"]
+        sweeps = d["transient"] + d["samples"]
+        print(f"{label}: {spec.ny} x {spec.ns}, nf_max {nf}, {chains} "
+              f"chains on {SITE_RANKS} ranks, transient {d['transient']}, "
+              f"samples {d['samples']} (depth cut from the single-card "
+              f"path's): run {run_s:.3f} s, "
+              f"{chains * d['samples'] / run_s:.2f} samples/s, "
+              f"{chains * sweeps / run_s:.2f} chain-sweeps/s "
+              f"(gloo through host: not a scaling figure); {gate}; "
+              f"launches on rank 0 {post['launches']} [{card}]")
 
 
 def serve_path(torch, ht, K, card, post, hM):
@@ -4639,6 +4902,7 @@ def main() -> int:
                "poisson_z": check_b5(torch, trand, dev, card),
                "masked_gram": check_b6(torch, tgram, dev, card),
                "vecchia_apply": check_b8a(torch, tsp, dev, card),
+               "vecchia_site": check_b8e(torch, tsp, dev, card),
                "nngp_quad": check_b8b(torch, tsp, dev, card),
                "nngp_riw": check_b8c(torch, tsp, dev, card),
                **check_b8d(torch, tsp, dev, card),
@@ -4716,6 +4980,10 @@ def main() -> int:
 
     spatial = spatial_paths(torch, ht, K, card, by_path)
     check_alpha_planted(torch, ht, card)
+
+    # (k) the sites phase: 3b and the headline on 2 gloo ranks of the card
+    sites_phase(torch, ht, K, card, by_path, hM, Beta_h,
+                spatial["config3b"])
 
     # (j) the precision phase: the headline fitted under the default
     # mixed-precision policy (B10, B4's bf16 form), then one policy'd sweep
@@ -4797,6 +5065,9 @@ def main() -> int:
         "vecchia_apply": ("B8a vecchia_apply",
                           "hmsc_tpu_torch/csrc/vecchia_apply.cu",
                           "hmsc_tpu/mcmc/spatial.py:61", "config3b"),
+        "vecchia_site": ("B8e vecchia_site",
+                         "hmsc_tpu_torch/csrc/vecchia_site.cu",
+                         "hmsc_tpu/mcmc/spatial.py:88", "config3b_sites"),
         "nngp_quad": ("B8b nngp_quad", "hmsc_tpu_torch/csrc/nngp_quad.cu",
                       "hmsc_tpu/mcmc/spatial.py:415", "config3b"),
         "nngp_riw": ("B8c nngp_riw", "hmsc_tpu_torch/csrc/nngp_riw.cu",

@@ -83,6 +83,9 @@ struct MvnArgs {
   float jitter_over_p;
   uint2 key;
   unsigned offset;
+  int nsys_g, sys_off;   // Philox counters: system j of chain c counts as
+                         // c nsys_g + sys_off + j (a site mesh's rank: its
+                         // block of the level's units); nsys and 0 else
 };
 
 template <int P, int FORM>
@@ -179,7 +182,8 @@ mvn_prec_small_kernel(const MvnArgs a) {
   // scripts/mvn_prec_sweep.py)
   float e = e_in;
   if (a.eps == nullptr) {
-    const long long n = bb * P + i;
+    const long long n =
+        (static_cast<long long>(c) * a.nsys_g + a.sys_off + j) * P + i;
     const uint4 u = hmsc::philox4x32_10(
         make_uint4(static_cast<unsigned>(n), static_cast<unsigned>(n >> 32),
                    a.offset, 0u),
@@ -273,7 +277,8 @@ int launch(const MvnArgs& a, int form, cudaStream_t stream) {
 }  // namespace
 
 // form 0 element, 1 identity, 2 BetaLambda; batch = C nsys systems of
-// P <= 16.  A null eps draws Philox normals at (seed, offset).
+// P <= 16.  A null eps draws Philox normals at (seed, offset), element i of
+// system j of chain c from counter (c nsys_g + sys_off + j) P + i.
 extern "C" int hmsc_mvn_prec_small(const float* G, int g_shared,
                                    const float* scale, int scale_chain,
                                    const float* rhs, const float* iV,
@@ -281,16 +286,19 @@ extern "C" int hmsc_mvn_prec_small(const float* G, int g_shared,
                                    const float* Tr, int nc, int nt,
                                    const float* eps, float* out,
                                    long long batch, int nsys, int P, int form,
+                                   int nsys_g, int sys_off,
                                    unsigned long long seed, unsigned offset,
                                    void* stream) {
-  if (batch < 1 || nsys < 1 || batch % nsys != 0 ||
+  if (batch < 1 || nsys < 1 || batch % nsys != 0 || sys_off < 0 ||
+      sys_off + nsys > nsys_g ||
       (form == kBetaLambda && (nc < 1 || nc > P || nt < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // (1e-6 / P) in double, then rounded: the JAX op's Python-float factor
   MvnArgs a{G, g_shared, scale, scale_chain, rhs, iV, prior, Gamma, Tr,
             nc, nt, eps, out, batch, nsys,
-            static_cast<float>(1e-6 / P), hmsc::seed_key(seed), offset};
+            static_cast<float>(1e-6 / P), hmsc::seed_key(seed), offset,
+            nsys_g, sys_off};
   switch (P) {
     case 1: return launch<1>(a, form, s);
     case 2: return launch<2>(a, form, s);

@@ -75,12 +75,14 @@ constexpr int kUnroll = 5;         // at alpha: list entries loaded together
 constexpr int kClusterMax = 8;
 
 struct GridArgs {
-  const float* eta;               // (C, np, nf)
+  const float* eta;               // (C, np_eta, nf)
   const int* nn_u;                // (k, np): the lists, unit last
   const float* coef_u;            // (G, k, np): the grid, unit last
   const float* D;                 // (G, np)
   float* out;                     // (C nf, G)
   int C, np, nf, k, G;
+  int np_eta, u_off;              // eta's units; unit u of the grids is
+                                  // eta's u_off + u (a site mesh's rank)
 };
 
 __device__ __forceinline__ void cp_async4(float* dst, const void* src) {
@@ -130,7 +132,7 @@ nngp_quad_grid_kernel(const GridArgs a) {
   const int g = blockIdx.x;                     // a block a grid point
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int ncol = a.C * nf;
-  const int n_eta = ncol * np;
+  const int n_eta = ncol * a.np_eta;
   if (kEtaSmem) {
     // 16 bytes a copy where eta is 16-byte aligned, else 4
     const int n16 = (reinterpret_cast<unsigned long long>(a.eta) & 15) == 0
@@ -157,7 +159,7 @@ nngp_quad_grid_kernel(const GridArgs a) {
 #pragma unroll
     for (int q = 0; q < kCols; ++q) {
       const int col = c0 + q < ncol ? c0 + q : ncol - VW + q % VW;
-      base[q] = (col / nf) * np * nf + col % nf;
+      base[q] = (col / nf) * a.np_eta * nf + col % nf;
     }
     // the 8 columns' values at unit offset jn = j nf: VW-wide loads (a
     // chain's consecutive factors are adjacent in eta)
@@ -212,7 +214,7 @@ nngp_quad_grid_kernel(const GridArgs a) {
         }
       }
       float own[kCols];
-      gather(i * nf, own);
+      gather((a.u_off + i) * nf, own);
 #pragma unroll
       for (int q = 0; q < kCols; ++q) {
         const float r = own[q] - pred[q];
@@ -246,13 +248,14 @@ nngp_quad_grid_kernel(const GridArgs a) {
 }
 
 struct AtArgs {
-  const float* eta;               // (C, np, nf)
+  const float* eta;               // (C, np_eta, nf)
   const int* nn;                  // (np, k)
   const void* coef;               // (G, np, k), float32 or bfloat16
   const void* D;                  // (G, np), likewise
   const int* alpha;
   float* out;                     // (C nf, 3)
   int np, nf, k, S, units;
+  int np_eta, u_off;              // as GridArgs
 };
 
 // element i of a float32 or (kBf16) bfloat16 grid, widened
@@ -286,7 +289,7 @@ nngp_quad_at_kernel(const AtArgs a) {
   const int c = col / nf, f = col % nf;
   const long long al = __ldg(a.alpha + col);
   const long long Aa = al * a.np * k, Da = al * a.np;
-  const float* E = a.eta + static_cast<long long>(c) * a.np * nf + f;
+  const float* E = a.eta + static_cast<long long>(c) * a.np_eta * nf + f;
   const int u0 = rank * a.units;
   const int u1 = min(a.np, u0 + a.units);
   float q = 0.0f, q1 = 0.0f, s = 0.0f;
@@ -294,7 +297,7 @@ nngp_quad_at_kernel(const AtArgs a) {
     const int* nb = a.nn + static_cast<long long>(i) * k;
     const long long Ai = Aa + static_cast<long long>(i) * k;
     const float d = grid_at<kBf16>(a.D, Da + i);
-    const float own = __ldg(E + static_cast<long long>(i) * nf);
+    const float own = __ldg(E + static_cast<long long>(a.u_off + i) * nf);
     float pred = 0.0f, csum = 0.0f;
     for (int k0 = 0; k0 < k; k0 += kUnroll) {
       int j[kUnroll];
@@ -368,7 +371,7 @@ cudaError_t launch_cluster(void (*kernel)(const Args), const Args& a,
 template <bool kEtaSmem, int VW>
 cudaError_t grid_launch(const GridArgs& a, void* stream) {
   const size_t smem =
-      kEtaSmem ? sizeof(float) * ((static_cast<size_t>(a.C) * a.np * a.nf +
+      kEtaSmem ? sizeof(float) * ((static_cast<size_t>(a.C) * a.np_eta * a.nf +
                                    3) & ~static_cast<size_t>(3))
                : 0;
   if (smem > 48 * 1024) {
@@ -384,20 +387,26 @@ cudaError_t grid_launch(const GridArgs& a, void* stream) {
 
 }  // namespace
 
-// Grid mode: out (C nf, G) from eta (C, np, nf), the lists and the grid
-// with the unit last, nn_u (k, np) and coef_u (G, k, np), and the variances
-// D (G, np).  A block a grid point; eta whole in each block's shared memory
-// where `eta_smem`.
+// Grid mode: out (C nf, G) from eta (C, np_eta, nf), the lists and the
+// grid with the unit last, nn_u (k, np) and coef_u (G, k, np), and the
+// variances D (G, np).  A block a grid point; eta whole in each block's
+// shared memory where `eta_smem`.  Both modes sum over the np units of the
+// grids, unit u reading eta's unit u_off + u: a site mesh's rank passes its
+// block of the grids, the whole eta and its block's first unit (np_eta =
+// np and u_off = 0 on one card).
 extern "C" int hmsc_nngp_quad_grid(const float* eta, const int* nn_u,
                                    const float* coef_u, const float* D,
                                    float* out, int C, int np, int nf, int k,
-                                   int G, int eta_smem, void* stream) {
-  if (k < 1 || static_cast<long long>(C) * np * nf >= (1LL << 31) ||
+                                   int G, int eta_smem, int np_eta, int u_off,
+                                   void* stream) {
+  if (k < 1 || u_off < 0 || u_off + np > np_eta ||
+      static_cast<long long>(C) * np_eta * nf >= (1LL << 31) ||
       static_cast<long long>(G) * k * np >= (1LL << 31) ||
-      (eta_smem && 4LL * C * np * nf > 227 * 1024))
+      (eta_smem && 4LL * C * np_eta * nf > 227 * 1024))
     return static_cast<int>(cudaErrorInvalidValue);
   if (C == 0 || np == 0 || nf == 0 || G == 0) return 0;
-  const GridArgs a{eta, nn_u, coef_u, D, out, C, np, nf, k, G};
+  const GridArgs a{eta, nn_u, coef_u, D, out, C, np, nf, k, G, np_eta,
+                   u_off};
   // the widest loads the factors allow (eta 16-byte aligned)
   const bool al = (reinterpret_cast<unsigned long long>(eta) & 15) == 0;
   const int vw = al && nf % 4 == 0 ? 4 : al && nf % 2 == 0 ? 2 : 1;
@@ -423,13 +432,16 @@ extern "C" int hmsc_nngp_quad_at(const float* eta, const int* nn,
                                  const void* coef, const void* D,
                                  const int* alpha, float* out, int C, int np,
                                  int nf, int k, int S, int units, int threads,
-                                 int bf16, void* stream) {
+                                 int bf16, int np_eta, int u_off,
+                                 void* stream) {
   if (S < 1 || S > kClusterMax || units < 1 ||
-      static_cast<long long>(S) * units < np || k < 1 ||
-      static_cast<long long>(C) * np * nf >= (1LL << 31))
+      static_cast<long long>(S) * units < np || k < 1 || u_off < 0 ||
+      u_off + np > np_eta ||
+      static_cast<long long>(C) * np_eta * nf >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
   if (C == 0 || np == 0 || nf == 0) return 0;
-  const AtArgs a{eta, nn, coef, D, alpha, out, np, nf, k, S, units};
+  const AtArgs a{eta, nn, coef, D, alpha, out, np, nf, k, S, units, np_eta,
+                 u_off};
   const unsigned blocks = static_cast<unsigned>(C) * nf * S;
   cudaError_t e;
   switch (threads * 2 + (bf16 ? 1 : 0)) {

@@ -75,6 +75,8 @@ struct ZArgs {
   long long sx0, sx1, sb0, sb1, sb2, se0, se1, se2, sl0, sl1, sl2, sm0, sm1;
   int ny, ns, nc, nf;
   int lg_tcg;                     // log2 of the column groups a block
+  int row_off;                    // global row of row 0 (a site mesh's
+                                  // rank: its block's start), counters only
   hmsc::PhiloxKeys keys;          // the seed's ten round keys
   unsigned offset;
 };
@@ -182,7 +184,8 @@ probit_z_kernel(const ZArgs a) {
       load4<kVec>(a.U + zo, nj, u);
     } else {
       const uint4 b = hmsc::philox4x32_10(
-          make_uint4(static_cast<unsigned>(j >> 2), static_cast<unsigned>(i),
+          make_uint4(static_cast<unsigned>(j >> 2),
+                     static_cast<unsigned>(i + a.row_off),
                      static_cast<unsigned>(c), a.offset),
           a.keys);
       u[0] = hmsc::uniform01(b.x);
@@ -233,17 +236,21 @@ bool valid(int C, int ny, int ns, int lg_tcg) {
 }  // namespace
 
 // The E-reading form: Z (C, ny, ns) from E (C, ny, ns).  `vec`: ns % 4 ==
-// 0 and every pointer 16-byte aligned (128-bit loads and stores).
+// 0 and every pointer 16-byte aligned (128-bit loads and stores).  Both
+// forms draw cell (c, i, j) from the Philox counter of global row i +
+// row_off: a site mesh's rank passes its block's first row, so each cell
+// gets the bits of the replicated run.
 extern "C" int hmsc_probit_z(const float* E, const float* sd, const float* Y,
                              const float* U, float* Z, int C, int ny, int ns,
-                             int lg_tcg, int vec, unsigned long long seed,
-                             unsigned offset, void* stream) {
-  if (!valid(C, ny, ns, lg_tcg))
+                             int lg_tcg, int vec, int row_off,
+                             unsigned long long seed, unsigned offset,
+                             void* stream) {
+  if (!valid(C, ny, ns, lg_tcg) || row_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (C == 0 || ny == 0 || ns == 0) return 0;
   ZArgs a{};
   a.E = E; a.sd = sd; a.Y = Y; a.U = U; a.Z = Z;
-  a.ny = ny; a.ns = ns; a.lg_tcg = lg_tcg;
+  a.ny = ny; a.ns = ns; a.lg_tcg = lg_tcg; a.row_off = row_off;
   a.keys = hmsc::philox_round_keys(hmsc::seed_key(seed));
   a.offset = offset;
   return launch<false>(a, C, vec != 0, stream);
@@ -260,10 +267,11 @@ extern "C" int hmsc_probit_z_fused(const float* X, const float* Beta,
                                    const float* U, float* Z,
                                    const long long* strides, int C, int ny,
                                    int ns, int nc, int nf, int lg_tcg,
-                                   int vec, unsigned long long seed,
-                                   unsigned offset, void* stream) {
+                                   int vec, int row_off,
+                                   unsigned long long seed, unsigned offset,
+                                   void* stream) {
   if (!valid(C, ny, ns, lg_tcg) || nc < 0 || nf < 0 || nc + nf < 1 ||
-      nc + nf > kMaxK)
+      nc + nf > kMaxK || row_off < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (C == 0 || ny == 0 || ns == 0) return 0;
   ZArgs a{};
@@ -275,6 +283,7 @@ extern "C" int hmsc_probit_z_fused(const float* X, const float* Beta,
   a.sl0 = strides[8]; a.sl1 = strides[9]; a.sl2 = strides[10];
   a.sm0 = strides[11]; a.sm1 = strides[12];
   a.ny = ny; a.ns = ns; a.nc = nc; a.nf = nf; a.lg_tcg = lg_tcg;
+  a.row_off = row_off;
   a.keys = hmsc::philox_round_keys(hmsc::seed_key(seed));
   a.offset = offset;
   return launch<true>(a, C, vec != 0, stream);

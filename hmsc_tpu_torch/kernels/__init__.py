@@ -39,6 +39,7 @@ KERNELS = {"probit_z": "probit_z.cu",
            "poisson_z": "poisson_z.cu",
            "masked_gram": "masked_gram.cu",
            "vecchia_apply": "vecchia_apply.cu",
+           "vecchia_site": "vecchia_site.cu",
            "nngp_quad": "nngp_quad.cu",
            "nngp_riw": "nngp_riw.cu",
            "gpp_unit": "gpp_unit.cu",
@@ -130,12 +131,12 @@ def library():
             p, i, ll, u64, u32 = (ctypes.c_void_p, ctypes.c_int,
                                   ctypes.c_longlong, ctypes.c_ulonglong,
                                   ctypes.c_uint)
-            lib.hmsc_probit_z.argtypes = [p, p, p, p, p, i, i, i, i, i, u64,
-                                          u32, p]
-            lib.hmsc_probit_z_fused.argtypes = [p] * 11 + [i] * 7 + [
+            lib.hmsc_probit_z.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                          u64, u32, p]
+            lib.hmsc_probit_z_fused.argtypes = [p] * 11 + [i] * 8 + [
                 u64, u32, p]
             lib.hmsc_mvn_prec_small.argtypes = [p, i, p, i] + [p] * 5 + [
-                i, i, p, p, ll, i, i, i, u64, u32, p]
+                i, i, p, p, ll, i, i, i, i, i, u64, u32, p]
             lib.hmsc_standard_gamma.argtypes = [p, p, ll, u64, u32, p]
             lib.hmsc_shrinkage_gamma.argtypes = [p] * 10 + [i] * 8 + [
                 u64, u32, u32, p]
@@ -150,10 +151,11 @@ def library():
                                              p]
             lib.hmsc_vecchia_adj.argtypes = [p, p, p, p, p, p, p, p, p, i, i,
                                              i, i, i, p]
+            lib.hmsc_vecchia_site.argtypes = [p] * 11 + [i] * 6 + [p]
             lib.hmsc_vecchia_cg.argtypes = [p] * 15 + [i] * 8 + [
                 ctypes.c_float, i, p]
-            lib.hmsc_nngp_quad_grid.argtypes = [p] * 5 + [i] * 6 + [p]
-            lib.hmsc_nngp_quad_at.argtypes = [p] * 6 + [i] * 8 + [p]
+            lib.hmsc_nngp_quad_grid.argtypes = [p] * 5 + [i] * 8 + [p]
+            lib.hmsc_nngp_quad_at.argtypes = [p] * 6 + [i] * 10 + [p]
             lib.hmsc_nngp_iw.argtypes = [p] * 8 + [i] * 8 + [p]
             lib.hmsc_gpp_unit.argtypes = [p, p, p, p, p, p, i, i, i, p]
             lib.hmsc_gpp_knot.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
@@ -176,7 +178,8 @@ def library():
                        lib.hmsc_gamma_v,
                        lib.hmsc_z_mixed,
                        lib.hmsc_masked_gram, lib.hmsc_vecchia_fwd,
-                       lib.hmsc_vecchia_adj, lib.hmsc_vecchia_cg,
+                       lib.hmsc_vecchia_adj, lib.hmsc_vecchia_site,
+                       lib.hmsc_vecchia_cg,
                        lib.hmsc_nngp_quad_grid,
                        lib.hmsc_nngp_quad_at, lib.hmsc_nngp_iw,
                        lib.hmsc_gpp_unit, lib.hmsc_gpp_knot,

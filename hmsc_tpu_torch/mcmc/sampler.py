@@ -9,6 +9,14 @@ convergence reads (one every few CG iterations, ``mcmc/spatial.py``): the
 divergence tracker ``first_bad_update`` stays on the device,
 factorisations report failure as NaN, and the kernels' Philox seeds come
 from a host generator.
+
+``sample_mcmc(mesh=make_mesh(site_shards=m))`` runs the site-sharded sweep
+SPMD, one process a rank (the JAX package's ``mesh=`` with a site axis):
+every rank builds the same data and initial state from the seed, keeps its
+block of rows and units (``structs.site_slice_data`` /
+``site_slice_state``), sweeps with the ranks' ``all_reduce`` at each
+cross-site sum, and at the end gathers the recorded Eta rows, so every rank
+returns the same full ``Posterior``.
 """
 
 from __future__ import annotations
@@ -22,11 +30,13 @@ import torch
 
 from ..post.posterior import Posterior
 from ..precompute import compute_data_parameters
+from .partition import (ShardCtx, nearest_site_divisor,
+                        site_shard_unsupported_reason)
 from .structs import (DEFAULT_NF_CAP, GibbsState, build_model_data,
                       build_spec, build_state, check_supported,
-                      stack_states)
+                      site_slice_data, site_slice_state, stack_states)
 from .precision import resolve_policy, stage_data
-from .sweep import make_sweep, record_sample
+from .sweep import make_sharded_sweep, make_sweep, record_sample
 from .updaters import da_intercept_gate, update_z
 from ..ops.rand import Rng
 
@@ -112,13 +122,57 @@ def initial_states(hM, spec, seed, n_chains, device):
     return state, rng
 
 
-def first_bad_update(state: GibbsState, bad_it):
+def first_bad_update(state: GibbsState, bad_it, shard=None):
     """Track the first iteration whose state went non-finite, per chain
-    (divergence observability; on the device, no host sync)."""
+    (divergence observability; on the device, no host sync).  On a site
+    mesh a chain is bad when it is on any rank (one ``all_reduce``)."""
     ok = torch.ones_like(bad_it, dtype=torch.bool)
     for t in state.float_tensors():
         ok = ok & torch.isfinite(t).flatten(1).all(dim=1)
+    if shard is not None:
+        ok = shard.all_ok(ok)
     return torch.where((bad_it < 0) & ~ok, state.it, bad_it)
+
+
+def _site_shard(spec, mesh, updater, shard_sweep):
+    """The site axis ``sample_mcmc`` engages on ``mesh`` (the JAX package's
+    gate, ``sampler.py:1267-1380``): a :class:`ShardCtx`, or None where the
+    mesh has no site axis, ``shard_sweep`` is False, or ny or a level's
+    unit count does not divide ``site_shards`` (a warning naming the
+    nearest valid ``site_shards``, every rank then running the whole
+    sweep; a ``ValueError`` with ``shard_sweep=True``).  Raises
+    ``NotImplementedError`` for a model class whose site branches are not
+    ported."""
+    if shard_sweep not in (None, True, False):
+        raise ValueError(f"shard_sweep must be None (auto), True or False, "
+                         f"got {shard_sweep!r}")
+    m = 1 if mesh is None else int(mesh.site_shards)
+    if shard_sweep is True and m < 2:
+        raise ValueError("shard_sweep=True requires a mesh with a 'sites' "
+                         "axis of extent >= 2 — build one with "
+                         "make_mesh(site_shards=m)")
+    if m < 2 or shard_sweep is False:
+        return None
+    reason = site_shard_unsupported_reason(spec, updater)
+    if reason is not None:
+        raise NotImplementedError(f"sample_mcmc(mesh=...): {reason}")
+    bad_np = [ls.n_units for ls in spec.levels if ls.n_units % m]
+    if spec.ny % m or bad_np:
+        what = (f"ny={spec.ny}" if spec.ny % m
+                else f"a level's unit count np={bad_np[0]}")
+        near = nearest_site_divisor(spec.ny,
+                                    [ls.n_units for ls in spec.levels], m)
+        msg = (f"mesh names a 'sites' axis of size {m} but {what} is not "
+               f"divisible by site_shards={m}; the nearest valid "
+               f"site_shards for this model is {near}")
+        if shard_sweep is True:
+            raise ValueError(f"shard_sweep=True but {msg}")
+        warnings.warn(f"{msg}; site arrays are replicated (every rank "
+                      "runs the whole sweep)", RuntimeWarning, stacklevel=3)
+        return None
+    return ShardCtx(m=m, rank=int(mesh.rank), ny=spec.ny,
+                    np_r=tuple(ls.n_units for ls in spec.levels),
+                    group=mesh.group)
 
 
 def sample_mcmc(hM, samples: int, transient: int = 0, thin: int = 1,
@@ -126,7 +180,8 @@ def sample_mcmc(hM, samples: int, transient: int = 0, thin: int = 1,
                 nf_cap: int = DEFAULT_NF_CAP, adapt_nf=None,
                 updater: dict | None = None, record=None,
                 align_post: bool = True, device=None,
-                precision_policy=None, mesh=None, checkpoint_every: int = 0,
+                precision_policy=None, mesh=None, shard_sweep=None,
+                checkpoint_every: int = 0,
                 checkpoint_path: str | None = None) -> Posterior:
     """Run the blocked Gibbs sampler; returns a :class:`Posterior`.
 
@@ -150,19 +205,44 @@ def sample_mcmc(hM, samples: int, transient: int = 0, thin: int = 1,
     Posterior's ``precision_policy``.  A policy naming a block whose
     mixed-precision form is not ported (``Alpha``, ``Rho``, ``wRRR``,
     ``BetaSel``, ``Gamma2``, ``GammaEta``) raises ``NotImplementedError``.
-    ``mesh`` and checkpointing are not ported yet (ROADMAP A9) and raise.
+
+    ``mesh`` (:func:`hmsc_tpu_torch.utils.mesh.make_mesh`, called on every
+    rank: ``torchrun`` or ``spawn_ranks`` start them) runs the site-sharded
+    sweep, SPMD: each rank holds its block of the sampling rows and of each
+    level's units, the ranks ``all_reduce`` at each cross-site sum, and
+    every rank returns the same full Posterior (its ``site_shards`` says
+    how many ranks sampled it).  ``device`` defaults to the mesh's.
+    ``shard_sweep``: None shards where ny and every level's unit count
+    divide ``site_shards`` and warns (naming the nearest valid value) and
+    runs the whole sweep on every rank where not; True makes that a
+    ``ValueError``; False never shards.  ``NotImplementedError`` names the
+    ROADMAP item of what a mesh does not run yet: ``species_shards > 1``
+    (A9.3b), a Full or GPP level (A9.3d), a precision policy with a mesh
+    (A9.3e), Poisson or lognormal-Poisson columns, missing values in Y and
+    the probit-DA interweave (A9.3f).  Checkpointing is not ported yet
+    (ROADMAP A9.1) and raises.
 
     The returned Posterior carries ``timing`` = {setup_s, run_s}: run_s is
     the sampling loop up to and including the copy of the draws to the
     host; and ``cg_iterations``, one entry per NNGP CG Eta draw in sweep
     order: the iterations the CG loop ran (``"loop"``, a list) and each
     chain's own (``"chains"``, an (n_draws, n_chains) array)."""
-    for name, val, item in (("mesh", mesh, "A9.3"),
-                            ("checkpoint_every", checkpoint_every, "A9.1"),
-                            ("checkpoint_path", checkpoint_path, "A9.1")):
+    for name, val in (("checkpoint_every", checkpoint_every),
+                      ("checkpoint_path", checkpoint_path)):
         if val:
             raise NotImplementedError(
-                f"sample_mcmc({name}=...) is not ported yet (ROADMAP {item})")
+                f"sample_mcmc({name}=...) is not ported yet (ROADMAP A9.1)")
+    if mesh is not None:
+        if mesh.species_shards > 1:
+            raise NotImplementedError(
+                "sample_mcmc(mesh=...): species sharding (species_shards "
+                "> 1) is not ported yet (ROADMAP A9.3b)")
+        if precision_policy is not None:
+            raise NotImplementedError(
+                "sample_mcmc(mesh=...): a precision policy together with a "
+                "mesh is not ported yet (ROADMAP A9.3e)")
+        if device is None:
+            device = mesh.device
     dev = resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -178,6 +258,7 @@ def sample_mcmc(hM, samples: int, transient: int = 0, thin: int = 1,
 
     spec = build_spec(hM, nf_cap)
     check_supported(hM, spec)
+    shard = _site_shard(spec, mesh, updater, shard_sweep)
     record = normalize_record(spec, record)
     # the per-block mixed-precision policy, resolved against the final spec
     # (the "auto" selection sees the model class it will run)
@@ -195,29 +276,36 @@ def sample_mcmc(hM, samples: int, transient: int = 0, thin: int = 1,
     state, rng = initial_states(hM, spec, seed, n_chains, dev)
     trng = Rng(int(rng.integers(0, 2**62)), dev)
     cg_log = []         # (level, loop iterations, largest, per-chain)
-    # the policy's bf16 shadows, staged once before the timed loop
-    sweep = make_sweep(spec, updater, adapt_nf, cg_log, precision=policy,
-                       staged=stage_data(data, policy))
+    if shard is not None:
+        # every rank keeps its block of the rows and units
+        data = site_slice_data(data, shard)
+        state = site_slice_state(state, shard)
+        sweep = make_sharded_sweep(spec, shard, updater, adapt_nf, cg_log)
+    else:
+        # the policy's bf16 shadows, staged once before the timed loop
+        sweep = make_sweep(spec, updater, adapt_nf, cg_log,
+                           precision=policy, staged=stage_data(data, policy))
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t1 = time.perf_counter()
 
     # the reference initialises Z with one updateZ pass
-    state = update_z(spec, data, state, trng)
+    state = update_z(spec, data, state, trng, shard=shard)
     bad = first_bad_update(state, torch.full((n_chains,), -1,
-                                             dtype=torch.int32, device=dev))
+                                             dtype=torch.int32, device=dev),
+                           shard)
     it = 0
     for _ in range(transient):
         it += 1
         state = sweep(data, state, trng, it=it)
-        bad = first_bad_update(state, bad)
+        bad = first_bad_update(state, bad, shard)
 
     buf = None
     for s in range(samples):
         for _ in range(thin):
             it += 1
             state = sweep(data, state, trng, it=it)
-            bad = first_bad_update(state, bad)
+            bad = first_bad_update(state, bad, shard)
         rec = {k: v for k, v in record_sample(spec, data, state).items()
                if _keep_record(k, record)}
         if buf is None:
@@ -225,6 +313,10 @@ def sample_mcmc(hM, samples: int, transient: int = 0, thin: int = 1,
                    for k, v in rec.items()}
         for k, v in rec.items():
             buf[k][:, s] = v
+    if shard is not None and buf is not None:
+        # the recorded Eta rows, gathered to full width on every rank
+        for k in [k for k in buf if k.startswith("Eta_")]:
+            buf[k] = shard.gather_site(buf[k], 2)
     arrays = {k: v.cpu().numpy() for k, v in (buf or {}).items()}
     first_bad = bad.cpu().numpy()
     nf_sat = {r: state.levels[r].nf_sat.cpu().numpy()
@@ -241,6 +333,7 @@ def sample_mcmc(hM, samples: int, transient: int = 0, thin: int = 1,
     post.timing = {"setup_s": t1 - t0, "run_s": t2 - t1}
     post.precision_policy = None if policy is None else policy.to_meta()
     post.cg_iterations = cg_iterations
+    post.site_shards = 1 if shard is None else shard.m
     post.set_chain_health(first_bad)
     for c in np.nonzero(first_bad >= 0)[0]:
         warnings.warn(

@@ -31,7 +31,9 @@ from ..precompute import DataParams, compute_initial_parameters
 __all__ = ["LevelSpec", "ModelSpec", "LevelData", "ModelData", "LevelState",
            "GibbsState", "build_spec", "build_model_data", "build_state",
            "stack_states", "data_from_numpy", "state_from_numpy",
-           "check_supported", "reverse_neighbours", "DEFAULT_NF_CAP"]
+           "check_supported", "reverse_neighbours", "site_slice_data",
+           "site_slice_level", "site_slice_state", "site_gather_state",
+           "DEFAULT_NF_CAP"]
 
 # static cap on latent factors per level (reference grows nf up to ns,
 # updateNf.R:26; the preallocated factor blocks need a concrete bound)
@@ -125,6 +127,10 @@ class LevelData(_Replace):
     Fg: Any = None               # (G, nK, nK) float64
     iFg: Any = None              # (G, nK, nK) float64
     detDg: Any = None            # (G,)
+    # a rank's block of an NNGP level on a site mesh (site_slice_data): the
+    # level's whole neighbour structure (nn_idx, nn_n, rev_ptr, rev_pos),
+    # which the dense draw reads after gathering the grids at alpha
+    nn_full: Any = None
 
 
 @dataclasses.dataclass
@@ -400,22 +406,27 @@ def _neighbour_counts(nn_idx, nn_coef):
     return n + first
 
 
-def reverse_neighbours(nn_idx, nn_n):
+def reverse_neighbours(nn_idx, nn_n, n_units: int | None = None):
     """The reverse-neighbour CSR of an NNGP level, built on the host:
     ``(rev_ptr, rev_pos)`` such that the entries ``e`` in
     ``rev_ptr[j]:rev_ptr[j+1]`` are the positions ``i k + slot`` of the
     (unit ``i``, slot) pairs that list unit ``j`` as a real neighbour, in
     ascending order.  Pads (slots at or past ``nn_n``) are left out, so the
     transpose of the Vecchia factor gives every output one owner and a
-    fixed order of summation, and unit 0 does not collect every pad."""
+    fixed order of summation, and unit 0 does not collect every pad.
+    ``n_units`` (default: the rows of ``nn_idx``) is the number of units
+    the lists index: a site mesh's rank passes its block of rows and the
+    level's global unit count, and gets its local reverse CSR (``i`` a row
+    of the block, ``j`` any unit of the level)."""
     nn_idx = np.asarray(nn_idx, dtype=np.int64)
     npr, k = nn_idx.shape
+    n_out = npr if n_units is None else int(n_units)
     real = np.arange(k)[None, :] < np.asarray(nn_n)[:, None]
     pos = np.nonzero(real.ravel())[0]                   # ascending i*k + kk
     col = nn_idx.ravel()[pos]
     order = np.argsort(col, kind="stable")
-    ptr = np.zeros(npr + 1, dtype=np.int64)
-    np.cumsum(np.bincount(col, minlength=npr), out=ptr[1:])
+    ptr = np.zeros(n_out + 1, dtype=np.int64)
+    np.cumsum(np.bincount(col, minlength=n_out), out=ptr[1:])
     return ptr, pos[order]
 
 
@@ -475,3 +486,69 @@ def state_from_numpy(s: dict, device, dtype=torch.float32) -> GibbsState:
     names = {f.name for f in dataclasses.fields(GibbsState)} - {"levels"}
     return GibbsState(levels=levels,
                       **{k: _tensor(k, top[k], device, dtype) for k in names})
+
+
+# ---------------------------------------------------------------------------
+# a rank's block on a site mesh (the JAX package's place_on_mesh with the
+# site tables, hmsc_tpu/mcmc/partition.py:302-320)
+# ---------------------------------------------------------------------------
+
+def site_slice_data(data: ModelData, ctx) -> ModelData:
+    """The rank's block of ``data`` by :data:`partition.DATA_SITE_DIMS` and
+    :data:`partition.PORT_SITE_DIMS`: its rows of Y, Ymask, X and each
+    level's ``pi_row`` / ``x_row`` (which keep GLOBAL unit indices), and
+    its units of an NNGP level's grids (the lists keep GLOBAL neighbour
+    indices).  An NNGP level's reverse-neighbour CSR becomes the rank's
+    local one (:func:`reverse_neighbours` of its rows over the level's
+    units: B8e's adjoint), and ``nn_full`` keeps the level's whole
+    structure for the dense draw.  The identity when ``ctx`` has no site
+    axis."""
+    if ctx is None or not ctx.has_sites:
+        return data
+    from .partition import DATA_SITE_DIMS
+    top = {k: ctx.slice_site(getattr(data, k), DATA_SITE_DIMS[k])
+           for k in ("Y", "Ymask", "X")}
+    return data.replace(levels=tuple(site_slice_level(lvd, ctx)
+                                     for lvd in data.levels), **top)
+
+
+def site_slice_level(lvd: LevelData, ctx) -> LevelData:
+    """One level of :func:`site_slice_data`: the rank's rows of ``pi_row``
+    and ``x_row``, and of an NNGP level its units of the grids, its local
+    reverse-neighbour CSR and the whole structure in ``nn_full``."""
+    from .partition import DATA_SITE_DIMS, PORT_SITE_DIMS
+    dims = {**DATA_SITE_DIMS, **PORT_SITE_DIMS}
+    kw = {}
+    for f in dataclasses.fields(LevelData):
+        v = getattr(lvd, f.name)
+        if v is not None and f.name in dims:
+            kw[f.name] = ctx.slice_site(v, dims[f.name])
+    if lvd.nn_idx is not None:
+        npr = lvd.nn_idx.shape[0]
+        ptr, pos = reverse_neighbours(kw["nn_idx"].cpu().numpy(),
+                                      kw["nn_n"].cpu().numpy(), npr)
+        dev = lvd.nn_idx.device
+        kw["rev_ptr"] = torch.tensor(ptr, dtype=torch.int32, device=dev)
+        kw["rev_pos"] = torch.tensor(pos, dtype=torch.int32, device=dev)
+        kw["nn_full"] = (lvd.nn_idx, lvd.nn_n, lvd.rev_ptr, lvd.rev_pos)
+    return lvd.replace(**kw)
+
+
+def site_slice_state(state: GibbsState, ctx) -> GibbsState:
+    """The rank's block of a chain-stacked state by
+    :data:`partition.STATE_SITE_DIMS`: its rows of Z and units of each
+    level's Eta (the chain axis leads)."""
+    if ctx is None or not ctx.has_sites:
+        return state
+    levels = tuple(lv.replace(Eta=ctx.slice_site(lv.Eta, 1))
+                   for lv in state.levels)
+    return state.replace(Z=ctx.slice_site(state.Z, 1), levels=levels)
+
+
+def site_gather_state(state: GibbsState, ctx) -> GibbsState:
+    """The full-width state from each rank's block (every rank gets it)."""
+    if ctx is None or not ctx.has_sites:
+        return state
+    levels = tuple(lv.replace(Eta=ctx.gather_site(lv.Eta, 1))
+                   for lv in state.levels)
+    return state.replace(Z=ctx.gather_site(state.Z, 1), levels=levels)

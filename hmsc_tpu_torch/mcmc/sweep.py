@@ -18,6 +18,13 @@ float32 out) and the sweep inside one ``mixed.staged_scope`` holding the
 run's shadow table, as the JAX package's ``make_sweep(precision=...)``.  A
 bf16 Eta block forms E itself, with its products routed, and Z reads it (B1's
 E-reading form): the JAX package's E_shared comes from that block.
+
+With ``shard=`` (a :class:`~hmsc_tpu_torch.mcmc.partition.ShardCtx` with a
+site axis) the same blocks run on a site mesh's rank, SPMD: each updater's
+site branch reads the rank's rows and units and makes its cross-site sums
+with ``all_reduce`` (the JAX package's ``make_sharded_sweep`` over a site
+axis).  :func:`make_sharded_sweep` refuses the model classes whose site
+branches are not ported before the first sweep.
 """
 
 from __future__ import annotations
@@ -29,8 +36,8 @@ from . import updaters as U
 from .spatial import update_alpha, update_eta_spatial
 from .structs import GibbsState, ModelData, ModelSpec
 
-__all__ = ["make_sweep_schedule", "make_sweep", "sweep_prologue",
-           "record_sample"]
+__all__ = ["make_sweep_schedule", "make_sweep", "make_sharded_sweep",
+           "sweep_prologue", "record_sample"]
 
 # opt-in updaters of the JAX package that this slice does not port
 _NOT_PORTED = {"Gamma2": "A7", "GammaEta": "A7"}
@@ -46,10 +53,12 @@ def _precision_block(fn, dtype, layouts):
 
 def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
                         adapt_nf: tuple | None = None,
-                        cg_log: list | None = None, precision=None):
+                        cg_log: list | None = None, precision=None,
+                        shard=None):
     """The ordered ``(name, block)`` list one sweep comprises.  NNGP CG Eta
     draws append their iteration counts to ``cg_log`` when given; blocks
-    that ``precision`` (a ``PrecisionPolicy``) names run in its scope."""
+    that ``precision`` (a ``PrecisionPolicy``) names run in its scope;
+    ``shard`` runs every block's site branch."""
     updater = updater or {}
     on = lambda name: updater.get(name, True) is not False
     want = lambda name: updater.get(name, False) is True
@@ -72,7 +81,8 @@ def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
     if on("BetaLambda"):
         def _beta_lambda(data, carry, rng, noise):
             state, E = carry
-            return U.update_beta_lambda(spec, data, state, rng, noise), E
+            return U.update_beta_lambda(spec, data, state, rng, noise,
+                                        shard), E
         steps.append(("BetaLambda", _beta_lambda))
 
     if on("GammaV"):
@@ -91,7 +101,7 @@ def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
         def _eta(data, carry, rng, noise):
             state, _ = carry
             LFix = U.linear_fixed(spec, data, state.Beta)
-            LRan = [U.level_loading(data.levels[r], state.levels[r])
+            LRan = [U.level_loading(data.levels[r], state.levels[r], shard)
                     if spec.nr > 1 else None for r in range(spec.nr)]
             for r in range(spec.nr):
                 S = state.Z - LFix
@@ -101,16 +111,16 @@ def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
                 nz = None if noise is None else noise[r]
                 if spec.levels[r].spatial is None:
                     lv = U.update_eta_nonspatial(spec, data, state, r, rng,
-                                                 S, nz)
+                                                 S, nz, shard)
                 else:
                     lv = update_eta_spatial(spec, data, state, r, rng, S,
-                                            nz, cg_log=cg_log)
+                                            nz, cg_log=cg_log, shard=shard)
                 levels = list(state.levels)
                 levels[r] = lv
                 state = state.replace(levels=tuple(levels))
                 if not fused:
                     LRan[r] = U.level_loading(data.levels[r],
-                                              state.levels[r])
+                                              state.levels[r], shard)
             if fused:
                 return state, None
             E = LFix
@@ -127,7 +137,8 @@ def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
             for r in range(spec.nr):
                 if spec.levels[r].spatial is not None:
                     lv = update_alpha(spec, data, state, r, rng,
-                                      None if noise is None else noise[r])
+                                      None if noise is None else noise[r],
+                                      shard)
                     levels = list(state.levels)
                     levels[r] = lv
                     state = state.replace(levels=tuple(levels))
@@ -144,24 +155,25 @@ def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
             if on("Interweave"):
                 state = U.interweave_scale(
                     spec, data, state, rng,
-                    None if noise is None else noise["scale"])
+                    None if noise is None else noise["scale"], shard)
             if on("InterweaveLocation"):
                 state = U.interweave_location(
                     spec, data, state, rng,
-                    None if noise is None else noise["location"])
+                    None if noise is None else noise["location"], shard)
             return state, E
         steps.append(("Interweave", _interweave))
 
     if on("InvSigma"):
         def _inv_sigma(data, carry, rng, noise):
             state, E = carry
-            return U.update_inv_sigma(spec, data, state, rng, E, noise), E
+            return U.update_inv_sigma(spec, data, state, rng, E, noise,
+                                      shard), E
         steps.append(("InvSigma", _inv_sigma))
 
     if on("Z"):
         def _z(data, carry, rng, noise):
             state, E = carry
-            return U.update_z(spec, data, state, rng, E, noise), E
+            return U.update_z(spec, data, state, rng, E, noise, shard), E
         steps.append(("Z", _z))
 
     # opt-in ASIS flip of the probit augmentation on the intercept row,
@@ -182,7 +194,8 @@ def make_sweep_schedule(spec: ModelSpec, updater: dict | None = None,
                 if adapt_nf[r] <= 0 or (it is not None and it > adapt_nf[r]):
                     continue      # the gate below is false for every chain
                 lv_new = U.update_nf(spec, data, state, r, rng,
-                                     None if noise is None else noise[r])
+                                     None if noise is None else noise[r],
+                                     shard)
                 gate = state.it <= adapt_nf[r]            # (C,)
                 lv_old = state.levels[r]
                 lv = lv_old.replace(**{
@@ -213,7 +226,7 @@ def sweep_prologue(state: GibbsState) -> GibbsState:
 
 def make_sweep(spec: ModelSpec, updater: dict | None = None,
                adapt_nf: tuple | None = None, cg_log: list | None = None,
-               precision=None, staged: dict | None = None):
+               precision=None, staged: dict | None = None, shard=None):
     """``sweep(data, state, rng, it=None, noise=None) -> state``.
 
     ``it`` is the sweep's 1-based index known on the host (the value
@@ -224,8 +237,11 @@ def make_sweep(spec: ModelSpec, updater: dict | None = None,
     ``cg_log`` collects the NNGP CG draws' iteration counts.  With
     ``precision`` (a ``PrecisionPolicy``) the policy'd blocks run in their
     scopes and the sweep reads ``staged``, the run's shadow table
-    (``precision.stage_data``)."""
-    steps = make_sweep_schedule(spec, updater, adapt_nf, cg_log, precision)
+    (``precision.stage_data``).  ``shard`` runs the sweep on a site mesh's
+    rank (use :func:`make_sharded_sweep`, which refuses what is not
+    ported)."""
+    steps = make_sweep_schedule(spec, updater, adapt_nf, cg_log, precision,
+                                shard)
 
     def blocks(data, state, rng, it, noise):
         state = sweep_prologue(state)
@@ -248,6 +264,23 @@ def make_sweep(spec: ModelSpec, updater: dict | None = None,
             return blocks(data, state, rng, it, noise)
 
     return sweep
+
+
+def make_sharded_sweep(spec: ModelSpec, shard, updater: dict | None = None,
+                       adapt_nf: tuple | None = None,
+                       cg_log: list | None = None):
+    """The site-sharded sweep (the JAX package's ``make_sharded_sweep`` on a
+    site axis): :func:`make_sweep` with ``shard``, SPMD on every rank of
+    ``shard``'s group, the data and state each rank's block
+    (``structs.site_slice_data`` / ``site_slice_state``).  Raises
+    ``NotImplementedError`` naming the ROADMAP item for a model class whose
+    site branches are not ported (Full and GPP levels, Poisson columns,
+    missing values, the probit-DA interweave)."""
+    from .partition import site_shard_unsupported_reason
+    reason = site_shard_unsupported_reason(spec, updater)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    return make_sweep(spec, updater, adapt_nf, cg_log, shard=shard)
 
 
 # ---------------------------------------------------------------------------

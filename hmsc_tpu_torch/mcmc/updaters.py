@@ -22,6 +22,14 @@ B6 (:mod:`..ops.gram`); the opt-in probit-DA intercept interweave through
 B7.  The spatial Eta and alpha updates live in
 :mod:`.spatial`; the interweaving moves read its prior quadratics on a
 spatial level.
+
+``shard=`` (a :class:`~hmsc_tpu_torch.mcmc.partition.ShardCtx` with a site
+axis) runs an updater on a site mesh's rank, as the JAX package's
+``shard=`` branches do: the state holds the rank's rows of Z and units of
+Eta and the data its rows (``structs.site_slice_data``); the cross-site
+sums are ``shard.psum_site`` (an ``all_reduce``), a row gather of Eta reads
+it gathered to full width (``shard.gather_site``), and every draw with a
+site dimension is taken at the global width and sliced.
 """
 
 from __future__ import annotations
@@ -67,26 +75,39 @@ def linear_fixed(spec: ModelSpec, data: ModelData, Beta):
     return mixed.matmul(mixed.staged("X", data.X), Beta)
 
 
-def level_loading(data_lv, lv: LevelState):
+def _site(shard) -> bool:
+    return shard is not None and shard.has_sites
+
+
+def _eta_rows_src(lv: LevelState, shard=None):
+    """A level's Eta as a row gather reads it: on a site mesh Eta holds the
+    rank's units while ``pi_row`` holds global unit indices, so it is
+    gathered to full width first (the JAX package's ``_eta_rows_src``)."""
+    return shard.gather_site(lv.Eta, 1) if _site(shard) else lv.Eta
+
+
+def level_loading(data_lv, lv: LevelState, shard=None):
     """LRan_r = Eta[pi, :] @ Lambda (x_dim = 0, so x_row is all ones)."""
-    return mixed.matmul(lv.Eta[:, data_lv.pi_row],
+    return mixed.matmul(_eta_rows_src(lv, shard)[:, data_lv.pi_row],
                         lambda_effective(lv)[..., 0])
 
 
-def total_loading(spec: ModelSpec, data: ModelData, state: GibbsState):
+def total_loading(spec: ModelSpec, data: ModelData, state: GibbsState,
+                  shard=None):
     E = linear_fixed(spec, data, state.Beta)
     for r in range(spec.nr):
-        E = E + level_loading(data.levels[r], state.levels[r])
+        E = E + level_loading(data.levels[r], state.levels[r], shard)
     return E
 
 
-def eta_star(spec: ModelSpec, data: ModelData, state: GibbsState):
+def eta_star(spec: ModelSpec, data: ModelData, state: GibbsState,
+             shard=None):
     """Stacked factor design (C, ny, K), K = sum_r nf_max_r * ncr_r; columns
     of inactive factors are zeroed (covariate-major ordering per level)."""
-    cols = [state.levels[r].Eta[:, data.levels[r].pi_row]
+    cols = [_eta_rows_src(state.levels[r], shard)[:, data.levels[r].pi_row]
             * state.levels[r].nf_mask[:, None, :] for r in range(spec.nr)]
     if not cols:
-        return state.Z.new_zeros((state.n_chains, spec.ny, 0))
+        return state.Z.new_zeros((state.n_chains, state.Z.shape[1], 0))
     return torch.cat(cols, dim=2)
 
 
@@ -150,8 +171,15 @@ def mixed_z(spec: ModelSpec) -> bool:
     return spec.any_poisson and not fused_z(spec)
 
 
+def _rows(shard):
+    """``(row_off, ny_global)`` of B1's draws: a site mesh rank's block of
+    rows, or ``(0, None)``."""
+    return (shard.site_offset(shard.ny), shard.ny) if _site(shard) \
+        else (0, None)
+
+
 def update_z(spec: ModelSpec, data: ModelData, state: GibbsState, rng=None,
-             E=None, noise=None) -> GibbsState:
+             E=None, noise=None, shard=None) -> GibbsState:
     """Latent-response data augmentation: normal columns copy Y, probit
     columns draw one-sided truncated normals (kernel B1), (lognormal-)
     Poisson columns the Polya-Gamma augmented normal of the NB(r = 1000)
@@ -162,19 +190,22 @@ def update_z(spec: ModelSpec, data: ModelData, state: GibbsState, rng=None,
     :func:`fused_z` holds draws Z with B1's fused form from the current
     state.  ``noise``, per active branch: ``{"u", "eps_pg", "eps_z",
     "eps_na"}``, each (C, ny, ns) (the JAX updater's ``k_tn, k_pg, k_pg2,
-    k_na`` draws)."""
+    k_na`` draws).  On a site mesh the rank draws its rows' cells (B1's
+    counters at their global rows; Poisson columns and missing values are
+    refused there before the first sweep)."""
+    row_off, ny_global = _rows(shard)
     if E is None and fused_z(spec):
         level = None
         if spec.nr:
             lv = state.levels[0]
-            level = (lv.Eta, data.levels[0].pi_row, lv.Lambda[..., 0],
-                     lv.nf_mask)
+            level = (_eta_rows_src(lv, shard), data.levels[0].pi_row,
+                     lv.Lambda[..., 0], lv.nf_mask)
         Z = probit_z_fused(data.X, state.Beta, state.iSigma ** -0.5, data.Y,
                            rng, None if noise is None else noise.get("u"),
-                           level)
+                           level, row_off, ny_global)
         return state.replace(Z=Z)
     if E is None:
-        E = total_loading(spec, data, state)
+        E = total_loading(spec, data, state, shard)
     nz = noise if noise is not None else {}
     fam = data.distr_family
     if mixed_z(spec):
@@ -188,7 +219,8 @@ def update_z(spec: ModelSpec, data: ModelData, state: GibbsState, rng=None,
         Z = torch.where(fam == 1, data.Y, Z)
     std = state.iSigma ** -0.5
     if spec.any_probit:
-        z_tn = truncated_normal_onesided(E, std, data.Y, rng, u=nz.get("u"))
+        z_tn = truncated_normal_onesided(E, std, data.Y, rng, nz.get("u"),
+                                         row_off, ny_global)
         Z = z_tn if one_family else torch.where(fam == 2, z_tn, Z)
     if spec.has_na:
         eps = _noise(noise, "eps_na", lambda: rng.normal(E.shape, E.dtype))
@@ -200,13 +232,17 @@ def update_z(spec: ModelSpec, data: ModelData, state: GibbsState, rng=None,
 # updateBetaLambda, joint (reference R/updateBetaLambda.R)
 # ---------------------------------------------------------------------------
 
-def beta_lambda_inputs(spec: ModelSpec, data: ModelData, state: GibbsState):
+def beta_lambda_inputs(spec: ModelSpec, data: ModelData, state: GibbsState,
+                       shard=None):
     """The joint draw's gram, likelihood right-hand side and stacked factor
     priors: ``(G, rhs_lik, prior_lam)``, G (C, 1, P, P) the chains' shared
     ``XE'XE`` or, with missing values, (C, ns, P, P) a masked gram a
-    species (kernel B6); rhs_lik (C, ns, P); prior_lam (C, K, ns)."""
+    species (kernel B6); rhs_lik (C, ns, P); prior_lam (C, K, ns).  On a
+    site mesh the row contractions are the rank's partials, summed over
+    the ranks (``psum_site``)."""
     C = state.n_chains
-    XE = torch.cat([data.X.expand(C, -1, -1), eta_star(spec, data, state)],
+    XE = torch.cat([data.X.expand(C, -1, -1),
+                    eta_star(spec, data, state, shard)],
                    dim=2)                                # (C, ny, P)
     prior_lam = _stacked_lambda_prior(spec, state)       # (C, K, ns)
     if spec.has_na:
@@ -217,18 +253,21 @@ def beta_lambda_inputs(spec: ModelSpec, data: ModelData, state: GibbsState):
         XEt = XE.transpose(1, 2)
         G = mixed.matmul(XEt, XE)[:, None]               # (C, 1, P, P)
         rhs_lik = mixed.matmul(XEt, state.Z).transpose(1, 2)  # (C, ns, P)
+    if _site(shard):                      # cross-site row contractions
+        G = shard.psum_site(G)
+        rhs_lik = shard.psum_site(rhs_lik)
     return G, rhs_lik, prior_lam
 
 
 def update_beta_lambda(spec: ModelSpec, data: ModelData, state: GibbsState,
-                       rng=None, noise=None) -> GibbsState:
+                       rng=None, noise=None, shard=None) -> GibbsState:
     """Joint (Beta, Lambda) draw: one (nc+K)^2 system per species, all of
     them in one batched draw (kernel B2's BetaLambda form, which forms
     each species' precision and right-hand side itself).  Without missing
     values the species share one gram ``XE'XE``; with them each species
     has its own masked gram and right-hand side (kernel B6).  ``noise``:
     ``{"eps": (C, ns, nc+K)}``."""
-    G, rhs_lik, prior_lam = beta_lambda_inputs(spec, data, state)
+    G, rhs_lik, prior_lam = beta_lambda_inputs(spec, data, state, shard)
     # per-species posterior precision blkdiag(iV, diag(psi*tau)) +
     # iSigma_j G, its right-hand side and the draw: B2's BetaLambda form
     BL = sample_beta_lambda(G, rhs_lik, state.iSigma, state.iV, prior_lam,
@@ -304,13 +343,16 @@ def update_lambda_priors(spec: ModelSpec, data: ModelData, state: GibbsState,
 # updateEta, non-spatial (reference R/updateEta.R)
 # ---------------------------------------------------------------------------
 
-def _level_gram_parts(spec, data, lvd, ls, lv, iSigma, S):
+def _level_gram_parts(spec, data, lvd, ls, lv, iSigma, S, shard=None):
     """A level's per-unit factor precision contributions as ``(G, scale,
     F)``: without missing values every row shares one gram, so G is (C, 1,
     nf, nf) and ``scale`` the units' row counts (np,); with them each row
     has its own masked gram and right-hand side (kernel B6), summed into G
     (C, np, nf, nf), and ``scale`` is None.  F (C, np, nf).  The unit sums
-    are ``index_add_`` over ``pi_row`` (x_dim = 0)."""
+    are ``index_add_`` over ``pi_row`` (x_dim = 0).  On a site mesh the
+    rank's rows sum into every unit and the sums over the ranks complete
+    them (``psum_site``): G and F come back full width on every rank (the
+    shared gram needs no sum: ``unit_count`` counts every rank's rows)."""
     lam = lambda_effective(lv)[..., 0]                   # (C, nf, ns)
     lamT = lam.transpose(1, 2)
     C = lam.shape[0]
@@ -320,6 +362,8 @@ def _level_gram_parts(spec, data, lvd, ls, lv, iSigma, S):
                                bf16=mixed.active())
         G = rows.new_zeros((C, ls.n_units, ls.nf_max, ls.nf_max))
         G.index_add_(1, lvd.pi_row, rows)
+        if _site(shard):
+            G = shard.psum_site(G)
         scale = None
     else:
         G = mixed.matmul(lam * iSigma[:, None, :], lamT)[:, None]
@@ -327,29 +371,45 @@ def _level_gram_parts(spec, data, lvd, ls, lv, iSigma, S):
         Fr = mixed.matmul(S * iSigma[:, None, :], lamT)  # (C, ny, nf)
     F = Fr.new_zeros((C, ls.n_units, ls.nf_max))
     F.index_add_(1, lvd.pi_row, Fr)
+    if _site(shard):
+        F = shard.psum_site(F)
     return G, scale, F
 
 
-def _level_gram(spec, data, lvd, ls, lv, iSigma, S):
+def _level_gram(spec, data, lvd, ls, lv, iSigma, S, shard=None):
     """Per-unit factor precision contributions and RHS (x_dim = 0):
     (LiSL (C, np, nf, nf), F (C, np, nf)), from
     :func:`_level_gram_parts`."""
-    G, scale, F = _level_gram_parts(spec, data, lvd, ls, lv, iSigma, S)
+    G, scale, F = _level_gram_parts(spec, data, lvd, ls, lv, iSigma, S,
+                                    shard)
     return (G if scale is None else scale[:, None, None] * G), F
 
 
 def update_eta_nonspatial(spec, data, state, r: int, rng=None, S=None,
-                          noise=None) -> LevelState:
+                          noise=None, shard=None) -> LevelState:
     """Eta_r | rest for one unstructured level: one nf x nf system per unit,
     ``I + LiSL_u``, all in one batched draw (kernel B2's identity form,
     which scales the shared gram by each unit's row count itself);
-    inactive factors fall back to their N(0,1) prior.  ``noise``:
-    ``{"eps": (C, np, nf)}``."""
+    inactive factors fall back to their N(0,1) prior.  On a site mesh the
+    rank draws its block of units from the full-width grams, each unit's
+    eps the replicated run's (B2's counters at the global unit).
+    ``noise``: ``{"eps": (C, np, nf)}``, full width."""
     lvd, lv, ls = data.levels[r], state.levels[r], spec.levels[r]
     G, scale, F = _level_gram_parts(spec, data, lvd, ls, lv, state.iSigma,
-                                    S)
+                                    S, shard)
     eps = None if noise is None else noise["eps"]
-    return lv.replace(Eta=sample_mvn_prec_shifted(G, F, scale, eps, rng))
+    if not _site(shard):
+        return lv.replace(Eta=sample_mvn_prec_shifted(G, F, scale, eps,
+                                                      rng))
+    F = shard.slice_site(F, 1)
+    if scale is None:
+        G = shard.slice_site(G, 1)
+    else:
+        scale = shard.slice_site(scale, 0)
+    if eps is not None:
+        eps = shard.slice_site(eps, 1)
+    return lv.replace(Eta=sample_mvn_prec_shifted(
+        G, F, scale, eps, rng, shard.site_offset(ls.n_units), ls.n_units))
 
 
 # ---------------------------------------------------------------------------
@@ -357,7 +417,7 @@ def update_eta_nonspatial(spec, data, state, r: int, rng=None, S=None,
 # ---------------------------------------------------------------------------
 
 def interweave_scale(spec: ModelSpec, data: ModelData, state: GibbsState,
-                     rng=None, noise=None) -> GibbsState:
+                     rng=None, noise=None, shard=None) -> GibbsState:
     """Per-factor scale move (Eta_h, Lambda_h) -> (c Eta_h, Lambda_h / c), a
     Metropolis step along the likelihood-invariant scale orbit (see the
     JAX package's docstring).  The prior quadratic is ``eta_h' eta_h``, or
@@ -371,9 +431,11 @@ def interweave_scale(spec: ModelSpec, data: ModelData, state: GibbsState,
         mask = lv.nf_mask
         if ls.spatial is None:
             A = (lv.Eta ** 2).sum(dim=1)                 # (C, nf)
+            if _site(shard):              # cross-site unit sum
+                A = shard.psum_site(A)
         else:
             from .spatial import eta_quad_at
-            A = eta_quad_at(lvd, ls, lv.Eta, lv.alpha_idx, r)
+            A = eta_quad_at(lvd, ls, lv.Eta, lv.alpha_idx, r, shard)
         delta = torch.where(mask[:, :, None] > 0, lv.Delta, 1.0)
         tau = torch.cumprod(delta, dim=1)
         B = (lv.Psi * tau[:, :, None, :] * lv.Lambda ** 2).sum(dim=(2, 3))
@@ -405,7 +467,7 @@ def location_gate(spec: ModelSpec, has_intercept: bool) -> str | None:
 
 
 def interweave_location(spec: ModelSpec, data: ModelData, state: GibbsState,
-                        rng=None, noise=None) -> GibbsState:
+                        rng=None, noise=None, shard=None) -> GibbsState:
     """Per-factor location move (Eta_h, Beta_int) -> (Eta_h + c_h 1,
     Beta_int,j - c_h Lambda_hj): exact Gibbs along the likelihood-invariant
     translation orbit (see the JAX package's docstring); on a spatial level
@@ -427,9 +489,12 @@ def interweave_location(spec: ModelSpec, data: ModelData, state: GibbsState,
         if ls.spatial is None:
             q1 = torch.full_like(mask, float(ls.n_units))
             s = lv.Eta.sum(dim=1)                        # 1' eta_h
+            if _site(shard):              # cross-site unit sum
+                s = shard.psum_site(s)
         else:
             from .spatial import eta_ones_forms_at
-            q1, s = eta_ones_forms_at(lvd, ls, lv.Eta, lv.alpha_idx, r)
+            q1, s = eta_ones_forms_at(lvd, ls, lv.Eta, lv.alpha_idx, r,
+                                      shard)
         G = mixed.matmul(lam, lam.transpose(1, 2))
         bB = mixed.matmul(lam, u[:, :, None])[..., 0]
         P = v00[:, None, None] * G + torch.diag_embed(
@@ -495,16 +560,21 @@ def interweave_da_intercept(spec: ModelSpec, data: ModelData,
 # ---------------------------------------------------------------------------
 
 def update_inv_sigma(spec: ModelSpec, data: ModelData, state: GibbsState,
-                     rng=None, E=None, noise=None) -> GibbsState:
+                     rng=None, E=None, noise=None, shard=None) -> GibbsState:
     """Conjugate residual precisions for the species whose dispersion is
-    estimated (kernel B3); a no-op when none is (probit, fixed sigma).
+    estimated (kernel B3); a no-op when none is (probit, fixed sigma).  On
+    a site mesh the column statistics are summed over the ranks.
     ``noise``: ``{"gamma": (C, ns)}`` unit-rate gamma draws."""
     if not spec.any_estimated_sigma:
         return state
-    Eps = state.Z - (total_loading(spec, data, state) if E is None else E)
+    Eps = state.Z - (total_loading(spec, data, state, shard) if E is None
+                     else E)
     n_obs = data.Ymask.sum(dim=0)
-    shape = data.aSigma + 0.5 * n_obs
     sq = ((Eps * data.Ymask) ** 2).sum(dim=1)            # (C, ns)
+    if _site(shard):                      # cross-site column statistics
+        n_obs = shard.psum_site(n_obs)
+        sq = shard.psum_site(sq)
+    shape = data.aSigma + 0.5 * n_obs
     rate = data.bSigma + 0.5 * sq
     g = _noise(noise, "gamma", lambda: standard_gamma(
         shape.expand(state.n_chains, -1).contiguous(), rng))
@@ -518,13 +588,15 @@ def update_inv_sigma(spec: ModelSpec, data: ModelData, state: GibbsState,
 # ---------------------------------------------------------------------------
 
 def update_nf(spec: ModelSpec, data: ModelData, state: GibbsState, r: int,
-              rng=None, noise=None) -> LevelState:
+              rng=None, noise=None, shard=None) -> LevelState:
     """Burn-in factor adaptation as mask arithmetic: with probability
     1/exp(1 + 5e-4 it) either append one factor (fresh prior draws in the
     next inactive slot) or drop all-shrunk factors (a STABLE compaction
-    permute, so the active block stays a prefix).  ``noise``: ``{"u": (C,)
-    uniforms, "eta": (C, np) normals, "psi": (C, ns, ncr) and "delta": (C,
-    ncr) unit-rate gamma draws}``."""
+    permute, so the active block stays a prefix).  On a site mesh the new
+    factor's Eta column is drawn at the global width and sliced; every
+    statistic reads replicated state.  ``noise``: ``{"u": (C,) uniforms,
+    "eta": (C, np) normals (full width), "psi": (C, ns, ncr) and "delta":
+    (C, ncr) unit-rate gamma draws}``."""
     lvd, lv, ls = data.levels[r], state.levels[r], spec.levels[r]
     C = lv.Eta.shape[0]
     dtype = lv.Eta.dtype
@@ -552,8 +624,12 @@ def update_nf(spec: ModelSpec, data: ModelData, state: GibbsState, r: int,
     onehot = torch.nn.functional.one_hot(slot, ls.nf_max).to(dtype)
     do_add = adapt & add_ok
     sel = torch.where(do_add[:, None], onehot, 0.0)      # (C, nf)
-    new_eta = _noise(noise, "eta", lambda: rng.normal((C, ls.n_units),
-                                                      dtype))
+    if _site(shard):
+        new_eta = (shard.normal(rng, (C, ls.n_units), dtype, 1)
+                   if noise is None else shard.slice_site(noise["eta"], 1))
+    else:
+        new_eta = _noise(noise, "eta", lambda: rng.normal((C, ls.n_units),
+                                                          dtype))
     Eta = lv.Eta * (1 - sel)[:, None, :] + new_eta[:, :, None] * sel[:, None, :]
     half_nu = lvd.nu / 2
     g_psi = _noise(noise, "psi", lambda: standard_gamma(

@@ -102,22 +102,29 @@ def sample_mvn_prec_batched(prec, rhs, eps):
     return out.reshape(rhs.shape)
 
 
-def sample_mvn_prec_shifted(G, rhs, scale=None, eps=None, rng=None):
+def sample_mvn_prec_shifted(G, rhs, scale=None, eps=None, rng=None,
+                            unit_off: int = 0, n_global=None):
     """The unstructured Eta draw's systems: x_b ~ N(prec_b^{-1} rhs_b,
     prec_b^{-1}) with ``prec_b = I + scale_b G_b``.  ``rhs`` (C, n, P);
     ``G`` (C, 1, P, P), one gram a chain (stride 0 over its systems), or
     (C, n, P, P); ``scale`` (n,) or None for 1.  ``eps`` (C, n, P), or None
     to draw it (``rng.normal``; in the kernel, Philox keyed by
-    ``rng.philox()``).  B2's identity form; the plain version is
-    ``scale G + I`` then :func:`sample_mvn_prec_batched`."""
-    P = rhs.shape[-1]
+    ``rng.philox()``).  On a site mesh the n systems are a rank's block of
+    the level's ``n_global`` units, from ``unit_off``: the drawn eps is the
+    replicated run's (the kernel's counters count the global unit, the
+    plain version slices a global-width draw).  B2's identity form; the
+    plain version is ``scale G + I`` then
+    :func:`sample_mvn_prec_batched`."""
+    C, n, P = rhs.shape
     if not rhs.is_cuda or P > _SMALL_P_MAX:
         LiSL = G if scale is None else scale[:, None, None] * G
         prec = LiSL + torch.eye(P, dtype=rhs.dtype, device=rhs.device)
         if eps is None:
-            eps = rng.normal(rhs.shape, rhs.dtype)
+            eps = rng.normal((C, n if n_global is None else n_global, P),
+                             rhs.dtype)[:, unit_off:unit_off + n]
         return sample_mvn_prec_batched(prec, rhs, eps)
-    return _launch(_IDENTITY, G, rhs, eps, rng, scale=scale)
+    return _launch(_IDENTITY, G, rhs, eps, rng, scale=scale,
+                   sys_off=unit_off, nsys_g=n_global)
 
 
 def _beta_lambda_system(G, rhs_lik, iSigma, iV, prior, Gamma, Tr):
@@ -165,8 +172,9 @@ def sample_beta_lambda(G, rhs_lik, iSigma, iV, prior, Gamma, Tr, eps=None,
 
 
 def _launch(form, G, rhs, eps, rng=None, scale=None, iV=None, prior=None,
-            Gamma=None, Tr=None):
-    """One launch of B2 over ``rhs``'s (C, n) systems of size P."""
+            Gamma=None, Tr=None, sys_off: int = 0, nsys_g=None):
+    """One launch of B2 over ``rhs``'s (C, n) systems of size P (Philox
+    counters of systems ``sys_off`` on of ``nsys_g``, default n)."""
     C, n, P = rhs.shape
     dev = rhs.device
     shapes = {"G": (G, ((C, 1, P, P), (C, n, P, P)) if form != _ELEMENT
@@ -206,7 +214,8 @@ def _launch(form, G, rhs, eps, rng=None, scale=None, iV=None, prior=None,
             ptr("G"), int(form != _ELEMENT and G.shape[1] == 1), ptr("scale"),
             int(form == _BETA_LAMBDA), ptr("rhs"), ptr("iV"), ptr("prior"),
             ptr("Gamma"), ptr("Tr"), nc, nt, ptr("eps"), out.data_ptr(),
-            C * n, n, P, form, seed, offset, K.stream_of(rhs))
+            C * n, n, P, form, n if nsys_g is None else int(nsys_g),
+            int(sys_off), seed, offset, K.stream_of(rhs))
     K.check(code, "mvn_prec_small")
     K.launches["mvn_prec_small"] += 1
     return out

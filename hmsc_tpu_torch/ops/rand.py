@@ -173,7 +173,18 @@ def _z_launch_checks(name, tensors):
     return aligned
 
 
-def truncated_normal_onesided(E, std, Y, rng: Rng | None = None, u=None):
+def _row_block_uniform(rng: Rng, C, ny, ns, dtype, row_off, ny_global):
+    """Uniforms for the (C, ny, ns) cells of rows ``row_off`` on: on a site
+    mesh (``ny_global`` given) drawn at the global width and sliced, so a
+    rank's cells get the replicated run's draws."""
+    if ny_global is None:
+        return rng.uniform((C, ny, ns), dtype=dtype)
+    return rng.uniform((C, ny_global, ns),
+                       dtype=dtype)[:, row_off:row_off + ny].contiguous()
+
+
+def truncated_normal_onesided(E, std, Y, rng: Rng | None = None, u=None,
+                              row_off: int = 0, ny_global=None):
     """Z ~ N(E, std^2) truncated to Z > 0 where Y > 0.5 and Z < 0 elsewhere.
 
     ``E`` (C, ny, ns) linear predictors, ``std`` (C, ns) residual standard
@@ -182,7 +193,10 @@ def truncated_normal_onesided(E, std, Y, rng: Rng | None = None, u=None):
     bound the sampler uses (B1's E-reading form).  ``u`` (C, ny, ns)
     injects the uniforms (the JAX op's ``_u`` hook); otherwise the kernel
     draws them from Philox keyed by ``rng.philox()``, and the plain version
-    from ``rng.uniform``.
+    from ``rng.uniform``.  On a site mesh the rows are a rank's block of
+    ``ny_global`` starting at ``row_off``: the kernel draws each cell from
+    its global row's counter and the plain version slices a global-width
+    draw, so each cell gets the replicated run's uniform.
     """
     C, ny, ns = E.shape
     if std.shape != (C, ns) or Y.shape != (ny, ns):
@@ -192,7 +206,8 @@ def truncated_normal_onesided(E, std, Y, rng: Rng | None = None, u=None):
         raise ValueError("truncated_normal_onesided: u must match E")
     if not E.is_cuda:
         if u is None:
-            u = rng.uniform(E.shape, dtype=E.dtype)
+            u = _row_block_uniform(rng, C, ny, ns, E.dtype, row_off,
+                                   ny_global)
         return _truncated_normal_onesided_plain(E, std, Y, u)
     f32 = torch.float32
     Z = torch.empty_like(E)
@@ -207,14 +222,15 @@ def truncated_normal_onesided(E, std, Y, rng: Rng | None = None, u=None):
         code = K.library().hmsc_probit_z(
             E.data_ptr(), std.data_ptr(), Y.data_ptr(),
             None if u is None else u.data_ptr(), Z.data_ptr(), C, ny, ns, lg,
-            int(aligned and ns % 4 == 0), seed, offset, K.stream_of(E))
+            int(aligned and ns % 4 == 0), int(row_off), seed, offset,
+            K.stream_of(E))
     K.check(code, "probit_z")
     K.launches["probit_z"] += 1
     return Z
 
 
 def probit_z_fused(X, Beta, std, Y, rng: Rng | None = None, u=None,
-                   level=None):
+                   level=None, row_off: int = 0, ny_global=None):
     """B1's fused form: the probit Z draw of :func:`truncated_normal_onesided`
     at the linear predictor ``E = X Beta + Eta[:, pi] (Lambda * mask)``,
     formed inside the kernel, so E is never written.
@@ -226,7 +242,10 @@ def probit_z_fused(X, Beta, std, Y, rng: Rng | None = None, u=None,
     ``u`` (C, ny, ns) injects the uniforms.  The plain version forms E as
     ``updaters.total_loading`` does, then runs the plain truncated normal;
     the kernel draws the same uniforms from the same Philox counters as the
-    E-reading form."""
+    E-reading form.  On a site mesh ``X``, ``Y`` and ``pi`` are a rank's
+    block of rows (from ``row_off`` of ``ny_global``) and Eta the level's
+    whole, gathered: the uniforms are drawn as
+    :func:`truncated_normal_onesided` draws them there."""
     C, nc, ns = Beta.shape
     ny = X.shape[0]
     if X.shape != (ny, nc) or std.shape != (C, ns) or Y.shape != (ny, ns):
@@ -251,7 +270,8 @@ def probit_z_fused(X, Beta, std, Y, rng: Rng | None = None, u=None,
         raise ValueError("probit_z_fused: u must be (C, ny, ns)")
     if not Beta.is_cuda:
         if u is None:
-            u = rng.uniform((C, ny, ns), dtype=Beta.dtype)
+            u = _row_block_uniform(rng, C, ny, ns, Beta.dtype, row_off,
+                                   ny_global)
         return _probit_z_fused_plain(X, Beta, std, Y, u, level)
     f32 = torch.float32
     Z = Beta.new_empty((C, ny, ns))
@@ -276,7 +296,8 @@ def probit_z_fused(X, Beta, std, Y, rng: Rng | None = None, u=None,
             X.data_ptr(), Beta.data_ptr(), eta_p, pi_p, lam_p, mask_p,
             std.data_ptr(), Y.data_ptr(), u_p, Z.data_ptr(),
             (ctypes.c_longlong * 13)(*strides), C, ny, ns, nc, nf, lg,
-            int(aligned and ns % 4 == 0), seed, offset, K.stream_of(Z))
+            int(aligned and ns % 4 == 0), int(row_off), seed, offset,
+            K.stream_of(Z))
     K.check(code, "probit_z_fused")
     K.launches["probit_z_fused"] += 1
     return Z

@@ -7,6 +7,10 @@ wrappers:
   (``csrc/vecchia_apply.cu``; the JAX package's ``vecchia_ops``), and
   :func:`vecchia_cg`, the CG Eta draw's whole solve in one launch (the JAX
   package's ``vecchia_cg_draw``, its loop on the device);
+- B8e :func:`vecchia_site_riw_t`, :func:`vecchia_site_pmv` — one site
+  mesh rank's partials of ``RiW' u`` and ``P x`` from its block of the
+  level's rows (``csrc/vecchia_site.cu``; the JAX package's
+  ``vecchia_ops_site`` before its psum);
 - B8b :func:`nngp_quad_grid`, :func:`nngp_quad_at` — the prior quadratics
   over the alpha grid, or at each factor's alpha with the location move's
   ones-forms (``csrc/nngp_quad.cu``; ``eta_quad_grid``, ``eta_quad_at``,
@@ -54,6 +58,7 @@ from .linalg import chol_spd
 from .mixed import round_bf16
 
 __all__ = ["vecchia_riw", "vecchia_riw_t", "vecchia_pmv", "vecchia_cg",
+           "vecchia_site_riw_t", "vecchia_site_pmv",
            "cg_geometry", "cg_frozen", "nngp_quad_grid",
            "nngp_quad_at", "nngp_riw_dense", "iw_geometry", "gpp_unit",
            "gpp_knot", "gpp_quad_grid", "gpp_quad_at", "gpp_alpha_zero",
@@ -156,6 +161,95 @@ def vecchia_pmv(lvd, alpha_idx, x, LiSL):
     RiW'(RiW x) + LiSL x`` (two launches of B8a on the card)."""
     t = vecchia_riw(lvd, alpha_idx, x, twice=True)
     return vecchia_riw_t(lvd, alpha_idx, t, LiSL, x, scaled=True)
+
+
+# ---------------------------------------------------------------------------
+# B8e: a site mesh rank's partial of the Vecchia applies
+# ---------------------------------------------------------------------------
+
+def vecchia_site_riw_t(lvd, alpha_idx, u, n_units: int, offset: int):
+    """A rank's partial of ``RiW' u``: ``lvd`` is its block of an NNGP
+    level's rows (``structs.site_slice_data``: lists with global
+    indices, grids, the local reverse-neighbour CSR), ``u`` (C, np_l, nf)
+    its rows' values, the block starting at unit ``offset`` of
+    ``n_units``.  Returns the full-width (C, n_units, nf) partial; summed
+    over the ranks it is :func:`vecchia_riw_t` of the whole ``u``."""
+    return _vecchia_site(lvd, alpha_idx, None, u, None, n_units, offset)
+
+
+def vecchia_site_pmv(lvd, alpha_idx, x, LiSL, offset: int):
+    """A rank's partial of ``P x = RiW'(RiW x) + LiSL x``: ``x`` (C, np,
+    nf) the full iterate, ``LiSL`` (C, np_l, nf, nf) the rank's block of
+    the per-unit gram, ``lvd`` and ``offset`` as for
+    :func:`vecchia_site_riw_t`.  Summed over the ranks it is
+    :func:`vecchia_pmv`."""
+    return _vecchia_site(lvd, alpha_idx, x, None, LiSL, x.shape[1], offset)
+
+
+def _vecchia_site(lvd, alpha_idx, x, u, LiSL, npr, off):
+    """B8e, two launches (the rank's rows' t, then every global row from
+    the local reverse CSR); the plain version on the CPU."""
+    src = x if x is not None else u
+    if not src.is_cuda:
+        return _vecchia_site_plain(lvd, alpha_idx, x, u, LiSL, npr, off)
+    np_l, k = lvd.nn_idx.shape
+    C, nf = alpha_idx.shape
+    if not 0 <= off <= npr - np_l or lvd.rev_ptr.shape != (npr + 1,):
+        raise ValueError(f"vecchia_site: rows {off} to {off + np_l} of "
+                         f"{npr} with a reverse CSR of "
+                         f"{tuple(lvd.rev_ptr.shape)}")
+    extra = (("rev_ptr", lvd.rev_ptr, torch.int32),
+             ("rev_pos", lvd.rev_pos, torch.int32))
+    if x is not None:
+        if x.shape != (C, npr, nf) or LiSL.shape != (C, np_l, nf, nf):
+            raise ValueError("vecchia_site_pmv: x must be (C, np, nf) and "
+                             "LiSL (C, np_l, nf, nf)")
+        extra += (("x", x, torch.float32), ("LiSL", LiSL, torch.float32))
+    elif u.shape != (C, np_l, nf):
+        raise ValueError("vecchia_site_riw_t: u must be (C, np_l, nf)")
+    else:
+        extra += (("u", u, torch.float32),)
+    _check("vecchia_site", lvd, alpha_idx, *extra)
+    t = src.new_empty((C, np_l, nf))
+    out = src.new_empty((C, npr, nf))
+    ptr = lambda v: None if v is None else v.data_ptr()
+    with torch.cuda.device(src.device):
+        code = K.library().hmsc_vecchia_site(
+            ptr(x), ptr(u), lvd.nn_idx.data_ptr(), lvd.nn_coef.data_ptr(),
+            lvd.nn_D.data_ptr(), alpha_idx.data_ptr(),
+            lvd.rev_ptr.data_ptr(), lvd.rev_pos.data_ptr(), ptr(LiSL),
+            t.data_ptr(), out.data_ptr(), C, npr, np_l, int(off), nf, k,
+            K.stream_of(src))
+    K.check(code, "vecchia_site")
+    K.launches["vecchia_site"] += 1
+    return out
+
+
+def _vecchia_site_plain(lvd, alpha_idx, x, u, LiSL, npr, off):
+    """The JAX ``vecchia_ops_site`` per chain, before its psum: the local
+    rows' t (the forward at the global neighbours for ``pmv``), the
+    products scattered with a segment sum over the global units, plus the
+    rank's own rows' t (+ ``LiSL x``) at their offset."""
+    coef, D = _grid_at(lvd, alpha_idx)                   # (C, nf, np_l, k)
+    sqD = torch.sqrt(D).transpose(1, 2)                  # (C, np_l, nf)
+    C, np_l, nf = sqD.shape
+    k = lvd.nn_idx.shape[1]
+    nn = lvd.nn_idx.long()
+    if x is not None:
+        x_l = x[:, off:off + np_l]
+        red = torch.einsum("cfik,cikf->cif", coef, x[:, nn])
+        t = (x_l - red) / sqD / sqD
+    else:
+        t = u / sqD
+    contrib = -torch.einsum("cfik,cif->cikf", coef, t).reshape(C, np_l * k,
+                                                                nf)
+    seg = t.new_zeros((C, npr, nf))
+    seg.index_add_(1, nn.reshape(-1), contrib)
+    own = t if LiSL is None else t + torch.einsum("cufg,cug->cuf", LiSL,
+                                                  x_l)
+    full = t.new_zeros((C, npr, nf))
+    full[:, off:off + np_l] = own
+    return seg + full
 
 
 def _vecchia_riw_plain(lvd, alpha_idx, x, twice):
@@ -350,14 +444,14 @@ def quad_at_geometry(npr: int) -> dict:
     return dict(S=S, units=units, threads=128 if units <= 128 else 256)
 
 
-def _check_unit_last(name, lvd, eta):
+def _check_unit_last(name, lvd, eta, u_off=0):
     """:func:`_check` of grid mode's operands: the level's unit-last lists
     and grid, their shapes those of ``nn_idx`` and ``nn_coef`` with the
-    unit last, and eta."""
+    unit last, and eta, whose units ``u_off`` on are the grids'."""
     G, npr, k = lvd.nn_coef.shape
     if (tuple(lvd.nn_idx_u.shape) != (k, npr)
             or tuple(lvd.nn_coef_u.shape) != (G, k, npr)
-            or eta.dim() != 3 or eta.shape[1] != npr):
+            or eta.dim() != 3 or not 0 <= u_off <= eta.shape[1] - npr):
         raise ValueError(f"{name}: nn_idx_u must be (k, np) = {(k, npr)}, "
                          f"nn_coef_u (G, k, np) = {(G, k, npr)} and eta (C, "
                          f"np, nf), got {tuple(lvd.nn_idx_u.shape)}, "
@@ -367,41 +461,48 @@ def _check_unit_last(name, lvd, eta):
            ("nn_coef_u", lvd.nn_coef_u, torch.float32))
 
 
-def nngp_quad_grid(lvd, eta):
+def nngp_quad_grid(lvd, eta, u_off: int = 0):
     """``v[c, f, g] = eta_cf' iW_g eta_cf`` for every grid point g: the
-    Vecchia residuals' squares over D, summed over units.  (C, nf, G)."""
+    Vecchia residuals' squares over D, summed over units.  (C, nf, G).
+    On a site mesh ``lvd`` is a rank's block of the level's units, ``eta``
+    the level's whole and ``u_off`` the block's first unit: the sum runs
+    over the block (the rank's partial, which the caller sums over the
+    ranks)."""
     if not eta.is_cuda:
-        return _nngp_quad_grid_plain(lvd, eta)
-    C, npr, nf = eta.shape
-    G, _, k = lvd.nn_coef.shape
-    _check_unit_last("nngp_quad_grid", lvd, eta)
+        return _nngp_quad_grid_plain(lvd, eta, u_off)
+    C, np_eta, nf = eta.shape
+    G, npr, k = lvd.nn_coef.shape
+    _check_unit_last("nngp_quad_grid", lvd, eta, u_off)
     out = eta.new_empty((C, nf, G))
-    q = quad_geometry(C, npr, nf)
+    q = quad_geometry(C, np_eta, nf)
     with torch.cuda.device(eta.device):
         code = K.library().hmsc_nngp_quad_grid(
             eta.data_ptr(), lvd.nn_idx_u.data_ptr(), lvd.nn_coef_u.data_ptr(),
             lvd.nn_D.data_ptr(), out.data_ptr(), C, npr, nf, k, G,
-            int(q["eta_smem"]), K.stream_of(eta))
+            int(q["eta_smem"]), np_eta, int(u_off), K.stream_of(eta))
     K.check(code, "nngp_quad")
     K.launches["nngp_quad"] += 1
     return out
 
 
-def nngp_quad_at(lvd, alpha_idx, eta, coef=None, D=None):
+def nngp_quad_at(lvd, alpha_idx, eta, coef=None, D=None, u_off: int = 0):
     """At each factor's alpha: ``(q, q1, s)`` = (``eta' iW eta``, ``1' iW
     1``, ``1' iW eta``), stacked on the last axis: (C, nf, 3).  ``coef``
     and ``D``, the bfloat16 shadows of the grids, select the bf16-grid
     form (the neighbours' eta rounded to bfloat16 in the prediction,
-    ``sqrt(D)`` rounded in the ones-forms)."""
+    ``sqrt(D)`` rounded in the ones-forms).  ``u_off``: a site mesh's
+    rank's partial over its block of units, as :func:`nngp_quad_grid`."""
     coef, D, bf16 = _bf16_grids(lvd, coef, D)
     if not eta.is_cuda:
         if bf16:
             return _nngp_quad_at_bf16_plain(lvd, alpha_idx, eta, coef, D)
-        return _nngp_quad_at_plain(lvd, alpha_idx, eta, coef, D)
-    C, npr, nf = eta.shape
-    if eta.dim() != 3 or npr != lvd.nn_idx.shape[0]:
-        raise ValueError(f"nngp_quad_at: eta must be (C, np, nf) with np "
-                         f"{lvd.nn_idx.shape[0]}, got {tuple(eta.shape)}")
+        return _nngp_quad_at_plain(lvd, alpha_idx, eta, coef, D, u_off)
+    C, np_eta, nf = eta.shape
+    npr = lvd.nn_idx.shape[0]
+    if eta.dim() != 3 or not 0 <= u_off <= np_eta - npr:
+        raise ValueError(f"nngp_quad_at: eta must be (C, np, nf) holding "
+                         f"units {u_off} to {u_off + npr}, got "
+                         f"{tuple(eta.shape)}")
     _check("nngp_quad_at", lvd, alpha_idx, ("eta", eta, torch.float32))
     if coef.shape != lvd.nn_coef.shape or D.shape != lvd.nn_D.shape or (
             coef.device != eta.device or D.device != eta.device):
@@ -414,17 +515,23 @@ def nngp_quad_at(lvd, alpha_idx, eta, coef=None, D=None):
             eta.data_ptr(), lvd.nn_idx.data_ptr(), coef.data_ptr(),
             D.data_ptr(), alpha_idx.data_ptr(), out.data_ptr(), C,
             npr, nf, lvd.nn_idx.shape[1], q["S"], q["units"], q["threads"],
-            int(bf16), K.stream_of(eta))
+            int(bf16), np_eta, int(u_off), K.stream_of(eta))
     K.check(code, "nngp_quad")
     K.launches["nngp_quad"] += 1
     return out
 
 
-def _nngp_quad_grid_plain(lvd, eta):
+def _own_units(lvd, eta, u_off):
+    """The units of ``eta`` the level's (or a rank's block's) rows are."""
+    return eta[:, u_off:u_off + lvd.nn_idx.shape[0]]
+
+
+def _nngp_quad_grid_plain(lvd, eta, u_off=0):
     """The NNGP branch of the JAX ``eta_quad_grid``, per chain."""
     eta_nn = eta[:, lvd.nn_idx.long()]                   # (C, np, k, nf)
     pred = torch.einsum("gik,cikh->chgi", lvd.nn_coef, eta_nn)
-    res = eta.transpose(1, 2)[:, :, None, :] - pred      # (C, nf, G, np)
+    res = (_own_units(lvd, eta, u_off).transpose(1, 2)[:, :, None, :]
+           - pred)                                       # (C, nf, G, np)
     return (res ** 2 / lvd.nn_D[None, None]).sum(dim=3)
 
 
@@ -445,12 +552,12 @@ def _nngp_quad_at_bf16_plain(lvd, alpha_idx, eta, coef16, D16):
                        dim=2)
 
 
-def _nngp_quad_at_plain(lvd, alpha_idx, eta, coef=None, D=None):
+def _nngp_quad_at_plain(lvd, alpha_idx, eta, coef=None, D=None, u_off=0):
     """The NNGP branches of the JAX ``eta_quad_at`` and
     ``eta_ones_forms_at``, per chain."""
     coef, D = _grid_at(lvd, alpha_idx, coef, D)          # (C, nf, np, k)
     pred = torch.einsum("chik,cikh->chi", coef, eta[:, lvd.nn_idx.long()])
-    res = eta.transpose(1, 2) - pred                     # (C, nf, np)
+    res = _own_units(lvd, eta, u_off).transpose(1, 2) - pred  # (C, nf, np)
     q = (res ** 2 / D).sum(dim=2)
     sqD = torch.sqrt(D)
     r1 = (1.0 - coef.sum(dim=3)) / sqD

@@ -43,6 +43,7 @@ class Posterior:
                          (next(iter(self.arrays.values())).shape[0]
                           if len(self.arrays) else 0))
         self.timing = None          # {"setup_s", "run_s"} set by sample_mcmc
+        self.site_shards = 1        # ranks of the site mesh that sampled it
         # the run's mixed-precision policy (PrecisionPolicy.to_meta(), None
         # for the exact engine), set by sample_mcmc: it changes the draws
         self.precision_policy = None

@@ -94,6 +94,7 @@ def main(argv=None) -> int:
         "poisson_z": lambda: cs.check_b5(torch, rand, dev, card),
         "masked_gram": lambda: cs.check_b6(torch, gram, dev, card),
         "vecchia_apply": lambda: cs.check_b8a(torch, spatial, dev, card),
+        "vecchia_site": lambda: cs.check_b8e(torch, spatial, dev, card),
         "nngp_quad": lambda: cs.check_b8b(torch, spatial, dev, card),
         "nngp_riw": lambda: cs.check_b8c(torch, spatial, dev, card),
         "truncnorm_da": lambda: cs.check_b7(torch, rand, dev, card),

@@ -20,6 +20,7 @@ from hmsc_tpu.precompute import compute_data_parameters as j_cdp
 import hmsc_tpu_torch
 from hmsc_tpu_torch.mcmc import structs as tstructs
 from hmsc_tpu_torch.precompute import compute_data_parameters as t_cdp
+from hmsc_tpu_torch.utils.mesh import Mesh
 
 pytestmark = pytest.mark.torch
 torch.set_num_threads(1)
@@ -227,7 +228,8 @@ def test_features_outside_the_slice_raise(case):
 
 
 @pytest.mark.parametrize("arg", [{"precision_policy": {"blocks": ["Alpha"]}},
-                                 {"mesh": object()},
+                                 # a mesh runs the site axis only (A9.3)
+                                 {"mesh": Mesh(species_shards=2)},
                                  {"checkpoint_every": 5},
                                  {"updater": {"Gamma2": True}}])
 def test_options_outside_the_slice_raise(arg):
